@@ -1,0 +1,95 @@
+"""Experiment configuration, the counterpart of vmc_pde_tpu/config.py for
+the ported presets. Field names and defaults follow the JAX package's
+RunConfig; fields of paths not ported yet are left out, and ``device``
+is new: the port runs on one explicit torch device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+
+@dataclasses.dataclass
+class RunConfig:
+    # problem
+    name: str = "mwe"
+    dim: int = 2
+    offset: Tuple[float, ...] = (0.0, 0.0)
+    equation: str = "diffusion"
+    equation_params: dict = dataclasses.field(default_factory=dict)
+
+    # model (depth 4, hidden (dim//2,))
+    depth: int = 4
+    hidden: Optional[Tuple[int, ...]] = None
+    variant: str = "scale"
+    global_affine: bool = False
+    latent_name: str = "Gauss"
+    alpha: float = 10.0
+    init_scale: float = 1e-5
+    seed: int = 1
+
+    # sampling
+    sample_seed: int = 1
+    n_samples_tdvp: int = 10000
+    n_samples_obs: int = 10000
+
+    # TDVP solver (solver/tdvp.py TDVPConfig)
+    use_snr: bool = False
+    snr_tol: float = 2.0
+    svd_tol: float = 1e-11
+    diagonal_shift: float = 0.0
+    solver_method: str = "auto"     # auto | eigh | cholesky
+    eigh_max_params: int = 2048
+    gram_precision: str = "high"
+    hessian_mode: str = "auto"
+    # auto | torch | cuda (the JAX package's xla | pallas)
+    per_sample_backend: str = "auto"
+    auto_tol_floor: bool = True
+
+    # time integration
+    stepper: str = "fixed_heun"
+    dt0: float = 1e-7
+    max_step: float = 1e-2
+    increase_fac: float = 1.3
+    t_end: float = 5.0
+
+    # runtime
+    precision: str = "tpu"          # tpu | tpu_f64stats | f32 | f64
+    device: str = "cuda"            # torch device; cuda raises without one
+
+    # diagnostics / io
+    grid_bound: float = 10.0
+    sym_grid: bool = True
+    grid_points: int = 200
+    plot_every: float = 1.0
+    workdir: Optional[str] = None
+    nan_check_every: int = 10
+    verbose: bool = True
+
+    def hidden_resolved(self) -> Tuple[int, ...]:
+        return tuple(self.hidden) if self.hidden else (max(self.dim // 2, 1),)
+
+
+PRESETS = {
+    # 2-D Gaussian diffusion, the reference's minimal example
+    "mwe": RunConfig(
+        name="mwe", dim=2, offset=(0.0, 0.0), latent_name="Gauss",
+        equation="diffusion", variant="scale",
+        dt0=1e-7, max_step=1e-2, grid_bound=10.0,
+    ),
+    # d=32 interacting Ornstein-Uhlenbeck Fokker-Planck: 16 (q, p) pairs on
+    # a nearest-neighbour coupled ring, momentum damping and diffusion
+    # toward a T=10 bath; P = 9264 parameters
+    "fokkerPlanck32": RunConfig(
+        name="fokkerPlanck32", dim=32, offset=(0.0,) * 32,
+        latent_name="Gauss", equation="advection_hamiltonian_wDiss",
+        equation_params={"T": 10.0, "coupled": True},
+        variant="affine", n_samples_tdvp=16384, n_samples_obs=16384,
+        dt0=2e-3, max_step=2e-3, t_end=1.0, grid_bound=10.0,
+    ),
+}
+
+
+def preset(name: str, **overrides) -> RunConfig:
+    return dataclasses.replace(PRESETS[name], **overrides)

@@ -1,0 +1,188 @@
+"""Experiment driver, the counterpart of vmc_pde_tpu/driver.py: wires
+sampler -> state -> TDVP -> stepper and runs the time evolution, recording
+the reference-compatible infos schema.
+
+    python -m vmc_pde_torch.driver fokkerPlanck32 --max-steps 5
+    python -m vmc_pde_torch.driver mwe --precision f64 --device cpu
+
+``--device`` defaults to cuda and raises when no CUDA device is present;
+pass ``--device cpu`` to run on the CPU.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+import torch
+
+from .config import RunConfig
+from .models.flow import build_flow
+from .models.state import VarState
+from .ops.evolution import make_equation
+from .sampling.sampler import Sampler
+from .solver.steppers import FixedStepper
+from .solver.tdvp import TDVP, TDVPConfig, fold_in
+from .utils import dtypes
+from .utils.grid import Grid
+from .utils.infos import InfoRecorder, store_infos
+
+
+def resolve_device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} requested but no CUDA device is "
+                           "available (pass --device cpu to run on the CPU)")
+    return device
+
+
+def build_problem(cfg: RunConfig):
+    """Construct (state, tdvp, stepper, equation, grid) from a RunConfig."""
+    device = resolve_device(cfg.device)
+    precision = dtypes.resolve(cfg.precision)
+    sampler = Sampler(dim=cfg.dim, name=cfg.latent_name,
+                      dtype=precision.compute)
+    flow, theta = build_flow(
+        cfg.seed, cfg.dim, depth=cfg.depth, hidden=cfg.hidden_resolved(),
+        variant=cfg.variant, global_affine=cfg.global_affine,
+        latent_name=cfg.latent_name, offset=cfg.offset, alpha=cfg.alpha,
+        out_scale=cfg.init_scale, dtype=precision.compute, device=device)
+    state = VarState(flow, theta, sampler=sampler, precision=precision)
+    equation = make_equation(cfg.equation, cfg.dim, **cfg.equation_params)
+    tdvp_cfg = TDVPConfig(
+        use_snr=cfg.use_snr, snr_tol=cfg.snr_tol, svd_tol=cfg.svd_tol,
+        diagonal_shift=cfg.diagonal_shift, solver_method=cfg.solver_method,
+        eigh_max_params=cfg.eigh_max_params,
+        gram_precision=cfg.gram_precision,
+        per_sample_backend=cfg.per_sample_backend,
+        hessian_mode=cfg.hessian_mode, auto_tol_floor=cfg.auto_tol_floor)
+    tdvp = TDVP(state, equation, tdvp_cfg, n_samples=cfg.n_samples_tdvp,
+                n_samples_obs=cfg.n_samples_obs, precision=precision)
+    if cfg.stepper != "fixed_heun":
+        raise NotImplementedError(
+            f"stepper {cfg.stepper!r} is not ported yet (ROADMAP.md)")
+    stepper = FixedStepper(timeStep=cfg.dt0, maxStep=cfg.max_step,
+                           increase_fac=cfg.increase_fac,
+                           pair_fn=tdvp.heun_pair)
+    grid = None
+    if cfg.dim == 2:
+        grid = Grid(np.ones(2) * cfg.grid_bound, cfg.grid_points,
+                    sym=cfg.sym_grid)
+    return state, tdvp, stepper, equation, grid
+
+
+def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
+    """Run the time evolution; returns (state, InfoRecorder). Each
+    callback is called as cb(n_step, t, state, info) after every step."""
+    state, tdvp, stepper, _, grid = build_problem(cfg)
+    rec = InfoRecorder()
+    wdir = cfg.workdir
+    if wdir:
+        os.makedirs(wdir, exist_ok=True)
+
+    # NaN aborts are checked every nan_check_every steps (each check waits
+    # for the device)
+    pending_nan = []
+
+    def check_nan():
+        for flag, t_at in pending_nan:
+            if bool(flag):
+                raise FloatingPointError(
+                    f"NaN encountered in TDVP update at t={t_at}")
+        pending_nan.clear()
+
+    theta = state.get_parameters()
+    t = 0.0
+    dt = stepper.dt
+    n_step = 0
+    key = cfg.sample_seed + 7
+    plotted = set()
+    if grid is not None and cfg.verbose:
+        print("Initial grid integral:", float(state.integrate(grid)))
+
+    while t < cfg.t_end + dt and n_step < max_steps:
+        t0 = time.perf_counter()
+        res = stepper.step(t, tdvp.rhs, theta, fold_in(key, n_step))
+        theta, dt, info = res.y, res.dt_used, res.info
+        pending_nan.append((info["nan"], t))
+        state.set_parameters(theta)
+
+        rec.append("times", t)
+        rec.append_dict(info)
+        rec.append("dist_params", state.params["latent"]["dist_params"])
+
+        if cfg.verbose:
+            check_nan()
+            res_f = float(info["solver_res"])  # waits for the device
+            print(f"t = {t:.4f}, dt = {dt:e}  "
+                  f"[{time.perf_counter() - t0:.3f}s]")
+            print(f"\t > Solver Residual = {res_f:.3e}")
+            print(f"\t > TDVP Error = {float(info['tdvp_error']):.3e}")
+            print(f"\t > Entropy = {float(info['entropy']):.6f}")
+        elif n_step % max(cfg.nan_check_every, 1) == 0:
+            check_nan()
+
+        n = round(t / cfg.plot_every)
+        if (grid is not None and abs(t - n * cfg.plot_every) < dt
+                and n not in plotted):
+            plotted.add(n)
+            integral = float(state.integrate(grid))
+            rec.append("grid_integral_t", t)
+            rec.append("grid_integral", integral)
+            if cfg.verbose:
+                print("Grid integral:", integral)
+
+        for cb in callbacks:
+            cb(n_step, t, state, info)
+        t += dt
+        n_step += 1
+
+    check_nan()
+    rec.flush()
+    if wdir:
+        store_infos(wdir, rec)
+    return state, rec
+
+
+def main(argv=None, callbacks=()):
+    import argparse
+
+    from .config import PRESETS, preset
+
+    p = argparse.ArgumentParser(description="VMC-PDE solver (PyTorch port)")
+    p.add_argument("mode", choices=sorted(PRESETS), nargs="?", default="mwe")
+    p.add_argument("--samples", type=int, default=None)
+    p.add_argument("--t-end", type=float, default=None)
+    p.add_argument("--max-steps", type=int, default=10**9)
+    p.add_argument("--precision", type=str, default=None,
+                   choices=["tpu", "tpu_f64stats", "f32", "f64"])
+    p.add_argument("--workdir", type=str, default=None,
+                   help="write infos.hdf5 here (needs h5py)")
+    p.add_argument("--per-sample-backend", type=str, default=None,
+                   choices=["auto", "torch", "cuda"],
+                   help="per-sample pipeline: cuda = the hand-written "
+                        "kernel (kernels/persample.py), torch = the "
+                        "torch.func pipeline")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device (default cuda; raises without one)")
+    args = p.parse_args(argv)
+
+    overrides = {"device": args.device}
+    if args.samples is not None:
+        overrides["n_samples_tdvp"] = args.samples
+        overrides["n_samples_obs"] = args.samples
+    if args.t_end is not None:
+        overrides["t_end"] = args.t_end
+    if args.precision is not None:
+        overrides["precision"] = args.precision
+    if args.workdir is not None:
+        overrides["workdir"] = args.workdir
+    if args.per_sample_backend is not None:
+        overrides["per_sample_backend"] = args.per_sample_backend
+    return run(preset(args.mode, **overrides), max_steps=args.max_steps,
+               callbacks=callbacks)
+
+
+if __name__ == "__main__":
+    main()

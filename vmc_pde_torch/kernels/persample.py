@@ -1,0 +1,214 @@
+"""Per-sample statistics of the flow: logp, coordinate score g, Hessian
+quadratic trace and the O row, for a batch of samples.
+
+``per_sample_cuda`` launches the hand-written CUDA kernel in
+csrc/persample.cu. It replaces the TPU kernel
+vmc_pde_tpu/kernels/persample.py::make_per_sample_pallas in plain mode
+(f32 O), and computes the same mathematics as its reference functions
+``_forward``, ``_backward`` and ``_tile_quad_jet``. ``per_sample_plain``
+is the torch.func pipeline of ops/score.py with the same signature.
+``per_sample`` takes the plain version only for a tensor on the CPU; for
+a CUDA tensor it launches the kernel or raises.
+
+What bounds the kernel on the card: the (P, N) f32 O store. At the
+fokkerPlanck32 shape (P = 9264, N = 16384) that is 607 MB per right-hand
+side, about 0.2 ms at the H100's 3.35 TB/s, against roughly 5 GFLOP of
+scalar f32 work (the 16 second-order jets dominate). The design:
+
+- one thread per sample; the parameters, the latent inverse factor W, the
+  trace directions and the block plan sit in shared memory (about 46 KB at
+  that shape), read as warp-wide broadcasts;
+- O is written FEATURE-MAJOR (P, N), so the 32 samples of a warp store to
+  32 neighbouring addresses; the wrapper returns the ``.T`` view, which
+  ``torch.matmul`` consumes without a copy;
+- the forward activations the backward and the jets reuse go to a
+  feature-major (n_saves, N) scratch buffer, coalesced the same way;
+- W = U^{-1} depends on theta only: the wrapper computes it once per
+  launch with ``torch.linalg.solve_triangular``;
+- the ragged tail is masked (threads past N exit after the shared-memory
+  load), so any N runs -- the TPU wrapper needs N % tile == 0.
+
+The TPU layout tricks are not carried over: no bf16 hi/lo split matmuls
+(plain f32 FMAs), no 0/1 selection matrices (direct indexing), no fused
+(s, t) conditioner pair, no outer-product relayouts.
+
+Scope (``supports``): Gauss latent, all four coupling variants, no global
+affine, trace-mode Hessians, f32, dim <= 64, layer widths <= 64, at most
+MAX_LAYERS linear layers per conditioner, and shared memory within the
+card's 227 KB per block.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..models import latent
+from ..ops import score
+
+# Block-plan format shared with csrc/persample.cu (same constants there).
+HDR = 16
+MAX_DIM = 64
+MAX_HALF = 32
+MAX_WIDTH = 64
+MAX_LAYERS = 4
+NET_REC = 5 * MAX_LAYERS
+BLOCK_REC = 8 + 4 * NET_REC + 2 * MAX_HALF
+NETS = ("s1", "s2", "t1", "t2")
+VARIANT_CODES = {"additive": 0, "affine": 1, "scale": 2, "scale_shift": 3}
+SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+
+
+def _smem_bytes(flow, n_dirs: int) -> int:
+    d = flow.dim
+    n_fconst = d * d + d + n_dirs * d + len(flow.blocks)
+    n_meta = HDR + len(flow.blocks) * BLOCK_REC
+    return 4 * (flow.layout.size + n_fconst + n_meta)
+
+
+def supports(flow, hess_dirs: Optional[np.ndarray], hess_idx) -> bool:
+    """Static capability check for the CUDA kernel."""
+    n_dirs = 0 if hess_dirs is None else int(np.shape(hess_dirs)[0])
+    return (
+        flow.latent_name == "Gauss"
+        and (hess_idx is None or hess_dirs is not None)  # trace mode only
+        and flow.dim <= MAX_DIM
+        and all(not s.global_affine
+                and len(s.hidden) + 1 <= MAX_LAYERS
+                and max((*s.hidden, len(s.ind_up), len(s.ind_down)))
+                <= MAX_WIDTH
+                for s in flow.blocks)
+        and _smem_bytes(flow, n_dirs) <= SMEM_LIMIT
+    )
+
+
+def block_plan(flow, n_dirs: int):
+    """(meta int32 array, n_saves): the flow's block plan in the format
+    csrc/persample.cu reads, and the number of f32 saves per sample.
+
+    meta[:HDR] = d, n_blocks, n_dirs, P, offset of latent L, of L_diag,
+    of mu, n_saves. Then one BLOCK_REC record per block: variant, n_up,
+    n_down, n_layers, save offsets of u1, u2 and v1, a pad slot; for each
+    net (s1, s2, t1, t2) and layer: in, out, bias offset, weight offset
+    and save offset of the layer's tanh output; then ind_up and ind_down,
+    each padded to MAX_HALF."""
+    lay = flow.layout
+    nb = len(flow.blocks)
+    meta = np.zeros(HDR + nb * BLOCK_REC, dtype=np.int32)
+    n_sv = 0
+    for b, spec in enumerate(flow.blocks):
+        r = HDR + b * BLOCK_REC
+        n_up, n_down = len(spec.ind_up), len(spec.ind_down)
+        n_layers = len(spec.hidden) + 1
+        meta[r:r + 4] = (VARIANT_CODES[spec.variant], n_up, n_down,
+                         n_layers)
+        for slot, width in ((4, n_up), (5, n_down), (6, n_up)):
+            meta[r + slot] = n_sv
+            n_sv += width
+        for ni, net in enumerate(NETS):
+            if net not in spec.nets:
+                continue
+            n_in, n_out = spec.net_dims(net)
+            dims = [n_in, *spec.hidden, n_out]
+            for layer in range(n_layers):
+                q = r + 8 + ni * NET_REC + 5 * layer
+                meta[q:q + 5] = (
+                    dims[layer], dims[layer + 1],
+                    lay.offset(("blocks", b, net, "b", layer)),
+                    lay.offset(("blocks", b, net, "w", layer)),
+                    n_sv)
+                n_sv += dims[layer + 1]
+        ind = r + 8 + 4 * NET_REC
+        meta[ind:ind + n_up] = spec.ind_up
+        meta[ind + MAX_HALF:ind + MAX_HALF + n_down] = spec.ind_down
+    meta[:8] = (flow.dim, nb, n_dirs, lay.size,
+                lay.offset(("latent", "L")), lay.offset(("latent", "L_diag")),
+                lay.offset(("latent", "mu")), n_sv)
+    return meta, n_sv
+
+
+def per_sample_plain(flow, theta, x, dirs=None):
+    """(logp (N,), g (N, d), quad (N,) or None, O (N, P)) through the
+    torch.func pipeline (ops/score.py)."""
+    f = score.make_flat_log_prob(flow, flow.layout.unravel)
+    logp, g, O = score.batched_value_score_and_param_grad(f, theta, x)
+    quad = (None if dirs is None
+            else score.batched_quad_trace(f, theta, x, dirs))
+    return logp, g, quad, O
+
+
+def per_sample_cuda(flow, theta, x, dirs=None):
+    """Same outputs as ``per_sample_plain``, from one launch of the CUDA
+    kernel. f32 CUDA tensors only; g and O come back as ``.T`` views of
+    the kernel's feature-major (d, N) and (P, N) outputs."""
+    from . import build
+
+    n_dirs = 0 if dirs is None else int(np.shape(dirs)[0])
+    d, P = flow.dim, flow.layout.size
+    if not supports(flow, dirs, None):
+        raise ValueError("per-sample CUDA kernel does not support this flow "
+                         "(see kernels.persample.supports)")
+    if x.device.type != "cuda" or theta.device != x.device:
+        raise ValueError("per_sample_cuda needs x and theta on one CUDA "
+                         "device")
+    if x.dtype != torch.float32 or theta.dtype != torch.float32:
+        raise ValueError("the per-sample CUDA kernel is f32 only")
+    if x.ndim != 2 or x.shape[1] != d or theta.shape != (P,):
+        raise ValueError(f"expected x (N, {d}) and theta ({P},), got "
+                         f"{tuple(x.shape)} and {tuple(theta.shape)}")
+    if n_dirs and tuple(np.shape(dirs)) != (n_dirs, d):
+        raise ValueError(f"expected directions (k, {d}), got "
+                         f"{tuple(np.shape(dirs))}")
+    n = x.shape[0]
+    if n == 0:
+        raise ValueError("empty batch")
+    dev = x.device
+    x = x.contiguous()
+    theta = theta.contiguous()
+
+    meta_np, n_sv = block_plan(flow, n_dirs)
+    meta = torch.as_tensor(meta_np, device=dev)
+    U = latent.chol_factor(flow.layout.unravel(theta)["latent"], d)
+    W = torch.linalg.solve_triangular(
+        U, torch.eye(d, dtype=theta.dtype, device=dev), upper=True)
+    parts = [W.reshape(-1),
+             torch.as_tensor(flow.offset, dtype=torch.float32, device=dev)]
+    if n_dirs:
+        parts.append(torch.as_tensor(dirs, dtype=torch.float32,
+                                     device=dev).reshape(-1))
+    parts.append(torch.as_tensor([s.alpha for s in flow.blocks],
+                                 dtype=torch.float32, device=dev))
+    fconst = torch.cat(parts).contiguous()
+
+    logp = torch.empty((n,), dtype=torch.float32, device=dev)
+    g_t = torch.empty((d, n), dtype=torch.float32, device=dev)
+    quad = (torch.empty((n,), dtype=torch.float32, device=dev) if n_dirs
+            else None)
+    O_t = torch.empty((P, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty((n_sv, n), dtype=torch.float32, device=dev)
+
+    lib = build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.persample_f32(
+        x.data_ptr(), theta.data_ptr(), fconst.data_ptr(), meta.data_ptr(),
+        n, P, fconst.numel(), meta.numel(),
+        logp.data_ptr(), g_t.data_ptr(),
+        None if quad is None else quad.data_ptr(),
+        O_t.data_ptr(), scratch.data_ptr(), ctypes.c_void_p(stream))
+    build.check(code, "persample_f32")
+    per_sample_cuda.launches += 1
+    return logp, g_t.T, quad, O_t.T
+
+
+per_sample_cuda.launches = 0
+
+
+def per_sample(flow, theta, x, dirs=None):
+    """The plain version for a CPU tensor; the CUDA kernel otherwise (or
+    an error: there is no fallback on the card)."""
+    if x.device.type == "cpu":
+        return per_sample_plain(flow, theta, x, dirs)
+    return per_sample_cuda(flow, theta, x, dirs)

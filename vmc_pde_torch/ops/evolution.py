@@ -1,0 +1,166 @@
+"""Evolution equations, the counterpart of vmc_pde_tpu/ops/evolution.py.
+
+Each equation computes the per-sample local "energy"
+
+    Eloc_i = (d/dt) log p(x_i)   prescribed by the PDE at sample x_i,
+
+from the coordinate score g = grad_x log p and the Hessian quadratic trace
+along ``hessian_trace_dirs``. Ported so far:
+
+- ``diffusion``: dp/dt = D lap p, Eloc = D (|g|^2 + tr H);
+- ``advection_hamiltonian_wDiss``: phase-space Fokker-Planck, Liouville
+  transport by the symplectic flow of the (coupled) harmonic Hamiltonian
+  plus momentum diffusion m gamma sum_i T_i (g_{p_i}^2 + H_{p_i p_i}) and
+  damping gamma sum_i p_i g_{p_i}. T may be one bath temperature per
+  (x, p) pair.
+
+Coordinate layout for phase space: [x1, p1, x2, p2, ...]. The other
+equations of the JAX package are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+
+def hamiltonian(coord, m=1.0, omega=1.0, lam=0.0, coupled=False, v2=1.0,
+                onsite=0.0):
+    """Harmonic(+quartic) Hamiltonian on the [x1, p1, x2, p2, ...] layout,
+    for coord of shape (..., d). ``coupled``: nearest-neighbour ring
+    potential sum_i (x_i - x_{i-1})^2 plus the on-site pinning term."""
+    xs, ps = coord[..., 0::2], coord[..., 1::2]
+    if coupled:
+        pot = m * omega**2 / 2.0 * (
+            ((xs - xs.roll(1, -1)) ** 2).sum(-1) + onsite * (xs**2).sum(-1))
+    else:
+        pot = m * omega**2 / 2.0 * (xs**2).sum(-1)
+    return v2 * pot + (ps**2).sum(-1) / (2.0 * m) + lam * (xs**4).sum(-1)
+
+
+def velocity_field_hamiltonian(coord, t, m=1.0, omega=1.0, lam=0.0,
+                               coupled=False, v2=1.0, onsite=0.0):
+    """Symplectic flow v = J grad H: dx/dt = dH/dp, dp/dt = -dH/dx, with the
+    gradient of ``hamiltonian`` written out."""
+    xs, ps = coord[..., 0::2], coord[..., 1::2]
+    if coupled:
+        dpot = m * omega**2 * (2.0 * xs - xs.roll(1, -1) - xs.roll(-1, -1)
+                               + onsite * xs)
+    else:
+        dpot = m * omega**2 * xs
+    dH_dx = v2 * dpot + 4.0 * lam * xs**3
+    return torch.stack([ps / m, -dH_dx], dim=-1).reshape(coord.shape)
+
+
+class Equation:
+    """Base: subclasses define the Hessian trace directions and Eloc."""
+
+    name: str = "base"
+
+    def hessian_coords(self, dim: int) -> Optional[Tuple[int, ...]]:
+        return None
+
+    def hessian_trace_dirs(self, dim: int) -> Optional[np.ndarray]:
+        """(k, d) directions V when Eloc consumes the Hessian only through
+        sum_j V_j^T H V_j; ``eloc`` then receives that scalar per sample
+        as a 1-D ``hess``."""
+        return None
+
+    def eloc(self, x, g, hess, t):
+        raise NotImplementedError
+
+
+@dataclasses.dataclass(frozen=True)
+class Diffusion(Equation):
+    """dp/dt = D lap p  =>  dlogp/dt = D (|grad logp|^2 + lap logp)."""
+
+    D: float = 1.0
+    name: str = "diffusion"
+
+    def hessian_coords(self, dim):
+        return tuple(range(dim))
+
+    def hessian_trace_dirs(self, dim):
+        return np.eye(dim)
+
+    def eloc(self, x, g, hess, t):
+        return self.D * ((g**2).sum(-1) + hess)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdvectionHamiltonian(Equation):
+    """Liouville transport by the symplectic flow."""
+
+    m: float = 1.0
+    omega: float = 1.0
+    lam: float = 0.0
+    coupled: bool = False
+    v2: float = 1.0
+    onsite: float = 0.0
+    name: str = "advection_hamiltonian"
+
+    def velocity(self, x, t):
+        return velocity_field_hamiltonian(x, t, self.m, self.omega, self.lam,
+                                          self.coupled, self.v2, self.onsite)
+
+    def eloc(self, x, g, hess, t):
+        return -(g * self.velocity(x, t)).sum(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class FokkerPlanck(AdvectionHamiltonian):
+    """Phase-space Fokker-Planck with momentum diffusion and damping. The
+    per-site T weights ride the Hessian trace directions as
+    sqrt(T_i) e_{p_i}, so ``hess`` is already sum_i T_i H_{p_i p_i}."""
+
+    T: object = 10.0  # float or per-site tuple, length dim // 2
+    gamma: float = 1.0
+    name: str = "advection_hamiltonian_wDiss"
+
+    def __post_init__(self):
+        if isinstance(self.T, (list, np.ndarray)):
+            object.__setattr__(self, "T", tuple(float(t) for t in self.T))
+
+    def _t_vec(self, n_pairs: int) -> np.ndarray:
+        T = np.asarray(self.T, dtype=np.float64)
+        if T.ndim == 0:
+            return np.full(n_pairs, float(T))
+        if T.shape != (n_pairs,):
+            raise ValueError(
+                f"per-site T has {T.shape[0]} entries; dim "
+                f"{2 * n_pairs} has {n_pairs} (x, p) pairs")
+        return T
+
+    def hessian_coords(self, dim):
+        return tuple(range(1, dim, 2))
+
+    def hessian_trace_dirs(self, dim):
+        T = self._t_vec(dim // 2)
+        return np.eye(dim)[1::2] * np.sqrt(T)[:, None]
+
+    def eloc(self, x, g, hess, t):
+        adv = -(g * self.velocity(x, t)).sum(-1)
+        g_p, x_p = g[..., 1::2], x[..., 1::2]
+        Tv = torch.as_tensor(self._t_vec(x.shape[-1] // 2), dtype=g.dtype,
+                             device=g.device)
+        diff = self.m * self.gamma * ((g_p**2 * Tv).sum(-1) + hess)
+        damp = self.gamma * (x_p * g_p).sum(-1)
+        return adv + diff + damp
+
+
+_NOT_PORTED = ("diffusion_drift", "diffusion_anisotropic", "advection_paper",
+               "advection_hamiltonian")
+
+
+def make_equation(name: str, dim: int, **overrides) -> Equation:
+    if name == "diffusion":
+        return Diffusion(**overrides)
+    if name == "advection_hamiltonian_wDiss":
+        return FokkerPlanck(**overrides)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"equation {name!r} is not ported yet (ROADMAP.md)")
+    raise ValueError(f"unknown evolution equation {name!r}")

@@ -1,0 +1,448 @@
+"""TDVP right-hand side, the counterpart of vmc_pde_tpu/solver/tdvp.py for
+the main path: exact latent sampling, direct (unchunked) statistics, the
+spectral eigh or the Tikhonov-Cholesky solve, observables and the fixed
+Heun pair.
+
+One right-hand side (RHS): draw latent z, push it through the inverse
+flow to samples x; per sample logp, score g, Hessian quadratic trace and
+the O row (kernels/persample.py: the CUDA kernel on the card, the
+torch.func pipeline otherwise); E_loc from the equation; the force
+F = E[e_c O_c] and Gram S = E[O_c^T O_c] of the centered quantities (plus
+A = E[e_c^2 O_c^T O_c] for the per-mode SNR); solve S u = F regularized
+as the reference does; the update u is dtheta/dt.
+
+theta is held in the master dtype (f64) by the integrator and cast to the
+compute dtype per stage. Random numbers come from ``torch.Generator``s
+seeded from an integer key; ``fold_in`` derives independent keys per step
+and stage. The chunked and pair statistics, cg/minSR, importance
+sampling, Eloc clipping, the host solve and the adaptive steppers' S
+metric are not ported yet (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+from ..kernels import persample
+from ..models.state import VarState
+from ..ops.evolution import Equation
+from ..parallel import stats
+from ..utils.dtypes import Precision, full_f32_matmuls
+
+_MASK63 = (1 << 63) - 1
+
+
+def fold_in(key: int, data: int) -> int:
+    """A new 63-bit key from (key, data) by the splitmix64 finalizer."""
+    z = (key * 0x9E3779B97F4A7C15 + data + 1) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return (z ^ (z >> 31)) & _MASK63
+
+
+@dataclasses.dataclass(frozen=True)
+class TDVPConfig:
+    """Solver knobs; the JAX package's field names and defaults. Values
+    of paths not ported yet raise NotImplementedError in TDVP."""
+
+    use_snr: bool = False
+    snr_tol: float = 2.0
+    svd_tol: float = 1e-11
+    diagonal_shift: float = 0.0
+    eig_cutoff: float = 1e-14
+    eloc_clip: float = 0.0
+    is_gamma: float = 1.0
+    # "eigh" (spectral pseudo-inverse with the reference's per-mode
+    # regularizers), "cholesky" (Tikhonov (S + svd_tol lambda_max I) u = F
+    # with a power-iteration or top-k Ritz lambda_max); "auto" = eigh up to
+    # eigh_max_params, cholesky above
+    solver_method: str = "auto"
+    eigh_max_params: int = 2048
+    cg_maxiter: int = 250
+    cg_tol: float = 1e-7
+    # "highest" and "high" both mean a full-f32 matmul on the card (TF32
+    # off, utils/dtypes.full_f32_matmuls)
+    gram_precision: str = "high"
+    gram_backend: str = "auto"
+    gram_cross: str = "auto"
+    tri2_target_block: int = 0
+    # top-k Ritz spectrum on the cholesky path (randomized subspace
+    # iteration); 0 disables
+    spectrum_topk: int = 64
+    # floor svd_tol / eig_cutoff at 64 / 8 eps of the compute dtype
+    auto_tol_floor: bool = True
+    hessian_mode: str = "auto"
+    stats_partitioning: str = "auto"
+    # "cuda": the hand-written per-sample kernel (kernels/persample.py);
+    # "torch": the torch.func pipeline; "auto": the kernel on a CUDA device
+    # for f32 compute with 2048 <= P <= 32768 where it supports the flow
+    per_sample_backend: str = "auto"
+    # the CUDA kernel masks ragged batches, so it takes no tile; kept so
+    # that configurations carry over from the JAX package
+    per_sample_tile: int = 256
+    compute_snr: bool = True
+    compute_sexp: bool = False
+    sexp_mode: str = "none"
+    solve_on_device: bool = True
+    chunk_size: int = 0
+    observables: bool = True
+    integrals: bool = False
+    integral_T: float = 10.0
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
+
+
+def _check_ported(cfg: TDVPConfig) -> None:
+    if cfg.eloc_clip:
+        raise _not_ported("eloc_clip")
+    if cfg.is_gamma != 1.0:
+        raise _not_ported("is_gamma importance sampling")
+    if cfg.solver_method in ("cg", "minsr"):
+        raise _not_ported(f"solver_method={cfg.solver_method!r}")
+    if cfg.solver_method not in ("auto", "eigh", "cholesky"):
+        raise ValueError(f"unknown solver_method {cfg.solver_method!r}")
+    if cfg.gram_precision not in ("highest", "high"):
+        raise _not_ported(f"gram_precision={cfg.gram_precision!r}")
+    if cfg.gram_backend not in ("auto", "xla"):
+        raise _not_ported(f"gram_backend={cfg.gram_backend!r}")
+    if cfg.gram_cross != "auto":
+        raise _not_ported(f"gram_cross={cfg.gram_cross!r}")
+    if cfg.hessian_mode == "block":
+        raise _not_ported("hessian_mode='block'")
+    if cfg.hessian_mode not in ("auto", "trace"):
+        raise ValueError(f"unknown hessian_mode {cfg.hessian_mode!r}")
+    if cfg.stats_partitioning != "auto":
+        raise _not_ported("multi-device statistics")
+    if cfg.chunk_size:
+        raise _not_ported("chunked statistics (chunk_size > 0)")
+    if cfg.compute_sexp or cfg.sexp_mode != "none":
+        raise _not_ported("the adaptive steppers' S metric")
+    if not cfg.solve_on_device:
+        raise _not_ported("the host solve")
+    if cfg.integrals:
+        raise _not_ported("the MC sphere integrals")
+    if cfg.per_sample_backend not in ("auto", "torch", "cuda"):
+        raise ValueError(f"unknown per_sample_backend "
+                         f"{cfg.per_sample_backend!r} (auto, torch, cuda)")
+
+
+def _soft_cutoff(x, tol):
+    """The reference's sixth-power regularizer 1/(1 + (tol/x)^6) as a
+    log-space sigmoid (finite for x in [0, inf])."""
+    return torch.sigmoid(6.0 * (torch.log(x) - math.log(tol)))
+
+
+def _solve_regularized(S, F, cfg: TDVPConfig, n_samples: int, A=None):
+    """Eigendecompose S and apply the reference's regularized
+    pseudo-inverse. A = E[Ebar^2 Obar^T Obar] feeds the per-mode SNR.
+    Returns (update, ev, snr, VtF)."""
+    ev, V = torch.linalg.eigh(S)
+    VtF = V.T @ F
+    ratio = (ev / ev[-1]).abs()
+    inv_ev = torch.where(ratio > cfg.eig_cutoff, 1.0 / ev,
+                         torch.zeros_like(ev))
+    regularizer = _soft_cutoff(ratio, cfg.svd_tol)
+    snr = None
+    if A is not None:
+        AV = A @ V
+        tiny = torch.finfo(VtF.dtype).tiny
+        rho_var = ((V * AV).sum(0) - VtF**2).abs().clamp_min(tiny)
+        snr = (n_samples * VtF**2 / rho_var).abs().sqrt()
+        if cfg.use_snr:
+            regularizer = regularizer * _soft_cutoff(snr, cfg.snr_tol)
+    update = V @ (inv_ev * regularizer * VtF)
+    return update, ev, snr, VtF
+
+
+def _lambda_max(S, n_iter: int = 12):
+    """Largest eigenvalue of S by power iteration (O(n_iter P^2))."""
+    v = torch.ones(S.shape[0], dtype=S.dtype, device=S.device) \
+        / math.sqrt(S.shape[0])
+    for _ in range(n_iter):
+        w = S @ v
+        v = w / torch.linalg.norm(w)
+    return v @ (S @ v)
+
+
+def _randomized_topk_eigh(S, k: int, gen: torch.Generator, n_iter: int = 2):
+    """Top-k eigenpairs of symmetric PSD S by randomized subspace
+    iteration (Halko-Martinsson-Tropp) and a Rayleigh-Ritz eigh. Returns
+    (ev (k,), V (P, k)) in ascending order of ev."""
+    P = S.shape[0]
+    k_eff = min(k + 8, P)
+    Om = torch.randn((P, k_eff), generator=gen, dtype=S.dtype,
+                     device=S.device)
+    Y = S @ Om
+    for _ in range(n_iter):
+        Q, _ = torch.linalg.qr(Y)
+        Y = S @ Q
+    Q, _ = torch.linalg.qr(Y)
+    B = Q.T @ (S @ Q)
+    ev, U = torch.linalg.eigh(0.5 * (B + B.T))
+    V = Q @ U
+    return ev[-k:], V[:, -k:]
+
+
+def _solve_cholesky(S, F, cfg: TDVPConfig, lam_max=None):
+    """Tikhonov solve (S + svd_tol * lambda_max * I) u = F. Returns
+    (update, lambda_max)."""
+    if lam_max is None:
+        lam_max = _lambda_max(S)
+    A = S + cfg.svd_tol * lam_max * torch.eye(S.shape[0], dtype=S.dtype,
+                                              device=S.device)
+    L, info = torch.linalg.cholesky_ex(A)
+    if int(info) != 0:
+        raise FloatingPointError(
+            f"Cholesky of the regularized Gram failed (info={int(info)})")
+    return torch.cholesky_solve(F[:, None], L)[:, 0], lam_max
+
+
+class TDVP:
+    """Fused TDVP right-hand side on one device.
+
+    ``rhs(theta_master, t, key)`` returns (dtheta_master, aux);
+    ``heun_pair`` a whole fixed-Heun step. After each call the reference's
+    diagnostics are attributes (``ev``, ``snr``, ``solverResidual``,
+    ``tdvp_error``)."""
+
+    def __init__(self, state: VarState, equation: Equation,
+                 cfg: TDVPConfig = TDVPConfig(), n_samples: int = 10000,
+                 n_samples_obs: Optional[int] = None,
+                 precision: Optional[Precision] = None):
+        _check_ported(cfg)
+        full_f32_matmuls()
+        self.state = state
+        self.flow = state.flow
+        self.equation = equation
+        self.precision = precision or state.precision
+        self.sampler = state.sampler
+        self.device = state.device
+        if not self.sampler.exact:
+            raise _not_ported("MCMC sampling")
+        self.n_samples = self.sampler.rounded_budget(n_samples)
+        self.n_samples_obs = (self.sampler.rounded_budget(n_samples_obs)
+                              if n_samples_obs is not None
+                              else self.n_samples)
+
+        if cfg.auto_tol_floor:
+            eps = torch.finfo(self.precision.compute).eps
+            cfg = dataclasses.replace(
+                cfg, svd_tol=max(cfg.svd_tol, 64.0 * eps),
+                eig_cutoff=max(cfg.eig_cutoff, 8.0 * eps))
+        self.n_params = state.numParameters
+        if cfg.solver_method == "auto":
+            method = ("eigh" if self.n_params <= cfg.eigh_max_params
+                      else "cholesky")
+        else:
+            method = cfg.solver_method
+        self.solver_method = method
+        if method == "cholesky":
+            # per-mode SNR exists only in the top-k Ritz basis
+            if cfg.use_snr and cfg.spectrum_topk <= 0:
+                raise ValueError("use_snr on solver_method='cholesky' gates "
+                                 "modes in the top-k Ritz subspace; set "
+                                 "spectrum_topk > 0")
+            keep_snr = ((cfg.compute_snr or cfg.use_snr)
+                        and cfg.spectrum_topk > 0)
+            cfg = dataclasses.replace(cfg, compute_snr=keep_snr)
+        self.cfg = cfg
+
+        self._unravel = self.flow.layout.unravel
+        hess_idx = equation.hessian_coords(self.flow.dim)
+        dirs = equation.hessian_trace_dirs(self.flow.dim)
+        if hess_idx is not None and dirs is None:
+            raise _not_ported(f"the Hessian block of {equation.name!r}")
+        self._hess_dirs = None if dirs is None else torch.as_tensor(
+            dirs, dtype=self.precision.compute, device=self.device)
+
+        kernel_ok = persample.supports(self.flow, dirs, hess_idx)
+        backend = cfg.per_sample_backend
+        if backend == "cuda" and not kernel_ok:
+            raise ValueError("per_sample_backend='cuda' does not support "
+                             "this flow (kernels.persample.supports)")
+        use_kernel = backend == "cuda" or (
+            backend == "auto"
+            and self.device.type == "cuda"
+            and self.precision.compute == torch.float32
+            and 2048 <= self.n_params <= 32768
+            and kernel_ok)
+        # the wrapper launches the kernel for CUDA tensors and takes the
+        # plain pipeline for CPU tensors
+        self._per_sample = (persample.per_sample if use_kernel
+                            else persample.per_sample_plain)
+        self.uses_kernel = use_kernel
+
+        self.ev = None
+        self.snr = None
+        self.solverResidual = None
+        self.tdvp_error = None
+        self.ElocMean = None
+        self.ElocVar = None
+
+    def _gen(self, key: int) -> torch.Generator:
+        g = torch.Generator(device=self.device)
+        g.manual_seed(key)
+        return g
+
+    # ------------------------------------------------------------------
+    def _per_sample_batch(self, theta_c, x, t):
+        """x: (n, d) -> (logp (n,), Eloc (n,), O (n, P))."""
+        logp, g, quad, O = self._per_sample(self.flow, theta_c, x,
+                                            self._hess_dirs)
+        return logp, self.equation.eloc(x, g, quad, t), O
+
+    def _direct_stats(self, theta_c, t, x):
+        """Materialize O once, center, contract."""
+        n = x.shape[0]
+        logp, eloc, O = self._per_sample_batch(theta_c, x, t)
+        eloc_mean = stats.mean(eloc)
+        e_c = eloc - eloc_mean
+        O_c = O - stats.mean(O)
+        A = None
+        if self.cfg.compute_snr or self.cfg.use_snr:
+            A = stats.second_moment_matrix(O_c, e_c**2)
+        return dict(
+            logp=logp,
+            eloc=eloc,
+            eloc_mean=eloc_mean,
+            eloc_abs_mean=stats.mean(eloc.abs()),
+            eloc_var=stats.mean(e_c**2),
+            eloc_sq_mean=stats.mean(eloc**2),
+            F0=(e_c @ O_c) / n,
+            S0=stats.second_moment_matrix(O_c),
+            A=A,
+        )
+
+    def _observables(self, x, logp, aux):
+        mean = stats.mean(x)
+        xc = x - mean
+        aux["x1"] = mean
+        aux["covar"] = stats.second_moment_matrix(xc)
+        aux["entropy"] = -stats.mean(logp)
+        for m in (3, 4, 5, 6):
+            aux[f"x{m}"] = stats.mean(xc**m)
+        return aux
+
+    # ------------------------------------------------------------------
+    def _rhs_impl(self, theta_c, t, key: int, z_ext=None,
+                  with_obs: bool = True):
+        """One RHS. ``z_ext``: latent draws to use instead of sampling
+        (tests hand both packages the same draws). Only the first stage of
+        an integrator step records observables."""
+        cfg = self.cfg
+        params = self._unravel(theta_c)
+        k_sample, k_obs, _, k_spec = (fold_in(key, i) for i in range(4))
+        z = z_ext
+        if z is None:
+            z = self.flow.latent_sample(self._gen(k_sample), params,
+                                        self.n_samples, theta_c.dtype)
+        n = z.shape[0]
+        x, _ = self.flow.push(params, z)
+
+        st = self._direct_stats(theta_c, t, x)
+        S0, F0 = st["S0"], st["F0"]
+        S = S0
+        if cfg.diagonal_shift > 1e-10:
+            S = S + torch.diag(cfg.diagonal_shift * torch.diag(S))
+
+        sdt = self.precision.solve
+        S_s, F_s = S.to(sdt), F0.to(sdt)
+        A_s = None if st["A"] is None else st["A"].to(sdt)
+        aux = {}
+        if self.solver_method == "eigh":
+            update, ev, snr, _ = _solve_regularized(S_s, F_s, cfg, n, A=A_s)
+            aux["ev"] = ev
+            aux["snr"] = snr if snr is not None else torch.zeros_like(ev)
+        else:
+            lam_max = None
+            V_k = None
+            if cfg.spectrum_topk > 0:
+                k = min(cfg.spectrum_topk, S.shape[0])
+                ev_k, V_k = _randomized_topk_eigh(S_s, k, self._gen(k_spec))
+                lam_max = ev_k[-1]
+                tr = torch.trace(S_s)
+                aux["ev_topk"] = ev_k
+                aux["spectrum_trace"] = tr
+                aux["spectrum_tail_mass"] = tr - ev_k.sum()
+                if A_s is not None:
+                    VtF = V_k.T @ F_s
+                    rho_var = ((V_k * (A_s @ V_k)).sum(0) - VtF**2).abs() \
+                        .clamp_min(torch.finfo(VtF.dtype).tiny)
+                    aux["snr_topk"] = (n * VtF**2 / rho_var).abs().sqrt()
+            update, lam_max = _solve_cholesky(S_s, F_s, cfg, lam_max=lam_max)
+            aux["lambda_max"] = lam_max
+            if cfg.use_snr and "snr_topk" in aux:
+                # Ritz-projected SNR gating: the per-mode soft cutoff inside
+                # the top-k subspace, pass-through on its complement
+                g = _soft_cutoff(aux["snr_topk"], cfg.snr_tol)
+                update = update + V_k @ ((g - 1.0) * (V_k.T @ update))
+        aux["solver_res"] = (torch.linalg.norm(S_s @ update - F_s)
+                             / torch.linalg.norm(F_s))
+        aux["tdvp_error"] = 1.0 + (update @ S0.to(sdt) @ update
+                                   - 2.0 * F_s @ update) \
+            / st["eloc_sq_mean"].to(sdt)
+        aux["update"] = update
+        aux["eloc_mean"] = st["eloc_mean"]
+        aux["eloc_abs_mean"] = st["eloc_abs_mean"]
+        aux["eloc_var"] = st["eloc_var"]
+        aux["max_grad"] = st["eloc"].max()
+
+        if cfg.observables and with_obs:
+            if self.n_samples_obs > n:
+                z_o = self.flow.latent_sample(self._gen(k_obs), params,
+                                              self.n_samples_obs,
+                                              theta_c.dtype)
+                x_o, logp_o = self.flow.push(params, z_o)
+            else:
+                x_o, logp_o = x, st["logp"]
+            aux = self._observables(x_o, logp_o, aux)
+        aux["nan"] = torch.isnan(update).any()
+        return aux
+
+    def _finish(self, aux):
+        self.ev = aux.get("ev", aux.get("ev_topk"))
+        self.snr = aux.get("snr", aux.get("snr_topk"))
+        self.solverResidual = aux["solver_res"]
+        self.tdvp_error = aux["tdvp_error"]
+        self.ElocMean = aux["eloc_mean"]
+        self.ElocVar = aux["eloc_var"]
+
+    def rhs(self, theta, t, key: int, intStep: int = 0):
+        """Host-facing RHS: theta in master dtype -> (dtheta master, aux).
+        ``intStep`` decorrelates the random draws of an integrator's
+        stages; only stage 0 records observables."""
+        theta_c = theta.to(self.precision.compute)
+        aux = self._rhs_impl(theta_c, t, fold_in(key, intStep),
+                             with_obs=intStep % 5 == 0)
+        self._finish(aux)
+        return aux["update"].to(self.precision.master), aux
+
+    # ------------------------------------------------------------------
+    def _stage(self, th, t, key, i, z, with_obs=True):
+        aux = self._rhs_impl(th, t, fold_in(key, i), z, with_obs)
+        return aux["update"].to(th.dtype), aux
+
+    def _heun_pair_impl(self, theta_c, t, dt, key, z_ext=None):
+        """Fixed-Heun pair dy = dt/2 (k0 + k1) in compute dtype. The aux
+        is the first stage's (observables at time t); the NaN flag is
+        OR-ed across both stages. ``z_ext``: optional pair of latent
+        batches, one per stage."""
+        z0, z1 = z_ext if z_ext is not None else (None, None)
+        k0, aux = self._stage(theta_c, t, key, 0, z0)
+        k1, aux1 = self._stage(theta_c + dt * k0, t + dt, key, 1, z1,
+                               with_obs=False)
+        aux["nan"] = aux["nan"] | aux1["nan"]
+        return 0.5 * dt * (k0 + k1), aux
+
+    def heun_pair(self, theta, t, dt, key: int, z_ext=None):
+        """(dy master, aux) for a whole fixed-Heun step."""
+        dy, aux = self._heun_pair_impl(theta.to(self.precision.compute), t,
+                                       dt, key, z_ext)
+        self._finish(aux)
+        return dy.to(self.precision.master), aux
