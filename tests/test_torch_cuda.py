@@ -1,5 +1,6 @@
-"""The hand-written CUDA per-sample kernel (vmc_pde_torch/kernels/
-csrc/persample.cu) against its plain torch.func version, on the card.
+"""The hand-written CUDA kernels (vmc_pde_torch/kernels/csrc/persample.cu
+in plain and split mode, csrc/quant8.cu) against their plain versions, on
+the card.
 
 These tests need a CUDA device and nvcc; without one they skip. They
 import nothing of JAX, so on a machine without it they run with
@@ -14,16 +15,24 @@ Hessian quadratic trace, a second derivative summed over directions with
 cancellations. Samples are standard normal for the strongly perturbed
 small flows: pushed through such a flow they reach |x| ~ 1e4, where f32
 itself loses several digits.
+
+The split mode's pair hi + lo is held against the f64 O - shift to the O
+tolerance plus 2^-16 of max |O - shift| (the split's dropped residual);
+its column sums against the f64 sums of the pair to N 2^-16 max |o| and
+its column max against the pair's to 2^-16 max |o|. quant8's q8 must be
+bit-identical to the plain version's, and its f agree to 1e-5 of the
+largest value (f32 sums of exact bf16 products in another order).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from vmc_pde_torch.kernels import persample
+from vmc_pde_torch.kernels import persample, quant8
 from vmc_pde_torch.models.coupling import VARIANTS
 from vmc_pde_torch.models.flow import build_flow, perturb_theta
 from vmc_pde_torch.ops.evolution import make_equation
+from vmc_pde_torch.parallel import stats
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +115,100 @@ def test_kernel_rejects_f64(dev):
                            push=False)
     with pytest.raises(ValueError, match="f32"):
         persample.per_sample_cuda(flow, theta, x, None)
+
+
+def _check_split(flow, theta, x, dirs):
+    dirs64 = None if dirs is None else torch.as_tensor(
+        dirs, dtype=torch.float64, device=x.device)
+    P = flow.layout.size
+    shift = torch.linspace(-0.5, 0.5, P, device=x.device)
+    ref = persample.per_sample_plain(flow, theta, x, dirs64)
+    got = persample.per_sample_split_cuda(flow, theta.float(), x.float(),
+                                          dirs, shift)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("logp", "g", "quad"), got, ref):
+        if r is None:
+            assert a is None
+            continue
+        err = float((a.double() - r).abs().max()
+                    / r.abs().max().clamp_min(1.0))
+        assert err < TOL[name], (name, err)
+    hi, lo = got[3]
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert hi.shape == lo.shape == (x.shape[0], P)
+    o_ref = ref[3] - shift.double()
+    o = hi.double() + lo.double()
+    scale = float(o_ref.abs().max())
+    assert float((o - o_ref).abs().max()) <= (TOL["O"] + 2**-16) * max(
+        scale, 1.0)
+    n = x.shape[0]
+    assert float((got[4].double() - o.sum(0)).abs().max()) <= (
+        n * 2**-16 * scale)
+    assert float((got[5].double() - o.abs().amax(0)).abs().max()) <= (
+        2**-16 * scale)
+
+
+@pytest.mark.parametrize("variant", VARIANTS)
+def test_split_kernel_matches_plain_small(dev, variant):
+    """Split mode on all four variants with a ragged batch of 77: the tail
+    threads of the last warp contribute nothing to the sums and max."""
+    flow, theta, x = _case(dev, variant, 6, 3, (3, 4), 77, out_scale=0.3,
+                           push=False)
+    _check_split(flow, theta, x, np.random.default_rng(1).standard_normal(
+        (4, 6)))
+
+
+def test_split_kernel_matches_plain_fokker_planck32(dev):
+    """Split mode at the fokkerPlanck32 shape, ragged 1000 samples, and a
+    launch-counter check."""
+    flow, theta, x = _case(dev, "affine", 32, 4, (16,), 1000,
+                           out_scale=0.03, push=True)
+    eq = make_equation("advection_hamiltonian_wDiss", 32, T=10.0,
+                       coupled=True)
+    before = persample.per_sample_split_cuda.launches
+    _check_split(flow, theta, x, eq.hessian_trace_dirs(32))
+    assert persample.per_sample_split_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize("kv", [1, 2])
+def test_quant8_kernel_matches_plain(dev, kv):
+    """q8 bit-identical to the plain quantization, with a zero row, ties at
+    half-integers and values that clip; f close to the bf16 product."""
+    gen = torch.Generator(device=dev).manual_seed(kv)
+    P, n = 300, 4096
+    x = torch.randn((P, n), generator=gen, device=dev)
+    x[7] = 0.0
+    x[9, :8] = torch.tensor([0.5, 1.5, 2.5, -0.5, -1.5, 126.5, 127.6, -300.0],
+                            device=dev)
+    x = x.to(torch.bfloat16)
+    amax = x.float().abs().amax(1)
+    inv = torch.where(amax > 0, 127.0 / amax, torch.zeros_like(amax))
+    inv[9] = 1.0  # row 9 quantizes its values as they are
+    V = torch.randn((n, kv), generator=gen, device=dev).to(torch.bfloat16)
+    before = quant8.quant_force_cuda.launches
+    q8, f = quant8.quant_force(x, inv, V)
+    q_ref, f_ref = quant8.quant_force_plain(x, inv, V)
+    torch.cuda.synchronize()
+    assert quant8.quant_force_cuda.launches == before + 1
+    assert q8.dtype == torch.int8 and torch.equal(q8, q_ref)
+    assert q8[9, :8].tolist() == [0, 2, 2, 0, -2, 126, 127, -127]
+    assert (q8[7] == 0).all()
+    assert float((f - f_ref).abs().max()) <= 1e-5 * float(f_ref.abs().max())
+    with pytest.raises(ValueError, match="multiple of 8"):
+        quant8.quant_force(x[:, :12], inv, V[:12])
+
+
+def test_bf16_product_accumulates_at_f32_grade(dev):
+    """On the card a bf16 product's f32 accumulation truncates on the
+    tensor cores: X^T X of 65536 rows in one product comes out ~6e-5 low.
+    _mm_bf16's K blocks keep it within 1e-5 of the exact value, the f32
+    product's grade."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    H = torch.randn((65536, 512), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ref = H.double().T @ H.double()
+    got = stats._mm_bf16(H.T, H)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32
+    assert float((got.double() - ref).abs().max()
+                 / ref.abs().max()) < 1e-5

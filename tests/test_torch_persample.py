@@ -44,6 +44,49 @@ def test_plain_matches_pallas_interpret(variant):
         assert rel_err(g_, w_) < 1e-10, name
 
 
+def test_split_plain_matches_pallas_emit_split():
+    """The split variant's plain version against make_per_sample_pallas(
+    emit_split=True, interpret=True) in f32, two tiles of 8 with a shift.
+    Tolerances, relative to the largest value unless stated: logp, g and
+    quad 1e-5 (both f32; the same sums in another order through a flow
+    whose values reach ~1e2); hi + lo to 2^-16 of max |O - shift| (the
+    split's dropped residual) plus dO, the largest difference of the two
+    packages' f32 O (the interpreted plain-mode kernel's); omax to dO;
+    colsum to 16 dO plus 1e-6 of its largest value (16 f32 terms)."""
+    jflow, jparams, flow, theta = parity_flow("affine", seed=11)
+    jparams = jax.tree.map(lambda a: a.astype(np.float32), jparams)
+    flat, unravel = ravel_pytree(jparams)
+    P = int(flat.size)
+    x = normal((16, flow.dim), 12).astype(np.float32)
+    dirs = normal((3, flow.dim), 13).astype(np.float32)
+    shift = np.linspace(-0.5, 0.5, P, dtype=np.float32)
+    kw = dict(tile=8, interpret=True, template=jparams)
+    want = jpersample.make_per_sample_pallas(
+        jflow, unravel, P, dirs, emit_split=True, **kw)(
+            flat, jax.numpy.asarray(x), jax.numpy.asarray(shift))
+    O_jax = np.asarray(jpersample.make_per_sample_pallas(
+        jflow, unravel, P, dirs, **kw)(flat, jax.numpy.asarray(x))[3])
+    tx, tdirs = torch.from_numpy(x), torch.from_numpy(dirs)
+    got = persample.per_sample_split_plain(flow, theta.float(), tx, tdirs,
+                                           torch.from_numpy(shift))
+    O_port = persample.per_sample_plain(flow, theta.float(), tx, tdirs)[3]
+    dO = float(np.abs(O_port.numpy() - O_jax).max())
+    for name, g_, w_ in zip(("logp", "g", "quad"), got, want):
+        assert g_.dtype == torch.float32 and g_.shape == tuple(w_.shape)
+        assert rel_err(g_, w_) < 1e-5, name
+    hi, lo = got[3]
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert hi.shape == (16, P)
+    o = hi.float().numpy() + lo.float().numpy()
+    jo = (np.asarray(want[3][0], np.float32)
+          + np.asarray(want[3][1], np.float32))
+    assert np.abs(o - jo).max() <= 2.0**-16 * np.abs(jo).max() + dO
+    assert np.abs(got[5].numpy() - np.asarray(want[5])).max() <= dO
+    jsum = np.asarray(want[4])
+    assert (np.abs(got[4].numpy() - jsum).max()
+            <= 16 * dO + 1e-6 * np.abs(jsum).max())
+
+
 def test_wrapper_takes_plain_version_on_cpu():
     """per_sample on CPU tensors is the plain pipeline, launches nothing,
     and returns no quad without directions; per_sample_cuda refuses CPU
@@ -61,6 +104,18 @@ def test_wrapper_takes_plain_version_on_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         persample.per_sample_cuda(flow, theta.float(), x.float(), dirs)
     assert persample.per_sample_cuda.launches == before
+    # the split variant dispatches the same way
+    shift = torch.zeros(flow.layout.size, dtype=torch.float64)
+    before = persample.per_sample_split_cuda.launches
+    got = persample.per_sample_split(flow, theta, x, dirs, shift)
+    want = persample.per_sample_split_plain(flow, theta, x, dirs, shift)
+    for g_, w_ in zip(got[:3] + got[3] + got[4:],
+                      want[:3] + want[3] + want[4:]):
+        assert torch.equal(g_, w_)
+    with pytest.raises(ValueError, match="CUDA"):
+        persample.per_sample_split_cuda(flow, theta.float(), x.float(), dirs,
+                                        shift.float())
+    assert persample.per_sample_split_cuda.launches == before
 
 
 def test_block_plan_matches_layout():

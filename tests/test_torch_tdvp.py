@@ -81,8 +81,9 @@ def test_unported_paths_raise():
     state = VarState(flow, theta, sampler=Sampler(DIM, dtype=torch.float64),
                      precision=Precision.f64_everywhere())
     eq = evolution.make_equation("diffusion", DIM)
-    for cfg in (TDVPConfig(chunk_size=64), TDVPConfig(solver_method="cg"),
-                TDVPConfig(gram_backend="tri2"),
+    for cfg in (TDVPConfig(gram_backend="syrk"),
+                TDVPConfig(solver_method="cg"),
+                TDVPConfig(gram_precision="f64acc", chunk_size=4),
                 TDVPConfig(hessian_mode="block")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TDVP(state, eq, cfg, n_samples=8)

@@ -42,10 +42,14 @@ class RunConfig:
     solver_method: str = "auto"     # auto | eigh | cholesky
     eigh_max_params: int = 2048
     gram_precision: str = "high"
+    gram_backend: str = "auto"      # auto | xla | sym2 | tri2 (syrk raises)
+    gram_cross: str = "auto"        # auto | bf16 | int8 (split cross pass)
     hessian_mode: str = "auto"
     # auto | torch | cuda (the JAX package's xla | pallas)
     per_sample_backend: str = "auto"
     auto_tol_floor: bool = True
+    # > 0: stream the statistics in chunks of this many samples
+    chunk_size: int = 0
 
     # time integration
     stepper: str = "fixed_heun"
@@ -80,7 +84,9 @@ PRESETS = {
     ),
     # d=32 interacting Ornstein-Uhlenbeck Fokker-Planck: 16 (q, p) pairs on
     # a nearest-neighbour coupled ring, momentum damping and diffusion
-    # toward a T=10 bath; P = 9264 parameters
+    # toward a T=10 bath; P = 9264 parameters. The JAX package's production
+    # operating point adds --samples 524288 --chunk-size 65536, with the
+    # tri2 Gram and the int8 cross term there
     "fokkerPlanck32": RunConfig(
         name="fokkerPlanck32", dim=32, offset=(0.0,) * 32,
         latent_name="Gauss", equation="advection_hamiltonian_wDiss",

@@ -3,6 +3,8 @@ sampler -> state -> TDVP -> stepper and runs the time evolution, recording
 the reference-compatible infos schema.
 
     python -m vmc_pde_torch.driver fokkerPlanck32 --max-steps 5
+    python -m vmc_pde_torch.driver fokkerPlanck32 --samples 524288 \
+        --chunk-size 65536 --gram-backend tri2 --gram-cross int8
     python -m vmc_pde_torch.driver mwe --precision f64 --device cpu
 
 ``--device`` defaults to cuda and raises when no CUDA device is present;
@@ -55,6 +57,8 @@ def build_problem(cfg: RunConfig):
         diagonal_shift=cfg.diagonal_shift, solver_method=cfg.solver_method,
         eigh_max_params=cfg.eigh_max_params,
         gram_precision=cfg.gram_precision,
+        gram_backend=cfg.gram_backend, gram_cross=cfg.gram_cross,
+        chunk_size=cfg.chunk_size,
         per_sample_backend=cfg.per_sample_backend,
         hessian_mode=cfg.hessian_mode, auto_tol_floor=cfg.auto_tol_floor)
     tdvp = TDVP(state, equation, tdvp_cfg, n_samples=cfg.n_samples_tdvp,
@@ -164,6 +168,18 @@ def main(argv=None, callbacks=()):
                    help="per-sample pipeline: cuda = the hand-written "
                         "kernel (kernels/persample.py), torch = the "
                         "torch.func pipeline")
+    p.add_argument("--gram-backend", type=str, default=None,
+                   choices=["auto", "xla", "syrk", "sym2", "tri2"],
+                   help="Gram contraction: xla = the f32 product (what auto "
+                        "resolves to), sym2 = 2-product symmetric bf16 hi/lo "
+                        "split, tri2 = its triangle-blocked form (syrk is "
+                        "not ported yet)")
+    p.add_argument("--gram-cross", type=str, default=None,
+                   choices=["auto", "bf16", "int8"],
+                   help="product of the sym2/tri2 cross term (int8 = "
+                        "per-column-quantized int8 product)")
+    p.add_argument("--chunk-size", type=int, default=None,
+                   help=">0: stream samples through the stats in chunks")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; raises without one)")
     args = p.parse_args(argv)
@@ -180,6 +196,9 @@ def main(argv=None, callbacks=()):
         overrides["workdir"] = args.workdir
     if args.per_sample_backend is not None:
         overrides["per_sample_backend"] = args.per_sample_backend
+    for name in ("gram_backend", "gram_cross", "chunk_size"):
+        if getattr(args, name) is not None:
+            overrides[name] = getattr(args, name)
     return run(preset(args.mode, **overrides), max_steps=args.max_steps,
                callbacks=callbacks)
 

@@ -1,0 +1,115 @@
+"""Least card time of each TPU kernel's work on one H100 (its bound): the
+larger of the bytes it must move (each input read once, each output
+written once) over the memory rate, and its operations over the peak rate
+of their type. Peaks from NVIDIA's H100 SXM data sheet, dense, at the full
+700 W: 3.35 TB/s HBM, 67 TFLOP/s f32 outside the tensor cores, 989
+TFLOP/s bf16 on them. chip_smoke.py reports these bounds beside the
+measured times;
+
+    python -m vmc_pde_torch.kernels.bounds
+
+prints them for every function of the JAX package that reaches
+``pl.pallas_call``, at the shapes of the paths that run it.
+"""
+
+from __future__ import annotations
+
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
+
+
+def bound_ms(n_bytes, n_ops, ops_rate=F32_FLOP_S):
+    """(least time in ms, "bytes" or "operations")."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / ops_rate
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def persample_flops(layers, dim, k_dirs):
+    """Scalar f32 operations of one sample of the per-sample kernel,
+    counted from the conditioners' (in, out) layer shapes: 2 in out
+    forward, 3 in out backward (the weight rows and the input cotangent)
+    and 4 in out per trace direction for the two jet tangents; the latent's
+    d x d products likewise."""
+    per = sum((5 + 4 * k_dirs) * a * b for a, b in layers)
+    return per + (4.5 + 4 * k_dirs) * dim**2
+
+
+def flow_layers(flow):
+    """(in, out) of every conditioner layer of a port Flow."""
+    out = []
+    for spec in flow.blocks:
+        for net in spec.nets:
+            n_in, n_out = spec.net_dims(net)
+            dims = [n_in, *spec.hidden, n_out]
+            out += list(zip(dims[:-1], dims[1:]))
+    return out
+
+
+def persample(layers, dim, P, n, k_dirs, split=False):
+    """The per-sample kernel at n samples: x and theta in; logp, g, quad
+    and the (P, n) f32 O out -- or, split, the shift in and the bf16 pair
+    and the two (P,) column statistics out."""
+    n_bytes = 4 * (n * dim + P + n + n * dim + n)
+    n_bytes += 4 * 2 * P + 2 * 2 * P * n if split else 4 * P * n
+    return bound_ms(n_bytes, n * persample_flops(layers, dim, k_dirs))
+
+
+def quant8(P, n, kv):
+    """quant_force on a (P, n) bf16 operand: x, inv and V in; int8 q8 and
+    the (P, kv) f32 f out; 1 + 2 kv operations per element."""
+    return bound_ms(2 * P * n + 4 * P + 2 * n * kv + P * n + 4 * P * kv,
+                    P * n * (1 + 2 * kv))
+
+
+def syrk(N, P):
+    """The triangle Gram O^T O of an (N, P) f32 operand in three bf16
+    passes: O in, the (P, P) f32 lower triangle out; 3 N P^2 bf16
+    operations (each pass half of 2 N P^2)."""
+    return bound_ms(4 * N * P + 4 * P * (P + 1) // 2, 3 * N * P * P,
+                    BF16_FLOP_S)
+
+
+def metropolis(n, dim):
+    """Independence Metropolis: n recorded (dim,) f32 states out; ~(8 dim
+    + 24) operations per proposal (Box-Muller, ball radius, the latent's
+    log-density, the accept test)."""
+    return bound_ms(4 * n * dim, n * (8 * dim + 24))
+
+
+def fokker_planck32():
+    """fokkerPlanck32's flow: d=32, four affine blocks of 16 -> 16 -> 16
+    conditioners, P=9264, 16 trace directions."""
+    layers = [(16, 16), (16, 16)] * 16
+    return layers, 32, 9264, 16
+
+
+def main():
+    layers, d, P, k = fokker_planck32()
+    rows = [
+        ("make_per_sample_pallas, plain mode (N=16384)",
+         persample(layers, d, P, 16384, k)),
+        ("make_per_sample_pallas, plain mode, pilot (N=2048)",
+         persample(layers, d, P, 2048, k)),
+        ("make_per_sample_pallas, emit_split (N=65536)",
+         persample(layers, d, P, 65536, k, split=True)),
+        ("make_per_sample_sharded, per device of 4 (N=16384)",
+         persample(layers, d, P, 16384 // 4, k)),
+        ("quant8.quant_force, hi (P=9264, n=65536, kv=2)",
+         quant8(P, 65536, 2)),
+        ("quant8.quant_force, lo (P=9264, n=65536, kv=1)",
+         quant8(P, 65536, 1)),
+        ("probe_quant8.make_quant_force (P=9264, n=65536, kv=2)",
+         quant8(P, 65536, 2)),
+        ("syrk.syrk (N=16384, P=9264)", syrk(16384, P)),
+        ("metropolis_chain_pallas (N=10000, d=2)", metropolis(10000, 2)),
+        ("metropolis_chain_pallas_sharded, per device of 4 (N=2500, d=2)",
+         metropolis(2500, 2)),
+    ]
+    for name, (ms, by) in rows:
+        print(f"{name:<62s} {ms:10.4g} ms  ({by})")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into ONE
-shared library with a plain C interface, loaded with ``ctypes``. The build
-happens on first use, into ``_build/<hash>/`` next to this file (listed in
-.gitignore), where the hash covers the sources and the flags: a changed
-source rebuilds, an unchanged one loads in milliseconds. Nothing here runs
-at import time, so the CPU tests import every module without a toolkit.
+Every ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into its own shared library with a plain C interface, loaded with
+``ctypes``. The first use builds every source at once, one ``nvcc`` process
+per source running in parallel, into ``_build/<hash>/`` next to this file
+(listed in .gitignore), where the hash covers that source and the flags: a
+changed source rebuilds, an unchanged one loads in milliseconds. Nothing
+here runs at import time, so the CPU tests import every module without a
+toolkit.
 
 The C entry points return ``cudaGetLastError()`` after their launch; the
 wrappers raise on a nonzero code (``check``).
@@ -26,10 +28,21 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIB_NAME = "libvmc_kernels.so"
+
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+# argument types of every C entry point, by source
+SIGNATURES = {
+    "persample": {
+        "persample_f32": [_vp] * 4 + [_ci] * 4 + [_vp] * 6,
+        "persample_split_f32": [_vp] * 4 + [_ci] * 4 + [_vp] * 12,
+    },
+    "quant8": {
+        "quant_force_bf16": [_vp] * 3 + [_ci] * 3 + [_vp] * 3,
+    },
+}
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -41,60 +54,68 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ on first use")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu"))
-
-
-def source_hash() -> str:
+def source_hash(name: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.glob("*.cu*")):
-        h.update(path.name.encode())
-        h.update(path.read_bytes())
+    path = CSRC / f"{name}.cu"
+    h.update(path.name.encode())
+    h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> pathlib.Path:
-    """Compile the library if this source hash has no build yet; return
-    its path. The ptxas report (registers, shared memory, spills) is kept
-    beside it as build.log."""
-    out_dir = BUILD_ROOT / source_hash()
-    lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    # compile to a temporary name and rename: concurrent builders of the
-    # same hash never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, lib)
-    return lib
+def _out_dir(name: str) -> pathlib.Path:
+    return BUILD_ROOT / source_hash(name)
 
 
-def build_log() -> str:
-    path = BUILD_ROOT / source_hash() / "build.log"
+def build_all() -> None:
+    """Compile every source without a build for its hash, all nvcc
+    processes at once. The ptxas report (registers, shared memory,
+    spills) is kept beside each library as build.log."""
+    jobs = []
+    for name in SIGNATURES:
+        out_dir = _out_dir(name)
+        if (out_dir / f"lib{name}.so").exists():
+            continue
+        out_dir.mkdir(parents=True, exist_ok=True)
+        # compile to a temporary name and rename: processes building
+        # the same hash never load a half-written library
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        jobs.append((name, out_dir, tmp, cmd, proc))
+    errors = []
+    for name, out_dir, tmp, cmd, proc in jobs:
+        out, err = proc.communicate()
+        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + out + err)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc failed on {name}.cu ({proc.returncode}):\n"
+                          f"{err}")
+        else:
+            os.replace(tmp, out_dir / f"lib{name}.so")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def build_log(name: str) -> str:
+    path = _out_dir(name) / "build.log"
     return path.read_text() if path.exists() else ""
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first call), with the argument
-    types of every C entry point declared."""
-    global _lib
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu (every source is built on the
+    first call), with the argument types of its C entry points
+    declared."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.persample_f32.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
-                                          vp, vp, vp, vp, vp, vp]
-            lib.persample_f32.restype = ci
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            build_all()
+            lib = ctypes.CDLL(str(_out_dir(name) / f"lib{name}.so"))
+            for fn, argtypes in SIGNATURES[name].items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = _ci
+            _libs[name] = lib
+        return _libs[name]
 
 
 def check(code: int, what: str) -> None:

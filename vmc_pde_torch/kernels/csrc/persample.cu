@@ -16,9 +16,23 @@
 // (feature * N + sample), so a warp's 32 stores hit 32 neighbouring words.
 // Threads past N exit after the shared-memory load: any N runs.
 //
+// Split mode (SPLIT = true) replaces emit_split=True of the same TPU kernel:
+// instead of the f32 O it stores the bf16 hi/lo split of o = O - shift
+// (hi = rn(o), lo = rn(o - hi), as parallel/stats._split_bf16 makes it),
+// and the column sums and column max |o| over the batch. The TPU carried
+// those in its sequential grid; here blocks run in any order, so each warp
+// reduces every row across its 32 samples with shuffles, lane 0 writes the
+// warp's partial to (n_warps, P) buffers, and split_finish sums them in a
+// fixed order: deterministic, no atomics. All 32 lanes must reach every
+// shuffle, so in split mode the threads past N stay alive on a clamped
+// sample, contribute 0 to the sum and the max, and store nothing. Bound at
+// the chunked path's shape (P = 9264, N = 65536): the pair store, 2.43 GB,
+// ~0.72 ms at 3.35 TB/s, plus the partials (152 MB written and read).
+//
 // The block plan (meta) is built by vmc_pde_torch/kernels/persample.py::
 // block_plan; the constants below must match the ones there.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -37,14 +51,48 @@ constexpr int THREADS = 64;
 enum Variant { ADDITIVE = 0, AFFINE = 1, SCALE = 2, SCALE_SHIFT = 3 };
 enum Net { S1 = 0, S2 = 1, T1 = 2, T2 = 3 };
 
-// One sample's view of the feature-major (features, N) buffers.
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// One sample's view of the feature-major (features, N) buffers. The saves
+// have one column per launched thread (stride Ns >= N); the outputs one per
+// sample. SPLIT selects what o(p, v) does with the O entry v of row p.
+template <bool SPLIT>
 struct Sample {
   float* saves;
-  float* O;
+  float* O;                  // plain mode: (P, N) f32
+  __nv_bfloat16* hi;         // split mode: (P, N) bf16 pair of O - shift
+  __nv_bfloat16* lo;
+  const float* shift;        // (P,)
+  float* psum;               // (n_warps, P) per-warp partial sums of o
+  float* pmax;               // (n_warps, P) per-warp partial max |o|
+  size_t Ns;
   size_t N;
   size_t n;
-  __device__ float& sv(int k) const { return saves[(size_t)k * N + n]; }
-  __device__ void o(int p, float v) const { O[(size_t)p * N + n] = v; }
+  size_t warp;
+  int P;
+  bool valid;                // n < N (split-mode tail threads are not)
+  __device__ float& sv(int k) const { return saves[(size_t)k * Ns + n]; }
+  __device__ void o(int p, float v) const {
+    if (!SPLIT) {
+      O[(size_t)p * N + n] = v;
+      return;
+    }
+    const float x = valid ? v - __ldg(shift + p) : 0.f;
+    if (valid) {
+      const __nv_bfloat16 h = __float2bfloat16_rn(x);
+      hi[(size_t)p * N + n] = h;
+      lo[(size_t)p * N + n] = __float2bfloat16_rn(x - __bfloat162float(h));
+    }
+    float s = x, m = fabsf(x);
+    for (int k = 16; k > 0; k >>= 1) {
+      s += __shfl_xor_sync(FULL_MASK, s, k);
+      m = fmaxf(m, __shfl_xor_sync(FULL_MASK, m, k));
+    }
+    if ((threadIdx.x & 31) == 0) {
+      psum[warp * P + p] = s;
+      pmax[warp * P + p] = m;
+    }
+  }
 };
 
 // Layer record of a net: in, out, bias offset, weight offset, save offset.
@@ -64,9 +112,10 @@ __device__ __forceinline__ float couple_fwd(int variant, float u, float s,
 
 // y = alpha * tanh(... tanh(h W0 + b0) ...); each layer's tanh output is
 // saved for the backward and the jets.
+template <class Smp>
 __device__ void mlp_fwd(const int* blk, int net, int nl, const float* th,
                         float alpha, const float* hin, float* y,
-                        const Sample& S) {
+                        const Smp& S) {
   float h[MAX_WIDTH], a[MAX_WIDTH];
   for (int i = 0; i < layer(blk, net, 0)[0]; ++i) h[i] = hin[i];
   int out = 0;
@@ -90,9 +139,10 @@ __device__ void mlp_fwd(const int* blk, int net, int nl, const float* th,
 // Backward of mlp_fwd for the output cotangent ybar: writes the net's O
 // rows (biases, then row-major weights) and adds the input cotangent to
 // xacc.
+template <class Smp>
 __device__ void mlp_bwd(const int* blk, int net, int nl, const float* th,
                         float alpha, const float* hin, const float* ybar,
-                        float* xacc, const Sample& S) {
+                        float* xacc, const Smp& S) {
   float abar[MAX_WIDTH], xbar[MAX_WIDTH];
   const int* last = layer(blk, net, nl - 1);
   for (int o = 0; o < last[1]; ++o) {
@@ -127,9 +177,10 @@ __device__ void mlp_bwd(const int* blk, int net, int nl, const float* th,
 // First and second tangents of the net output along one direction, from
 // those of its input (h1, h2); primal tanh values come from the saves.
 // Bias enters the primal only; tanh'' = -2 tanh (1 - tanh^2).
+template <class Smp>
 __device__ void mlp_jet(const int* blk, int net, int nl, const float* th,
                         float alpha, const float* h1in, const float* h2in,
-                        float* y1, float* y2, const Sample& S) {
+                        float* y1, float* y2, const Smp& S) {
   float h1[MAX_WIDTH], h2[MAX_WIDTH], a1[MAX_WIDTH], a2[MAX_WIDTH];
   for (int i = 0; i < layer(blk, net, 0)[0]; ++i) {
     h1[i] = h1in[i];
@@ -164,8 +215,9 @@ __device__ void mlp_jet(const int* blk, int net, int nl, const float* th,
 }
 
 // Primal conditioner output s = alpha * (last tanh), from the saves.
+template <class Smp>
 __device__ void net_out(const int* blk, int net, int nl, float alpha,
-                        float* s, const Sample& S) {
+                        float* s, const Smp& S) {
   const int* last = layer(blk, net, nl - 1);
   for (int o = 0; o < last[1]; ++o) s[o] = alpha * S.sv(last[4] + o);
 }
@@ -217,12 +269,16 @@ __device__ void couple_jet(int variant, int m, const float* u0,
   }
 }
 
+template <bool SPLIT>
 __global__ void __launch_bounds__(THREADS) persample_kernel(
     const float* __restrict__ x, const float* __restrict__ theta,
     const float* __restrict__ fconst, const int* __restrict__ meta_g, int N,
     int P, int n_fconst, int n_meta, float* __restrict__ logp_out,
     float* __restrict__ g_out, float* __restrict__ quad_out,
-    float* __restrict__ O, float* __restrict__ saves) {
+    float* __restrict__ O, __nv_bfloat16* __restrict__ O_hi,
+    __nv_bfloat16* __restrict__ O_lo, const float* __restrict__ shift,
+    float* __restrict__ psum, float* __restrict__ pmax,
+    float* __restrict__ saves) {
   extern __shared__ float smem[];
   float* th = smem;
   float* fc = smem + P;
@@ -232,7 +288,10 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
   for (int i = threadIdx.x; i < n_meta; i += blockDim.x) meta[i] = meta_g[i];
   __syncthreads();
   const size_t n = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= (size_t)N) return;
+  const bool valid = n < (size_t)N;
+  if (!SPLIT && !valid) return;
+  // split mode: a tail thread runs the last sample and stores nothing
+  const size_t n_in = valid ? n : (size_t)N - 1;
 
   const int d = meta[0], nb = meta[1], k_dirs = meta[2];
   const int off_L = meta[4], off_ld = meta[5], off_mu = meta[6];
@@ -240,10 +299,12 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
   const float* offset = W + d * d;
   const float* dirs = offset + d;
   const float* alphas = dirs + k_dirs * d;
-  const Sample S{saves, O, (size_t)N, n};
+  const Sample<SPLIT> S{saves, O, O_hi, O_lo, shift, psum, pmax,
+                        (size_t)gridDim.x * blockDim.x, (size_t)N, n,
+                        n / 32, P, valid};
 
   float z[MAX_DIM];
-  for (int i = 0; i < d; ++i) z[i] = x[n * d + i];
+  for (int i = 0; i < d; ++i) z[i] = x[n_in * d + i];
 
   // ---- forward: real -> latent, saving what the backward and jets reuse
   float logjac = 0.f;
@@ -282,8 +343,9 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
     q = fmaf(acc, acc, q);
     sum_ld += th[off_ld + i];
   }
-  logp_out[n] =
-      -0.5f * (d * 1.8378770664093453f + 2.f * sum_ld + q) + logjac;
+  if (valid)
+    logp_out[n] =
+        -0.5f * (d * 1.8378770664093453f + 2.f * sum_ld + q) + logjac;
 
   // ---- backward. Latent: dlogp/dU[i,j] = (W^T y)_i y_j,
   // dlogp/dL_diag_i = (W^T y)_i y_i exp(L_diag_i) - 1, dlogp/dmu = W^T y,
@@ -333,7 +395,8 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
     for (int i = 0; i < n_up; ++i) zbar[up[i]] = v2bar[i];
     for (int i = 0; i < n_down; ++i) zbar[down[i]] = ubar[i];
   }
-  for (int i = 0; i < d; ++i) g_out[(size_t)i * N + n] = zbar[i];
+  if (valid)
+    for (int i = 0; i < d; ++i) g_out[(size_t)i * N + n] = zbar[i];
 
   // ---- Hessian quadratic trace: per direction v, the second derivative
   // of t -> logp(x + t v) by second-order jets (x' = v, x'' = 0).
@@ -401,30 +464,77 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
     }
     quad += lj2 - q2;
   }
-  quad_out[n] = quad;
+  if (valid) quad_out[n] = quad;
+}
+
+// Column sums and max of the split mode from the (n_warps, P) per-warp
+// partials: one thread per row p, the warps summed in index order, so the
+// result does not depend on the order in which blocks ran.
+__global__ void split_finish(const float* __restrict__ psum,
+                             const float* __restrict__ pmax, int n_warps,
+                             int P, float* __restrict__ colsum,
+                             float* __restrict__ colmax) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  float s = 0.f, m = 0.f;
+  for (int w = 0; w < n_warps; ++w) {
+    s += psum[(size_t)w * P + p];
+    m = fmaxf(m, pmax[(size_t)w * P + p]);
+  }
+  colsum[p] = s;
+  colmax[p] = m;
+}
+
+template <bool SPLIT>
+int launch(const float* x, const float* theta, const float* fconst,
+           const int* meta, int N, int P, int n_fconst, int n_meta,
+           float* logp, float* g, float* quad, float* O,
+           __nv_bfloat16* O_hi, __nv_bfloat16* O_lo, const float* shift,
+           float* psum, float* pmax, float* saves, cudaStream_t stream) {
+  const size_t smem =
+      sizeof(float) * ((size_t)P + n_fconst) + sizeof(int) * n_meta;
+  cudaError_t err = cudaFuncSetAttribute(
+      persample_kernel<SPLIT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (N + THREADS - 1) / THREADS;
+  persample_kernel<SPLIT><<<blocks, THREADS, smem, stream>>>(
+      x, theta, fconst, meta, N, P, n_fconst, n_meta, logp, g, quad, O, O_hi,
+      O_lo, shift, psum, pmax, saves);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// C entry point: launches the kernel on ``stream`` and returns
-// cudaGetLastError() (0 on success). x (N, d) row-major; theta (P,);
-// fconst = [W (d*d), offset (d), dirs (k*d), alphas (n_blocks)]; meta the
-// block plan. Outputs: logp (N,), g (d, N), quad (N,) (may be null when the
-// plan has no directions), O (P, N), saves (n_saves, N) scratch.
+// C entry points: launch on ``stream`` and return cudaGetLastError() (0 on
+// success). x (N, d) row-major; theta (P,); fconst = [W (d*d), offset (d),
+// dirs (k*d), alphas (n_blocks)]; meta the block plan. Outputs: logp (N,),
+// g (d, N), quad (N,) (may be null when the plan has no directions), and O
+// (P, N) f32 -- or, split, O_hi and O_lo (P, N) bf16 of O - shift, colsum
+// and colmax (P,). Scratch: saves (n_saves, ceil(N / 64) * 64) and, split,
+// psum and pmax (ceil(N / 64) * 2, P).
 extern "C" int persample_f32(const float* x, const float* theta,
                              const float* fconst, const int* meta, int N,
                              int P, int n_fconst, int n_meta, float* logp,
                              float* g, float* quad, float* O, float* saves,
                              void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)P + n_fconst) + sizeof(int) * n_meta;
-  cudaError_t err = cudaFuncSetAttribute(
-      persample_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (N + THREADS - 1) / THREADS;
-  persample_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, theta, fconst, meta, N, P, n_fconst, n_meta, logp, g, quad, O,
-      saves);
+  return launch<false>(x, theta, fconst, meta, N, P, n_fconst, n_meta, logp,
+                       g, quad, O, nullptr, nullptr, nullptr, nullptr,
+                       nullptr, saves, (cudaStream_t)stream);
+}
+
+extern "C" int persample_split_f32(
+    const float* x, const float* theta, const float* fconst, const int* meta,
+    int N, int P, int n_fconst, int n_meta, const float* shift, float* logp,
+    float* g, float* quad, void* O_hi, void* O_lo, float* colsum,
+    float* colmax, float* psum, float* pmax, float* saves, void* stream) {
+  const int err = launch<true>(
+      x, theta, fconst, meta, N, P, n_fconst, n_meta, logp, g, quad, nullptr,
+      (__nv_bfloat16*)O_hi, (__nv_bfloat16*)O_lo, shift, psum, pmax, saves,
+      (cudaStream_t)stream);
+  if (err != 0) return err;
+  const int n_warps = ((N + THREADS - 1) / THREADS) * (THREADS / 32);
+  split_finish<<<(P + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      psum, pmax, n_warps, P, colsum, colmax);
   return (int)cudaGetLastError();
 }

@@ -10,6 +10,15 @@ is the torch.func pipeline of ops/score.py with the same signature.
 ``per_sample`` takes the plain version only for a tensor on the CPU; for
 a CUDA tensor it launches the kernel or raises.
 
+``per_sample_split_cuda`` launches the same kernel in split mode, which
+replaces ``make_per_sample_pallas(emit_split=True)``: for a shift vector
+it returns the bf16 hi/lo pair of O - shift, its column sums and its
+column max |O - shift| instead of the f32 O (the chunked statistics' tri2
+and sym2 Gram operands, solver/tdvp.py). ``per_sample_split_plain`` is the
+plain pipeline followed by parallel/stats._split_bf16, and
+``per_sample_split`` dispatches as ``per_sample`` does. Each CUDA wrapper
+counts its launches (``.launches``).
+
 What bounds the kernel on the card: the (P, N) f32 O store. At the
 fokkerPlanck32 shape (P = 9264, N = 16384) that is 607 MB per right-hand
 side, about 0.2 ms at the H100's 3.35 TB/s, against roughly 5 GFLOP of
@@ -26,7 +35,12 @@ scalar f32 work (the 16 second-order jets dominate). The design:
 - W = U^{-1} depends on theta only: the wrapper computes it once per
   launch with ``torch.linalg.solve_triangular``;
 - the ragged tail is masked (threads past N exit after the shared-memory
-  load), so any N runs -- the TPU wrapper needs N % tile == 0.
+  load), so any N runs -- the TPU wrapper needs N % tile == 0;
+- split mode: the column sums and max reduce across each warp by
+  shuffles into (n_warps, P) partials that a second small kernel sums in
+  a fixed order (deterministic, no atomics); its tail threads stay alive
+  on a clamped sample and contribute zeros. Its bound at the chunked
+  path's shape (P = 9264, N = 65536) is the 2.43 GB pair store, ~0.72 ms.
 
 The TPU layout tricks are not carried over: no bf16 hi/lo split matmuls
 (plain f32 FMAs), no 0/1 selection matrices (direct indexing), no fused
@@ -40,7 +54,6 @@ card's 227 KB per block.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import numpy as np
@@ -48,6 +61,7 @@ import torch
 
 from ..models import latent
 from ..ops import score
+from ..parallel import stats
 
 # Block-plan format shared with csrc/persample.cu (same constants there).
 HDR = 16
@@ -60,6 +74,7 @@ BLOCK_REC = 8 + 4 * NET_REC + 2 * MAX_HALF
 NETS = ("s1", "s2", "t1", "t2")
 VARIANT_CODES = {"additive": 0, "affine": 1, "scale": 2, "scale_shift": 3}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+THREADS = 64  # threads per block of the kernel (csrc/persample.cu)
 
 
 def _smem_bytes(flow, n_dirs: int) -> int:
@@ -140,20 +155,17 @@ def per_sample_plain(flow, theta, x, dirs=None):
     return logp, g, quad, O
 
 
-def per_sample_cuda(flow, theta, x, dirs=None):
-    """Same outputs as ``per_sample_plain``, from one launch of the CUDA
-    kernel. f32 CUDA tensors only; g and O come back as ``.T`` views of
-    the kernel's feature-major (d, N) and (P, N) outputs."""
-    from . import build
-
+def _launch_inputs(flow, theta, x, dirs):
+    """Checks the arguments of a kernel launch and builds what every
+    launch passes: (x, theta, fconst, meta, n_saves, n_dirs)."""
     n_dirs = 0 if dirs is None else int(np.shape(dirs)[0])
     d, P = flow.dim, flow.layout.size
     if not supports(flow, dirs, None):
         raise ValueError("per-sample CUDA kernel does not support this flow "
                          "(see kernels.persample.supports)")
     if x.device.type != "cuda" or theta.device != x.device:
-        raise ValueError("per_sample_cuda needs x and theta on one CUDA "
-                         "device")
+        raise ValueError("the per-sample CUDA kernel needs x and theta on "
+                         "one CUDA device")
     if x.dtype != torch.float32 or theta.dtype != torch.float32:
         raise ValueError("the per-sample CUDA kernel is f32 only")
     if x.ndim != 2 or x.shape[1] != d or theta.shape != (P,):
@@ -162,8 +174,7 @@ def per_sample_cuda(flow, theta, x, dirs=None):
     if n_dirs and tuple(np.shape(dirs)) != (n_dirs, d):
         raise ValueError(f"expected directions (k, {d}), got "
                          f"{tuple(np.shape(dirs))}")
-    n = x.shape[0]
-    if n == 0:
+    if x.shape[0] == 0:
         raise ValueError("empty batch")
     dev = x.device
     x = x.contiguous()
@@ -182,22 +193,48 @@ def per_sample_cuda(flow, theta, x, dirs=None):
     parts.append(torch.as_tensor([s.alpha for s in flow.blocks],
                                  dtype=torch.float32, device=dev))
     fconst = torch.cat(parts).contiguous()
+    return x, theta, fconst, meta, n_sv, n_dirs
 
+
+def _padded(n: int) -> int:
+    """Threads a launch runs for n samples (whole blocks of THREADS)."""
+    return -(-n // THREADS) * THREADS
+
+
+def per_sample_cuda(flow, theta, x, dirs=None, saves=None):
+    """Same outputs as ``per_sample_plain``, from one launch of the CUDA
+    kernel. f32 CUDA tensors only; g and O come back as ``.T`` views of
+    the kernel's feature-major (d, N) and (P, N) outputs. ``saves``: an
+    optional caller-owned f32 (n_saves, padded N) buffer that receives
+    the forward saves (block_plan's layout; tools/persample_blocks.py
+    reads it)."""
+    from . import build
+
+    x, theta, fconst, meta, n_sv, n_dirs = _launch_inputs(flow, theta, x,
+                                                          dirs)
+    n, d, P, dev = x.shape[0], flow.dim, flow.layout.size, x.device
     logp = torch.empty((n,), dtype=torch.float32, device=dev)
     g_t = torch.empty((d, n), dtype=torch.float32, device=dev)
     quad = (torch.empty((n,), dtype=torch.float32, device=dev) if n_dirs
             else None)
     O_t = torch.empty((P, n), dtype=torch.float32, device=dev)
-    scratch = torch.empty((n_sv, n), dtype=torch.float32, device=dev)
+    scratch = saves
+    if scratch is None:
+        scratch = torch.empty((n_sv, _padded(n)), dtype=torch.float32,
+                              device=dev)
+    elif (scratch.shape != (n_sv, _padded(n)) or scratch.device != dev
+          or scratch.dtype != torch.float32 or not scratch.is_contiguous()):
+        raise ValueError(f"saves must be a contiguous f32 ({n_sv}, "
+                         f"{_padded(n)}) tensor on {dev}")
 
-    lib = build.library()
+    lib = build.library("persample")
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.persample_f32(
         x.data_ptr(), theta.data_ptr(), fconst.data_ptr(), meta.data_ptr(),
         n, P, fconst.numel(), meta.numel(),
         logp.data_ptr(), g_t.data_ptr(),
         None if quad is None else quad.data_ptr(),
-        O_t.data_ptr(), scratch.data_ptr(), ctypes.c_void_p(stream))
+        O_t.data_ptr(), scratch.data_ptr(), stream)
     build.check(code, "persample_f32")
     per_sample_cuda.launches += 1
     return logp, g_t.T, quad, O_t.T
@@ -212,3 +249,67 @@ def per_sample(flow, theta, x, dirs=None):
     if x.device.type == "cpu":
         return per_sample_plain(flow, theta, x, dirs)
     return per_sample_cuda(flow, theta, x, dirs)
+
+
+def per_sample_split_plain(flow, theta, x, dirs, shift):
+    """(logp, g, quad, (O_hi, O_lo), colsum, omax): the plain pipeline
+    followed by the bf16 split of o = O - shift (parallel/stats.
+    _split_bf16), its column sums and its column max |o|. The pair is
+    (N, P) bf16."""
+    logp, g, quad, O = per_sample_plain(flow, theta, x, dirs)
+    o = O - shift.to(O.dtype)[None, :]
+    return (logp, g, quad, stats._split_bf16(o), o.sum(0),
+            o.abs().amax(0))
+
+
+def per_sample_split_cuda(flow, theta, x, dirs, shift):
+    """Same outputs as ``per_sample_split_plain``, from one launch of the
+    CUDA kernel in split mode (and its small finishing pass). The pair
+    comes back as ``.T`` views of the kernel's feature-major (P, N) bf16
+    outputs."""
+    from . import build
+
+    x, theta, fconst, meta, n_sv, n_dirs = _launch_inputs(flow, theta, x,
+                                                          dirs)
+    n, d, P, dev = x.shape[0], flow.dim, flow.layout.size, x.device
+    if (shift.device != dev or shift.dtype != torch.float32
+            or shift.shape != (P,)):
+        raise ValueError(f"expected an f32 shift ({P},) on {dev}")
+    shift = shift.contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    logp = torch.empty((n,), **f32)
+    g_t = torch.empty((d, n), **f32)
+    quad = torch.empty((n,), **f32) if n_dirs else None
+    hi_t = torch.empty((P, n), dtype=torch.bfloat16, device=dev)
+    lo_t = torch.empty((P, n), dtype=torch.bfloat16, device=dev)
+    colsum = torch.empty((P,), **f32)
+    omax = torch.empty((P,), **f32)
+    n_warps = _padded(n) // 32
+    psum = torch.empty((n_warps, P), **f32)
+    pmax = torch.empty((n_warps, P), **f32)
+    scratch = torch.empty((n_sv, _padded(n)), **f32)
+
+    lib = build.library("persample")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.persample_split_f32(
+        x.data_ptr(), theta.data_ptr(), fconst.data_ptr(), meta.data_ptr(),
+        n, P, fconst.numel(), meta.numel(), shift.data_ptr(),
+        logp.data_ptr(), g_t.data_ptr(),
+        None if quad is None else quad.data_ptr(),
+        hi_t.data_ptr(), lo_t.data_ptr(), colsum.data_ptr(),
+        omax.data_ptr(), psum.data_ptr(), pmax.data_ptr(),
+        scratch.data_ptr(), stream)
+    build.check(code, "persample_split_f32")
+    per_sample_split_cuda.launches += 1
+    return logp, g_t.T, quad, (hi_t.T, lo_t.T), colsum, omax
+
+
+per_sample_split_cuda.launches = 0
+
+
+def per_sample_split(flow, theta, x, dirs, shift):
+    """The split variant: the plain version for a CPU tensor, the CUDA
+    kernel otherwise (or an error)."""
+    if x.device.type == "cpu":
+        return per_sample_split_plain(flow, theta, x, dirs, shift)
+    return per_sample_split_cuda(flow, theta, x, dirs, shift)

@@ -1,7 +1,8 @@
 """TDVP right-hand side, the counterpart of vmc_pde_tpu/solver/tdvp.py for
-the main path: exact latent sampling, direct (unchunked) statistics, the
-spectral eigh or the Tikhonov-Cholesky solve, observables and the fixed
-Heun pair.
+the main path: exact latent sampling, direct or chunked statistics with
+the f32, sym2 or tri2 Gram and the bf16 or int8 cross term
+(parallel/stats.py), the spectral eigh or the Tikhonov-Cholesky solve,
+observables and the fixed Heun pair.
 
 One right-hand side (RHS): draw latent z, push it through the inverse
 flow to samples x; per sample logp, score g, Hessian quadratic trace and
@@ -14,9 +15,10 @@ as the reference does; the update u is dtheta/dt.
 theta is held in the master dtype (f64) by the integrator and cast to the
 compute dtype per stage. Random numbers come from ``torch.Generator``s
 seeded from an integer key; ``fold_in`` derives independent keys per step
-and stage. The chunked and pair statistics, cg/minSR, importance
-sampling, Eloc clipping, the host solve and the adaptive steppers' S
-metric are not ported yet (ROADMAP.md).
+and stage. The syrk Gram backend, f64 Gram precisions, cg/minSR,
+importance sampling, Eloc clipping, the host solve, multi-device
+statistics and the adaptive steppers' S metric are not ported yet
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels import persample
+from ..kernels import persample, quant8
 from ..models.state import VarState
 from ..ops.evolution import Equation
 from ..parallel import stats
@@ -109,18 +111,22 @@ def _check_ported(cfg: TDVPConfig) -> None:
         raise ValueError(f"unknown solver_method {cfg.solver_method!r}")
     if cfg.gram_precision not in ("highest", "high"):
         raise _not_ported(f"gram_precision={cfg.gram_precision!r}")
-    if cfg.gram_backend not in ("auto", "xla"):
-        raise _not_ported(f"gram_backend={cfg.gram_backend!r}")
-    if cfg.gram_cross != "auto":
-        raise _not_ported(f"gram_cross={cfg.gram_cross!r}")
+    if cfg.gram_backend == "syrk":
+        raise _not_ported("gram_backend='syrk'")
+    if cfg.gram_backend not in ("auto", "xla", "sym2", "tri2"):
+        raise ValueError(f"unknown gram_backend {cfg.gram_backend!r}")
+    if cfg.gram_cross not in ("auto", "bf16", "int8"):
+        raise ValueError(f"unknown gram_cross {cfg.gram_cross!r}")
+    if cfg.tri2_target_block < 0:
+        raise ValueError("tri2_target_block must be >= 0 (0 = 512)")
+    if cfg.chunk_size < 0:
+        raise ValueError("chunk_size must be >= 0")
     if cfg.hessian_mode == "block":
         raise _not_ported("hessian_mode='block'")
     if cfg.hessian_mode not in ("auto", "trace"):
         raise ValueError(f"unknown hessian_mode {cfg.hessian_mode!r}")
     if cfg.stats_partitioning != "auto":
         raise _not_ported("multi-device statistics")
-    if cfg.chunk_size:
-        raise _not_ported("chunked statistics (chunk_size > 0)")
     if cfg.compute_sexp or cfg.sexp_mode != "none":
         raise _not_ported("the adaptive steppers' S metric")
     if not cfg.solve_on_device:
@@ -229,6 +235,12 @@ class TDVP:
         self.n_samples_obs = (self.sampler.rounded_budget(n_samples_obs)
                               if n_samples_obs is not None
                               else self.n_samples)
+        if 0 < cfg.chunk_size < self.n_samples:
+            # the chunked statistics take whole chunks: round the budget up
+            # to a multiple of lcm(chunk, sampler block), as the JAX
+            # package does (budgets only grow)
+            step = math.lcm(self.sampler.rounded_budget(1), cfg.chunk_size)
+            self.n_samples = -(-self.n_samples // step) * step
 
         if cfg.auto_tol_floor:
             eps = torch.finfo(self.precision.compute).eps
@@ -252,6 +264,29 @@ class TDVP:
                         and cfg.spectrum_topk > 0)
             cfg = dataclasses.replace(cfg, compute_snr=keep_snr)
         self.cfg = cfg
+
+        # Gram backend: "auto" resolves as the JAX package resolves it off
+        # a TPU, to the plain f32 product; only an explicit sym2/tri2
+        # engages the bf16 split, and only an explicit int8 its int8 cross
+        # term (parallel/stats.py)
+        split_ok = (self.precision.compute == torch.float32
+                    and cfg.gram_precision == "high")
+        if cfg.gram_backend in ("sym2", "tri2") and not split_ok:
+            raise ValueError(
+                f"gram_backend={cfg.gram_backend!r} implements f32 "
+                "statistics at gram_precision='high' numerics; use "
+                "'auto'/'xla' with this precision configuration")
+        self._use_sym2 = cfg.gram_backend == "sym2"
+        self._use_tri2 = cfg.gram_backend == "tri2"
+        self._cross_int8 = cfg.gram_cross == "int8"
+        self._tri2_bounds = (stats.tri2_bounds(
+            state.numParameters, cfg.tri2_target_block or 512)
+            if self._use_tri2 else None)
+        if self._cross_int8 and not (self._use_sym2 or self._use_tri2):
+            raise ValueError(
+                "gram_cross='int8' is the cross pass of the sym2/tri2 "
+                "split backends; this configuration has no cross term "
+                "(use gram_backend='sym2'/'tri2')")
 
         self._unravel = self.flow.layout.unravel
         hess_idx = equation.hessian_coords(self.flow.dim)
@@ -277,6 +312,13 @@ class TDVP:
         self._per_sample = (persample.per_sample if use_kernel
                             else persample.per_sample_plain)
         self.uses_kernel = use_kernel
+        # the split-emitting variant serves the chunked sym2/tri2 path
+        # wherever the kernel does (it too takes the plain version for CPU
+        # tensors)
+        self._ps_split = (persample.per_sample_split
+                          if use_kernel and (self._use_sym2
+                                             or self._use_tri2)
+                          else None)
 
         self.ev = None
         self.snr = None
@@ -298,15 +340,17 @@ class TDVP:
         return logp, self.equation.eloc(x, g, quad, t), O
 
     def _direct_stats(self, theta_c, t, x):
-        """Materialize O once, center, contract."""
+        """Materialize O once, center, contract with the configured Gram
+        backend."""
         n = x.shape[0]
         logp, eloc, O = self._per_sample_batch(theta_c, x, t)
         eloc_mean = stats.mean(eloc)
         e_c = eloc - eloc_mean
         O_c = O - stats.mean(O)
+        gram_sum, _, gram_fin = self._gram_backend()
         A = None
         if self.cfg.compute_snr or self.cfg.use_snr:
-            A = stats.second_moment_matrix(O_c, e_c**2)
+            A = gram_fin(gram_sum(O_c, e_c**2)) / n
         return dict(
             logp=logp,
             eloc=eloc,
@@ -315,7 +359,198 @@ class TDVP:
             eloc_var=stats.mean(e_c**2),
             eloc_sq_mean=stats.mean(eloc**2),
             F0=(e_c @ O_c) / n,
-            S0=stats.second_moment_matrix(O_c),
+            S0=gram_fin(gram_sum(O_c)) / n,
+            A=A,
+        )
+
+    def _gram_backend(self):
+        """(gram_sum, gram_zero, gram_fin) of the configured backend:
+        gram_sum(Os, w=None) the unnormalized chunk moment Os^T diag(w) Os,
+        gram_zero() its accumulator, gram_fin(acc) the assembled (P, P).
+        tri2 accumulates the raw triangle strips and cross term and
+        mirrors them once; the other backends the matrix itself."""
+        P, cdt = self.n_params, self.precision.compute
+        dev, cross = self.device, self._cross_int8
+        if self._use_tri2:
+            bounds = self._tri2_bounds
+
+            def gram_zero():
+                return {"t": tuple(torch.zeros((hi - lo, hi), dtype=cdt,
+                                               device=dev)
+                                   for lo, hi in zip(bounds[:-1],
+                                                     bounds[1:])),
+                        "m2": torch.zeros((P, P), dtype=cdt, device=dev)}
+
+            return (lambda Os, w=None: stats.tri2_gram_sum_raw(
+                        Os, w, bounds, cross_int8=cross),
+                    gram_zero,
+                    lambda acc: stats.tri2_gram_finalize(acc, bounds))
+        if self._use_sym2:
+            gram_sum = lambda Os, w=None: stats.sym2_gram_sum(  # noqa: E731
+                Os, w, cross_int8=cross)
+        else:
+            gram_sum = lambda Os, w=None: torch.matmul(  # noqa: E731
+                Os.T, Os if w is None else Os * w[:, None])
+        return (gram_sum,
+                lambda: torch.zeros((P, P), dtype=cdt, device=dev),
+                lambda acc: acc)
+
+    def _chunked_stats(self, theta_c, t, x):
+        """Streaming statistics, the counterpart of the JAX package's
+        _chunked_stats (tdvp.py:1200-1547) on one device: a loop over
+        sample chunks, so O never exists beyond one chunk. The moments
+        accumulate pilot-shifted (O - c_O, E_loc - c_E, the pilot means)
+        so that the f32 sums stay well conditioned, and are un-shifted
+        once at the end. Accumulators are updated in place.
+
+        With the split kernel (sym2/tri2 on the kernel's path) every chunk
+        goes through per_sample_split, which emits the bf16 pair of O - c_O
+        with its column sums and max; the unweighted Gram and the force
+        read the pair, and with the int8 cross term quant8.quant_force
+        turns each half into its int8 operand and its force terms in one
+        pass. The pilot then runs on the first min(c, 8 * tile) samples
+        through the plain-mode kernel, as in the JAX package, so that both
+        shift by the same constants. Without it, chunk 0 is the pilot and
+        the split, if any, happens in the Gram (stats.py)."""
+        cfg = self.cfg
+        n, d = x.shape
+        c = cfg.chunk_size
+        if n % c:
+            raise ValueError(f"sample budget {n} is not a multiple of chunk "
+                             f"size {c} (TDVP.__init__ rounds its own "
+                             "budgets; a hand-built call must do the same)")
+        P = self.n_params
+        use_pair = self._ps_split is not None
+        use_q8 = (use_pair and self._cross_int8 and c % 8 == 0
+                  and c <= stats._INT8_CROSS_N_MAX)
+        want_A = cfg.compute_snr or cfg.use_snr
+        gram_sum, gram_zero, gram_fin = self._gram_backend()
+
+        c_pilot = min(c, 8 * cfg.per_sample_tile) if use_pair else c
+        pilot = self._per_sample_batch(theta_c, x[:c_pilot], t)
+        c_O = pilot[2].mean(0)
+        c_E = pilot[1].mean()
+
+        def zeros(*shape):
+            return torch.zeros(shape, dtype=theta_c.dtype, device=x.device)
+
+        acc = dict(sum_O=zeros(P), sum_E=zeros(), sum_absE=zeros(),
+                   sum_E2=zeros(), sum_rawE2=zeros(), sum_EO=zeros(P),
+                   sum_OO=gram_zero())
+        if want_A:
+            acc.update(sum_E2O=zeros(P), sum_E2OO=gram_zero(),
+                       sum_EOO=gram_zero())
+
+        def add(key, part):
+            a = acc[key]
+            if isinstance(a, dict):  # raw tri2 parts
+                for s_acc, s_part in zip(a["t"], part["t"]):
+                    s_acc += s_part
+                a["m2"] += part["m2"]
+            else:
+                a += part
+
+        def add_scalars(eloc, es):
+            add("sum_E", es.sum())
+            add("sum_absE", eloc.abs().sum())
+            add("sum_E2", (es**2).sum())
+            add("sum_rawE2", (eloc**2).sum())
+
+        def chunk_plain(logp, eloc, O):
+            Os = O - c_O
+            es = eloc - c_E
+            add_scalars(eloc, es)
+            add("sum_O", Os.sum(0))
+            add("sum_EO", es @ Os)
+            add("sum_OO", gram_sum(Os))
+            if want_A:
+                w = es**2
+                add("sum_E2O", w @ Os)
+                add("sum_E2OO", gram_sum(Os, w))
+                add("sum_EOO", gram_sum(Os, es))
+
+        def chunk_pair(xc):
+            logp, g, quad, pair, colsum, omax = self._ps_split(
+                self.flow, theta_c, xc, self._hess_dirs, c_O)
+            eloc = self.equation.eloc(xc, g, quad, t)
+            es = eloc - c_E
+            add_scalars(eloc, es)
+            add("sum_O", colsum)
+            # int8 scale bounds from the column max |O - c_O|: max|hi| <=
+            # omax (1 + 2^-8) (monotone rounding), max|lo| <= omax 2^-8
+            amax = (omax * (1.0 + 2.0**-8), omax * 2.0**-8)
+            m2 = None
+            if use_q8:
+                (s_hi, inv_hi), (s_lo, inv_lo) = map(stats._int8_scales,
+                                                     amax)
+                es_hi, es_lo = stats._split_bf16(es.float())
+                q8_hi, f_hi = quant8.quant_force(
+                    pair[0].T, inv_hi, torch.stack([es_hi, es_lo], dim=1))
+                q8_lo, f_lo = quant8.quant_force(pair[1].T, inv_lo,
+                                                 es_hi[:, None])
+                m2 = stats.cross_from_q8(q8_hi, q8_lo, s_hi, s_lo)
+                add("sum_EO", f_hi[:, 0] + f_hi[:, 1] + f_lo[:, 0])
+            else:
+                add("sum_EO", stats.pair_vecmat(es, pair))
+            if not self._cross_int8:
+                amax = None
+            if self._use_tri2:
+                add("sum_OO", stats.tri2_gram_sum_raw_pair(
+                    pair, self._tri2_bounds, cross_int8=self._cross_int8,
+                    amax=amax, m2=m2))
+            else:
+                add("sum_OO", stats.sym2_gram_sum_pair(
+                    pair, cross_int8=self._cross_int8, amax=amax, m2=m2))
+            if want_A:
+                # the weighted moments split sqrt|w| (O - c_O) themselves
+                w = es**2
+                add("sum_E2O", stats.pair_vecmat(w, pair))
+                O_s = stats.pair_to_f32(pair)
+                add("sum_E2OO", gram_sum(O_s, w))
+                add("sum_EOO", gram_sum(O_s, es))
+            return logp, eloc
+
+        if use_pair:
+            out = [chunk_pair(x[i:i + c]) for i in range(0, n, c)]
+        else:
+            chunk_plain(*pilot)
+            out = [pilot[:2]]
+            for i in range(c, n, c):
+                batch = self._per_sample_batch(theta_c, x[i:i + c], t)
+                chunk_plain(*batch)
+                out.append(batch[:2])
+        logp = torch.cat([o[0] for o in out])
+        eloc = torch.cat([o[1] for o in out])
+
+        # Un-shift. With y = O - c_O and f = E - c_E: m_y = E[y],
+        # S0 = E[y^T y] - m_y^T m_y, F0 = E[f y] - m_f m_y
+        m_y = acc["sum_O"] / n
+        m_f = acc["sum_E"] / n
+        Eyy = gram_fin(acc["sum_OO"]) / n
+        Efy = acc["sum_EO"] / n
+        S0 = Eyy - torch.outer(m_y, m_y)
+        F0 = Efy - m_f * m_y
+        A = None
+        if want_A:
+            # A = E[fbar^2 ybar^T ybar], fbar = f - m_f, ybar = y - m_y,
+            # from the raw moments by expanding fbar^2 = f^2 - 2 m_f f +
+            # m_f^2
+            M2 = (gram_fin(acc["sum_E2OO"]) / n
+                  - 2.0 * m_f * gram_fin(acc["sum_EOO"]) / n
+                  + m_f**2 * Eyy)
+            v2 = acc["sum_E2O"] / n - 2.0 * m_f * Efy + m_f**2 * m_y
+            s2 = acc["sum_E2"] / n - m_f**2
+            A = (M2 - torch.outer(v2, m_y) - torch.outer(m_y, v2)
+                 + s2 * torch.outer(m_y, m_y))
+        return dict(
+            logp=logp,
+            eloc=eloc,
+            eloc_mean=m_f + c_E,
+            eloc_abs_mean=acc["sum_absE"] / n,
+            eloc_var=acc["sum_E2"] / n - m_f**2,
+            eloc_sq_mean=acc["sum_rawE2"] / n,
+            F0=F0,
+            S0=S0,
             A=A,
         )
 
@@ -345,7 +580,10 @@ class TDVP:
         n = z.shape[0]
         x, _ = self.flow.push(params, z)
 
-        st = self._direct_stats(theta_c, t, x)
+        if cfg.chunk_size and cfg.chunk_size < n:
+            st = self._chunked_stats(theta_c, t, x)
+        else:
+            st = self._direct_stats(theta_c, t, x)
         S0, F0 = st["S0"], st["F0"]
         S = S0
         if cfg.diagonal_shift > 1e-10:

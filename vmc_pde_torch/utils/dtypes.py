@@ -17,7 +17,9 @@ three decimal digits, far too coarse for a Gram matrix whose spectrum spans
 many orders of magnitude. ``full_f32_matmuls`` turns it off for matmuls and
 convolutions alike, so every Gram, force and covariance contraction runs in
 full f32 (the invariant the JAX package keeps with explicit matmul
-precision on every statistics contraction).
+precision on every statistics contraction). It also turns off cuBLAS's
+reduced-precision reductions in bf16 products, whose f32 results the split
+Gram backends (parallel/stats.py) sum.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ import torch
 
 
 def full_f32_matmuls() -> None:
-    """Make every f32 matmul and convolution full f32 (no TF32)."""
+    """Make every f32 matmul and convolution full f32 (no TF32), and keep
+    bf16 products' reductions in f32."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
