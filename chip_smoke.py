@@ -28,7 +28,30 @@
    steps: 3 steps x 2 RHS x 8 chunks split launches, twice that many
    quant8 launches, the plain-mode kernel for the pilot, no NaN, residual
    below 1e-3;
-8. the 2-D Gaussian diffusion ``mwe`` in f64 against its closed forms.
+8. the 2-D Gaussian diffusion ``mwe`` in f64 against its closed forms;
+9. the Metropolis kernel against its plain version on the same external
+   uniforms (128 chains x 24 sweeps, 8192 x 128): the same accept count,
+   samples and final states within 2e-6; its Philox variant at 8192 x 128
+   against the plain version on the same stream, and against the torch
+   chain on statistics (acceptance within 0.03, mean radius within 5% of
+   the analytic value, radial-histogram L1 below 0.15); all three timed;
+10. ``VarState.sample`` on fluidpaper's flow with 8192 chains, 2^20
+   samples: the kernel's launch counter must rise;
+11. ``fluidpaper`` through the driver at the preset (30 chains, N=10020)
+   for 20 steps: no NaN, residual below 1e-3, acceptance in (0.05, 0.95),
+   the grid integral on [0, 1]^2 within 0.05 of 1, the entropy drift;
+12. ``doubleWell`` through the driver for 20 steps: no NaN, acceptance in
+   (0.05, 0.95), the adapted random-walk scale;
+13. the syrk kernel against its plain version on the main path's centered
+   O at N=16384, P=9264, unweighted (within 2e-5 of the largest entry)
+   and with the signed weight E_loc - mean (3e-5); timed against the
+   plain version and against torch.mm(O^T, O) in f32;
+14. ``fokkerPlanck32 --gram-backend syrk``: 5 steps at N=16384 with
+   exactly 20 syrk launches, S0 and A within 1e-4 of the f32 Gram's on one
+   batch, then the chunked statistics at N=131072 in chunks of 65536 for
+   2 steps with exactly 24 syrk and 8 per-sample launches. The chunked
+   syrk run is cut to 2 steps and N=131072, the direct one to 5 steps,
+   to keep the whole script well inside its time limit.
 
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
@@ -46,11 +69,15 @@ import torch
 
 from vmc_pde_torch import driver
 from vmc_pde_torch.config import preset
-from vmc_pde_torch.kernels import bounds, build, persample, quant8
+from vmc_pde_torch.kernels import (bounds, build, metropolis, persample,
+                                   quant8, syrk)
 from vmc_pde_torch.models.flow import build_flow, perturb_theta
+from vmc_pde_torch.models.state import VarState
 from vmc_pde_torch.ops.evolution import make_equation
 from vmc_pde_torch.parallel import stats
+from vmc_pde_torch.sampling import sampler as sampling
 from vmc_pde_torch.utils.dtypes import full_f32_matmuls
+from vmc_pde_torch.utils.grid import Grid
 
 # Kernel (f32) vs plain version in f64 on the same f32-rounded inputs,
 # relative to the largest reference value: f32 rounding amplified by four
@@ -66,7 +93,16 @@ KERNELS = {
                         "vmc_pde_tpu/kernels/persample.py:916"),
     "quant8": ("vmc_pde_torch/kernels/csrc/quant8.cu",
                "vmc_pde_tpu/kernels/quant8.py:103"),
+    "metropolis": ("vmc_pde_torch/kernels/csrc/metropolis.cu",
+                   "vmc_pde_tpu/kernels/metropolis.py:140"),
+    "syrk": ("vmc_pde_torch/kernels/csrc/syrk.cu",
+             "vmc_pde_tpu/kernels/syrk.py:161"),
 }
+WRAPPERS = {"persample": persample.per_sample_cuda,
+            "persample_split": persample.per_sample_split_cuda,
+            "quant8": quant8.quant_force_cuda,
+            "metropolis": metropolis.metropolis_chain_cuda,
+            "syrk": syrk.syrk_cuda}
 
 
 def fail(msg):
@@ -292,18 +328,15 @@ def phase_quant8(split):
 
 
 def _zero_counts():
-    for fn in (persample.per_sample_cuda, persample.per_sample_split_cuda,
-               quant8.quant_force_cuda):
+    for fn in WRAPPERS.values():
         fn.launches = 0
 
 
 def _counts():
-    return dict(persample=persample.per_sample_cuda.launches,
-                persample_split=persample.per_sample_split_cuda.launches,
-                quant8=quant8.quant_force_cuda.launches)
+    return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def _drive(args, label, n_steps):
+def _drive(args, label, n_steps, dim=32):
     """Run the driver; returns (state, recorder arrays, counts)."""
     stamps = []
 
@@ -323,13 +356,14 @@ def _drive(args, label, n_steps):
           f"mean of steps 2-{len(steps)} {steps[1:].mean():.3f} s")
     print(f"{label}: kernel launches {counts}")
     arrays = rec.as_arrays()
+    spectrum = "ev_topk" if "ev_topk" in arrays else "ev"
     for key in ("solver_res", "tdvp_error", "entropy", "covar", "x1",
-                "eloc_mean", "ev_topk"):
+                "eloc_mean", spectrum):
         if not np.isfinite(arrays[key]).all():
             fail(f"non-finite {key} in the {label} run")
     if arrays["nan"].any():
         fail(f"NaN update in the {label} run")
-    if arrays["covar"].shape != (n_steps, 32, 32):
+    if arrays["covar"].shape != (n_steps, dim, dim):
         fail(f"covar shape {arrays['covar'].shape}")
     res = arrays["solver_res"]
     print(f"{label} solver_res per step: "
@@ -415,6 +449,246 @@ def phase_mwe():
              f"entropy {ent_err:.3f})")
 
 
+BUMP_OFFSET = (0.25, 0.25)
+
+
+def _bump_mean_radius(bound=0.25):
+    """Analytic mean radius of the cosine bump, p(s) ~ s (1 + cos(4 pi s))
+    on [0, bound]."""
+    s_grid = np.linspace(0, bound, 20001)
+    w = s_grid * (1 + np.cos(4 * np.pi * s_grid))
+    return np.trapezoid(s_grid * w, s_grid) / np.trapezoid(w, s_grid)
+
+
+def phase_metropolis(dev):
+    """The Metropolis kernel against its plain version on the same
+    uniforms, exact; the Philox variant against the plain version on its
+    stream and against the torch chain on statistics."""
+    max_abs = 0.0
+    gen = torch.Generator(device=dev).manual_seed(2)
+    for C, sweeps, uniforms in ((128, 24, True), (8192, 128, True),
+                                (8192, 128, False)):
+        init = torch.tensor(BUMP_OFFSET, device=dev).repeat(C, 1)
+        u = None
+        if uniforms:
+            u = torch.rand((6, sweeps * C), generator=gen, device=dev) \
+                * (1 - 2e-7) + 1e-7
+        got = metropolis.metropolis_chain_cuda(5, init, sweeps, 0.25,
+                                               BUMP_OFFSET, u)
+        ref = metropolis.metropolis_chain_plain(5, init, sweeps, 0.25,
+                                                BUMP_OFFSET, u)
+        torch.cuda.synchronize()
+        err = max(float((a - r).abs().max()) for a, r in zip(got[:2],
+                                                             ref[:2]))
+        acc, acc_ref = int(got[2]), int(ref[2])
+        label = "external uniforms" if uniforms else "Philox"
+        print(f"metropolis kernel vs plain, {C} chains x {sweeps} sweeps, "
+              f"{label}: accepted {acc} vs {acc_ref}, max abs err {err:.3e} "
+              f"(tol 2e-6)")
+        if acc != acc_ref or not err <= 2e-6:
+            fail(f"the Metropolis kernel disagrees with its plain version "
+                 f"({label}, {C} chains)")
+        max_abs = max(max_abs, err)
+
+    # statistics of the Philox run against the torch chain
+    total, burn = sweeps * C, 32 * C
+    info = {"offset": np.asarray(BUMP_OFFSET), "bound": 0.25}
+    t_s, _, t_acc = sampling.metropolis_chain(
+        torch.Generator(device=dev).manual_seed(3), init,
+        lambda x: sampling.cos_dist_log_prob(
+            x, torch.tensor(BUMP_OFFSET, device=dev)),
+        sampling.radial_proposal, sweeps, info)
+    off = np.asarray(BUMP_OFFSET)
+    rk = np.linalg.norm(got[0].cpu().numpy()[burn:] - off, axis=1)
+    rt = np.linalg.norm(t_s.cpu().numpy()[burn:] - off, axis=1)
+    mean_r = _bump_mean_radius()
+    hk, edges = np.histogram(rk, bins=25, range=(0, 0.25), density=True)
+    ht, _ = np.histogram(rt, bins=edges, density=True)
+    l1 = np.abs(hk - ht).mean() / ht.mean()
+    rate_k, rate_t = acc / total, int(t_acc) / total
+    print(f"metropolis Philox vs torch chain: acceptance {rate_k:.4f} vs "
+          f"{rate_t:.4f}, mean radius {rk.mean():.5f} and {rt.mean():.5f} "
+          f"(analytic {mean_r:.5f}), radial histogram L1 {l1:.4f}")
+    if not (abs(rate_k - rate_t) < 0.03 and abs(rk.mean() / mean_r - 1) < 0.05
+            and abs(rt.mean() / mean_r - 1) < 0.05 and l1 < 0.15):
+        fail("the Philox Metropolis kernel does not sample the cosine bump")
+
+    u_ext = torch.rand((6, sweeps * C), generator=gen, device=dev) \
+        * (1 - 2e-7) + 1e-7
+    ms = _time_ms(lambda: metropolis.metropolis_chain_cuda(
+        5, init, sweeps, 0.25, BUMP_OFFSET), 20)
+    ext_ms = _time_ms(lambda: metropolis.metropolis_chain_cuda(
+        5, init, sweeps, 0.25, BUMP_OFFSET, u_ext), 20)
+    plain_ms = _time_ms(lambda: metropolis.metropolis_chain_plain(
+        5, init, sweeps, 0.25, BUMP_OFFSET, u_ext), 3)
+    torch_ms = _time_ms(lambda: sampling.metropolis_chain(
+        torch.Generator(device=dev).manual_seed(3), init,
+        lambda x: sampling.cos_dist_log_prob(
+            x, torch.tensor(BUMP_OFFSET, device=dev)),
+        sampling.radial_proposal, sweeps, info), 3)
+    bound = bounds.metropolis(total, 2)
+    bound_ext = bounds.metropolis(total, 2, ext=True)
+    print(f"metropolis at {C} chains x {sweeps} sweeps: CUDA kernel Philox "
+          f"{ms:.4f} ms (bound {bound[0]:.6f} ms, {bound[1]}), external "
+          f"uniforms {ext_ms:.4f} ms (bound {bound_ext[0]:.6f} ms), plain "
+          f"torch on the same uniforms {plain_ms:.3f} ms, the torch chain "
+          f"{torch_ms:.3f} ms")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1])
+
+
+def phase_var_state_sample(dev):
+    """VarState.sample on fluidpaper's flow with 8192 chains: the path
+    that reaches the Metropolis kernel."""
+    cfg = preset("fluidpaper")
+    flow, theta = build_flow(cfg.seed, cfg.dim, depth=cfg.depth,
+                             hidden=cfg.hidden_resolved(),
+                             variant=cfg.variant, latent_name=cfg.latent_name,
+                             offset=cfg.offset, out_scale=cfg.init_scale,
+                             dtype=torch.float32, device=dev)
+    sampler = sampling.Sampler(2, cfg.latent_name, n_chains=8192,
+                               mcmc_info={"offset": np.asarray(cfg.offset),
+                                          "bound": cfg.mcmc_bound})
+    state = VarState(flow, theta, sampler=sampler)
+    n = 2**20
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x, logp = state.sample(n, key=1)
+    x2, logp2 = state.sample(n, key=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counts()
+    rate = sampler.last_info.acceptance_rate
+    r = (x2 - torch.tensor(cfg.offset, device=dev)).norm(dim=1)
+    print(f"VarState.sample, fluidpaper flow, 8192 chains: 2 x {n} samples "
+          f"in {wall:.3f} s, launches {counts}, acceptance {rate:.4f}, "
+          f"mean radius {float(r.mean()):.5f} (bump {_bump_mean_radius():.5f}"
+          f"; the flow starts near the identity)")
+    if counts["metropolis"] != 2:
+        fail(f"VarState.sample launched the Metropolis kernel "
+             f"{counts['metropolis']} times, expected 2")
+    if (x.shape != (n, 2) or not torch.isfinite(x).all()
+            or not torch.isfinite(logp).all() or not 0.05 < rate < 0.95):
+        fail("VarState.sample gave bad samples")
+    return counts["metropolis"]
+
+
+def _acceptance(arrays):
+    return float(arrays["mcmc_accepted"].sum()
+                 / arrays["mcmc_proposed"].sum())
+
+
+def phase_fluidpaper():
+    state, arrays, counts = _drive(["fluidpaper"], "fluidpaper", 20, dim=2)
+    rate = _acceptance(arrays)
+    integral = float(state.integrate(Grid(np.ones(2), 150, sym=False)))
+    ent = arrays["entropy"]
+    print(f"fluidpaper: acceptance {rate:.4f}, grid integral on [0,1]^2 "
+          f"{integral:.5f}, entropy {ent[0]:.6f} -> {ent[-1]:.6f} (drift "
+          f"{ent[-1] - ent[0]:+.3e}; the field is divergence-free)")
+    if not (0.05 < rate < 0.95 and abs(integral - 1.0) < 0.05):
+        fail("fluidpaper: acceptance or mass conservation off")
+
+
+def phase_doublewell():
+    state, arrays, _ = _drive(["doubleWell"], "doubleWell", 20, dim=2)
+    rate = _acceptance(arrays)
+    scale = float(state.sampler.rw_scale)
+    print(f"doubleWell: acceptance {rate:.4f}, adapted rw_scale {scale:.4f} "
+          f"(preset 0.8, target acceptance 0.234)")
+    if not 0.05 < rate < 0.95:
+        fail(f"doubleWell acceptance {rate}")
+
+
+def phase_syrk(dev, theta):
+    """The syrk kernel on the main path's centered O (the per-sample
+    kernel's feature-major output at the theta the main path ends on)."""
+    flow, _, _, eq, dirs = _fp32_problem(dev)
+    theta = theta.to(device=dev, dtype=torch.float32)
+    params = flow.layout.unravel(theta)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    n = 16384
+    x, _ = flow.push(params, flow.latent_sample(gen, params, n,
+                                                torch.float32))
+    _, g, quad, O = persample.per_sample_cuda(flow, theta, x, dirs)
+    O_c = O - O.mean(0)
+    eloc = eq.eloc(x, g, quad, 0.0)
+    e_c = eloc - eloc.mean()
+    max_abs = 0.0
+    for label, w, tol in (("unweighted", None, 2e-5),
+                          ("signed weight E_loc - mean", e_c, 3e-5)):
+        got = syrk.syrk_cuda(O_c, w)
+        ref = syrk.syrk_plain(O_c, w)
+        torch.cuda.synchronize()
+        scale = float(ref.abs().max())
+        err = float((got - ref).abs().max())
+        asym = float((got - got.T).abs().max()) / scale
+        print(f"syrk kernel vs plain at N={n}, P={O.shape[1]}, {label}: max "
+              f"abs err {err:.3e}, relative to the largest entry "
+              f"{err / scale:.3e} (tol {tol:.0e}); relative asymmetry "
+              f"{asym:.3e}")
+        if not err <= tol * scale:
+            fail(f"syrk kernel disagrees with its plain version ({label})")
+        max_abs = max(max_abs, err)
+        del got, ref
+    P = O.shape[1]
+    ms = _time_ms(lambda: syrk.syrk_cuda(O_c), 10)
+    plain_ms = _time_ms(lambda: syrk.syrk_plain(O_c), 5)
+    lib_ms = _time_ms(lambda: torch.mm(O_c.T, O_c), 5)
+    bound = bounds.syrk(n, P)
+    print(f"syrk at N={n}, P={P}: CUDA kernel {ms:.3f} ms, plain split "
+          f"products {plain_ms:.3f} ms, torch.mm f32 (TF32 off) "
+          f"{lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+
+
+def phase_syrk_paths(theta):
+    """fokkerPlanck32 with --gram-backend syrk: the direct path with exact
+    launch counts, its statistics against the f32 Gram's, and the chunked
+    path with exact launch counts."""
+    n_steps = 5
+    _, _, counts = _drive(["fokkerPlanck32", "--gram-backend", "syrk"],
+                          "fokkerPlanck32 N=16384 syrk", n_steps)
+    want = n_steps * 2 * 2  # S0 and A per RHS
+    if counts["syrk"] != want or counts["persample"] != n_steps * 2:
+        fail(f"syrk path launches {counts}, expected {want} syrk")
+    direct_launches = counts["syrk"]
+
+    n = 16384
+    out = {}
+    for backend in ("syrk", "auto"):
+        cfg = preset("fokkerPlanck32", device="cuda", gram_backend=backend)
+        state, tdvp = driver.build_problem(cfg)[:2]
+        theta_c = theta.to(device=state.device, dtype=torch.float32)
+        params = state.flow.layout.unravel(theta_c)
+        gen = torch.Generator(device=state.device).manual_seed(8)
+        x, _ = state.flow.push(params, state.flow.latent_sample(
+            gen, params, n, torch.float32))
+        out[backend] = tdvp._direct_stats(theta_c, 0.0, x)
+    for key in ("S0", "F0", "A"):
+        full = out["auto"][key]
+        rel = _rel(out["syrk"][key], full, full.abs().max())
+        print(f"syrk vs f32 Gram {key} at N={n}: max abs diff / max "
+              f"{rel:.3e} (tol 1e-4)")
+        if not rel <= 1e-4:
+            fail(f"syrk {key} differs from the f32 Gram's: {rel}")
+    del out
+
+    n_steps, n, c = 2, 131072, 65536
+    _, _, counts = _drive(
+        ["fokkerPlanck32", "--samples", str(n), "--chunk-size", str(c),
+         "--gram-backend", "syrk"],
+        f"fokkerPlanck32 N={n} chunked syrk", n_steps)
+    chunks = n_steps * 2 * (n // c)
+    if counts["syrk"] != 3 * chunks or counts["persample"] != chunks:
+        fail(f"chunked syrk launches {counts}, expected {3 * chunks} syrk "
+             f"and {chunks} per-sample")
+    return direct_launches
+
+
+
 def main():
     phase_device()
     full_f32_matmuls()
@@ -435,11 +709,17 @@ def main():
     launches.update(persample_split=counts["persample_split"],
                     quant8=counts["quant8"])
     phase_mwe()
+    results["metropolis"] = phase_metropolis(dev)
+    launches["metropolis"] = phase_var_state_sample(dev)
+    phase_fluidpaper()
+    phase_doublewell()
+    results["syrk"] = phase_syrk(dev, state.get_parameters())
+    launches["syrk"] = phase_syrk_paths(state.get_parameters())
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name],
-             library_ms=None, **results[name])
-        for name in ("persample", "persample_split", "quant8")]}))
+             **{"library_ms": None, **results[name]})
+        for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

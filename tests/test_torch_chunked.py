@@ -17,6 +17,8 @@ Tolerances:
 - the Heun step: 1e-4 relative (see the test).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,7 +162,8 @@ def test_chunked_heun_pair_matches_jax():
 def test_driver_chunk_and_gram_flags():
     """--chunk-size, --gram-backend and --gram-cross reach the solver; on
     the CPU the run takes the plain versions and launches no kernel; the
-    budget rounds up to whole chunks; syrk is refused as not ported."""
+    budget rounds up to whole chunks; the syrk Gram runs chunked; an
+    unported stepper is refused."""
     launches = (persample.per_sample_cuda.launches,
                 persample.per_sample_split_cuda.launches,
                 quant8.quant_force_cuda.launches)
@@ -179,7 +182,10 @@ def test_driver_chunk_and_gram_flags():
     tdvp = driver.build_problem(cfg)[1]
     assert tdvp.n_samples == 1024 and tdvp._use_tri2 and tdvp._cross_int8
     assert tdvp.cfg.chunk_size == 256
+    _, rec = driver.main(args[:7] + ["--gram-backend", "syrk",
+                                     "--max-steps", "1"])
+    assert (rec.as_arrays()["solver_res"] < 1e-4).all()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.main(args[:7] + ["--gram-backend", "syrk"])
+        driver.run(dataclasses.replace(cfg, stepper="adaptive_heun"))
     with pytest.raises(ValueError, match="cross term"):
         driver.main(args[:7] + ["--gram-cross", "int8"])

@@ -212,3 +212,55 @@ def test_bf16_product_accumulates_at_f32_grade(dev):
     assert got.dtype == torch.float32
     assert float((got.double() - ref).abs().max()
                  / ref.abs().max()) < 1e-5
+
+
+def test_metropolis_kernel_matches_plain(dev):
+    """The Metropolis kernel against its plain version on the card, on
+    the same external uniforms and on the Philox stream (the plain version
+    draws it on the host): the same samples and accept count, bit for bit
+    up to 2e-6."""
+    from vmc_pde_torch.kernels import metropolis
+
+    C, n_steps, off = 256, 24, (0.25, 0.25)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    init = torch.full((C, 2), 0.25, device=dev)
+    u = torch.rand((6, n_steps * C), generator=gen, device=dev) * 0.999 \
+        + 1e-4
+    before = metropolis.metropolis_chain_cuda.launches
+    for uniforms in (u, None):
+        got = metropolis.metropolis_chain(11, init, n_steps, 0.25, off,
+                                          uniforms)
+        ref = metropolis.metropolis_chain_plain(11, init, n_steps, 0.25, off,
+                                                uniforms)
+        torch.cuda.synchronize()
+        assert int(got[2]) == int(ref[2]) and 0 < int(got[2]) < n_steps * C
+        for a, r in zip(got[:2], ref[:2]):
+            assert float((a - r).abs().max()) <= 2e-6
+    assert metropolis.metropolis_chain_cuda.launches == before + 2
+    with pytest.raises(ValueError, match="uniforms"):
+        metropolis.metropolis_chain(0, init, n_steps, 0.25, off, u[:, :C])
+
+
+@pytest.mark.parametrize("N,P,weighted", [(1024, 512, False),
+                                          (100, 937, False),
+                                          (2048, 300, True)])
+def test_syrk_kernel_matches_plain(dev, N, P, weighted):
+    """The triangle kernel against the plain split products and the f64
+    product: padded tiles, a ragged N (copied to a multiple of 4), a
+    signed weight; the result is symmetric."""
+    from vmc_pde_torch.kernels import syrk
+
+    gen = torch.Generator(device=dev).manual_seed(P)
+    O = torch.randn((N, P), generator=gen, device=dev)
+    w = torch.randn((N,), generator=gen, device=dev) if weighted else None
+    before = syrk.syrk_cuda.launches
+    S = syrk.syrk(O, w)
+    plain = syrk.syrk_plain(O, w)
+    ref = O.double().T @ (O.double() if w is None
+                          else O.double() * w.double()[:, None])
+    torch.cuda.synchronize()
+    assert syrk.syrk_cuda.launches == before + 1
+    tol = (3e-5 if weighted else 2e-5) * float(ref.abs().max())
+    assert float((S.double() - ref).abs().max()) <= tol
+    assert float((S - plain).abs().max()) <= tol
+    assert torch.equal(S, S.T) or float((S - S.T).abs().max()) <= tol

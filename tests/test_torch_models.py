@@ -43,15 +43,17 @@ def block_tuples(jflow):
 
 
 def parity_flow(variant, dim=4, depth=2, hidden=(3,), seed=5,
-                out_scale=0.3, offset=None):
+                out_scale=0.3, offset=None, latent_name="Gauss"):
     """(jflow, jparams, flow, theta): the same f64 flow in both packages.
     Output-layer weights are U[-out_scale, out_scale] instead of the
     init's 1e-5, so the nonlinear parts of the flow are exercised."""
     jflow, jparams = jax_build_flow(seed, dim, depth=depth, hidden=hidden,
                                     variant=variant, offset=offset,
+                                    latent_name=latent_name,
                                     dtype=jnp.float64)
     flow, theta = from_jax(block_tuples(jflow),
-                           jax.tree.map(np.asarray, jparams), offset=offset)
+                           jax.tree.map(np.asarray, jparams), offset=offset,
+                           latent_name=latent_name)
     theta = perturb_theta(flow, theta, np.random.default_rng(seed),
                           out_scale=out_scale)
     _, unravel = ravel_pytree(jparams)

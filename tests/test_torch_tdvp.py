@@ -76,12 +76,12 @@ def test_eloc_matches_jax(name, params):
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evolution.make_equation("advection_paper", 2)
+        evolution.make_equation("diffusion_drift", 2)
     _, _, flow, theta = parity_flow("scale", dim=DIM)
     state = VarState(flow, theta, sampler=Sampler(DIM, dtype=torch.float64),
                      precision=Precision.f64_everywhere())
     eq = evolution.make_equation("diffusion", DIM)
-    for cfg in (TDVPConfig(gram_backend="syrk"),
+    for cfg in (TDVPConfig(is_gamma=0.5),
                 TDVPConfig(solver_method="cg"),
                 TDVPConfig(gram_precision="f64acc", chunk_size=4),
                 TDVPConfig(hessian_mode="block")):
@@ -233,8 +233,9 @@ def test_driver_mwe_closed_forms():
     assert not a["nan"].any()
 
 
-def test_driver_cuda_without_card_raises():
+@pytest.mark.parametrize("mode", ["mwe", "fluidpaper", "doubleWell"])
+def test_driver_cuda_without_card_raises(mode):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        driver.main(["mwe", "--max-steps", "1"])
+        driver.main([mode, "--max-steps", "1"])

@@ -7,7 +7,8 @@ CUDA card:
 Runs the driver (any of its arguments; --max-steps and --device are set
 here) for one warm-up step, then one step under torch.profiler, and prints
 the device time by class of kernel (the per-sample kernel in plain and
-split mode, quant8, GEMMs by operand type, the solve, the rest), each
+split mode, quant8, syrk, Metropolis, GEMMs by operand type, the solve,
+the rest), each
 class's share of the device total, the device's busy share of the step's
 wall time, and the 25 kernels that took the most device time.
 """
@@ -26,6 +27,8 @@ CLASSES = (
                                        "split_finish")),
     ("per-sample kernel, plain mode", ("persample_kernel<false>",)),
     ("quant8 kernel", ("quant_force_kernel",)),
+    ("syrk kernel", ("syrk_kernel",)),
+    ("Metropolis kernel", ("metropolis_kernel",)),
     ("GEMM int8", ("s8", "i8", "imma", "int8")),
     ("GEMM bf16", ("bf16",)),
     ("GEMM f32", ("gemm", "nvjet", "xmma", "cutlass", "gemv", "sgemm")),

@@ -31,6 +31,13 @@ class RunConfig:
 
     # sampling
     sample_seed: int = 1
+    n_chains: int = 30
+    mcmc_bound: float = 0.25
+    # MCMC proposal: "independence" (uniform ball covering the support,
+    # the reference's) or "rw" (Gaussian random walk with acceptance-
+    # adapted scale, for unbounded latent targets; sampling/sampler.py)
+    proposal_mode: str = "independence"
+    rw_scale: float = 0.5
     n_samples_tdvp: int = 10000
     n_samples_obs: int = 10000
 
@@ -42,7 +49,7 @@ class RunConfig:
     solver_method: str = "auto"     # auto | eigh | cholesky
     eigh_max_params: int = 2048
     gram_precision: str = "high"
-    gram_backend: str = "auto"      # auto | xla | sym2 | tri2 (syrk raises)
+    gram_backend: str = "auto"      # auto | xla | syrk | sym2 | tri2
     gram_cross: str = "auto"        # auto | bf16 | int8 (split cross pass)
     hessian_mode: str = "auto"
     # auto | torch | cuda (the JAX package's xla | pallas)
@@ -81,6 +88,25 @@ PRESETS = {
         name="mwe", dim=2, offset=(0.0, 0.0), latent_name="Gauss",
         equation="diffusion", variant="scale",
         dt0=1e-7, max_step=1e-2, grid_bound=10.0,
+    ),
+    # the ML-fluids paper's advection of a cosine bump by a time-periodic
+    # swirl on [0, 1]^2 (Metropolis sampling, independence proposals)
+    "fluidpaper": RunConfig(
+        name="fluidpaper", dim=2, offset=(0.25, 0.25), latent_name="cos_dist",
+        equation="advection_paper", variant="affine",
+        dt0=1e-4, max_step=1e-3, grid_bound=1.0, sym_grid=False,
+        mcmc_bound=0.25,
+    ),
+    # anharmonic double-well Fokker-Planck (V(x) = -2 x^2 + x^4, bath
+    # T = 0.5) quenched from the double-well Boltzmann latent at T0 = 1.5,
+    # Metropolis sampling with random-walk proposals
+    "doubleWell": RunConfig(
+        name="doubleWell", dim=2, offset=(0.0, 0.0),
+        latent_name="double_well",
+        equation="advection_hamiltonian_wDiss", variant="affine",
+        equation_params={"v2": -4.0, "lam": 1.0, "T": 0.5},
+        proposal_mode="rw", rw_scale=0.8,
+        dt0=1e-4, max_step=2e-3, grid_bound=4.0, mcmc_bound=2.5,
     ),
     # d=32 interacting Ornstein-Uhlenbeck Fokker-Planck: 16 (q, p) pairs on
     # a nearest-neighbour coupled ring, momentum damping and diffusion

@@ -5,6 +5,8 @@ the reference-compatible infos schema.
     python -m vmc_pde_torch.driver fokkerPlanck32 --max-steps 5
     python -m vmc_pde_torch.driver fokkerPlanck32 --samples 524288 \
         --chunk-size 65536 --gram-backend tri2 --gram-cross int8
+    python -m vmc_pde_torch.driver fokkerPlanck32 --gram-backend syrk
+    python -m vmc_pde_torch.driver fluidpaper --max-steps 20
     python -m vmc_pde_torch.driver mwe --precision f64 --device cpu
 
 ``--device`` defaults to cuda and raises when no CUDA device is present;
@@ -44,7 +46,10 @@ def build_problem(cfg: RunConfig):
     device = resolve_device(cfg.device)
     precision = dtypes.resolve(cfg.precision)
     sampler = Sampler(dim=cfg.dim, name=cfg.latent_name,
-                      dtype=precision.compute)
+                      dtype=precision.compute, n_chains=cfg.n_chains,
+                      mcmc_info={"offset": np.asarray(cfg.offset),
+                                 "bound": cfg.mcmc_bound},
+                      proposal_mode=cfg.proposal_mode, rw_scale=cfg.rw_scale)
     flow, theta = build_flow(
         cfg.seed, cfg.dim, depth=cfg.depth, hidden=cfg.hidden_resolved(),
         variant=cfg.variant, global_affine=cfg.global_affine,
@@ -171,9 +176,10 @@ def main(argv=None, callbacks=()):
     p.add_argument("--gram-backend", type=str, default=None,
                    choices=["auto", "xla", "syrk", "sym2", "tri2"],
                    help="Gram contraction: xla = the f32 product (what auto "
-                        "resolves to), sym2 = 2-product symmetric bf16 hi/lo "
-                        "split, tri2 = its triangle-blocked form (syrk is "
-                        "not ported yet)")
+                        "resolves to), syrk = the triangle kernel's 3-pass "
+                        "bf16 split (kernels/syrk.py), sym2 = 2-product "
+                        "symmetric bf16 hi/lo split, tri2 = its "
+                        "triangle-blocked form")
     p.add_argument("--gram-cross", type=str, default=None,
                    choices=["auto", "bf16", "int8"],
                    help="product of the sym2/tri2 cross term (int8 = "

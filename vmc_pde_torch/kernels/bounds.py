@@ -63,19 +63,22 @@ def quant8(P, n, kv):
                     P * n * (1 + 2 * kv))
 
 
-def syrk(N, P):
-    """The triangle Gram O^T O of an (N, P) f32 operand in three bf16
-    passes: O in, the (P, P) f32 lower triangle out; 3 N P^2 bf16
-    operations (each pass half of 2 N P^2)."""
-    return bound_ms(4 * N * P + 4 * P * (P + 1) // 2, 3 * N * P * P,
-                    BF16_FLOP_S)
+def syrk(N, P, weighted=False):
+    """The triangle Gram O^T diag(w) O of an (N, P) f32 operand in three
+    bf16 passes: O (and w) in, the mirrored (P, P) f32 out; 3 N P^2 bf16
+    operations (each pass half of 2 N P^2: the lower triangle)."""
+    return bound_ms(4 * N * P + 4 * N * weighted + 4 * P * P,
+                    3 * N * P * P, BF16_FLOP_S)
 
 
-def metropolis(n, dim):
-    """Independence Metropolis: n recorded (dim,) f32 states out; ~(8 dim
-    + 24) operations per proposal (Box-Muller, ball radius, the latent's
-    log-density, the accept test)."""
-    return bound_ms(4 * n * dim, n * (8 * dim + 24))
+def metropolis(n, dim, ext=False):
+    """Independence Metropolis: n recorded (dim,) f32 states out (and, with
+    external uniforms, 2 dim + 2 f32 uniforms in per proposal); ~(8 dim
+    + 24) f32 operations per proposal (Box-Muller, ball radius, the
+    latent's log-density, the accept test; Philox's integer rounds not
+    counted)."""
+    return bound_ms(4 * n * dim + 4 * (2 * dim + 2) * n * ext,
+                    n * (8 * dim + 24))
 
 
 def fokker_planck32():
@@ -103,9 +106,14 @@ def main():
         ("probe_quant8.make_quant_force (P=9264, n=65536, kv=2)",
          quant8(P, 65536, 2)),
         ("syrk.syrk (N=16384, P=9264)", syrk(16384, P)),
-        ("metropolis_chain_pallas (N=10000, d=2)", metropolis(10000, 2)),
-        ("metropolis_chain_pallas_sharded, per device of 4 (N=2500, d=2)",
-         metropolis(2500, 2)),
+        ("syrk.syrk, weighted (N=16384, P=9264)", syrk(16384, P, True)),
+        ("syrk.syrk, chunk (N=65536, P=9264)", syrk(65536, P)),
+        ("metropolis_chain_pallas, Philox (8192 chains x 128 sweeps, d=2)",
+         metropolis(8192 * 128, 2)),
+        ("metropolis_chain_pallas, external uniforms (same)",
+         metropolis(8192 * 128, 2, ext=True)),
+        ("metropolis_chain_pallas_sharded, per device of 4 (same)",
+         metropolis(8192 * 128 // 4, 2)),
     ]
     for name, (ms, by) in rows:
         print(f"{name:<62s} {ms:10.4g} ms  ({by})")

@@ -39,6 +39,13 @@ SIGNATURES = {
     "quant8": {
         "quant_force_bf16": [_vp] * 3 + [_ci] * 3 + [_vp] * 3,
     },
+    "metropolis": {
+        "metropolis_f32": [_vp, _vp, ctypes.c_float, _vp, ctypes.c_ulonglong]
+        + [_ci] * 3 + [_vp] * 4,
+    },
+    "syrk": {
+        "syrk_f32": [_vp] * 2 + [_ci] * 3 + [_vp] * 2,
+    },
 }
 
 _lock = threading.Lock()

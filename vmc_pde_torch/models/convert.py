@@ -20,10 +20,12 @@ from .flow import Flow
 
 def from_jax(blocks: Iterable[Tuple], params_np,
              offset: Optional[Tuple[float, ...]] = None,
-             dtype: torch.dtype = torch.float64, device="cpu"):
+             dtype: torch.dtype = torch.float64, device="cpu",
+             latent_name: str = "Gauss"):
     """(Flow, theta) from the JAX package's per-block
-    ``(ind_up, ind_down, variant, hidden, alpha)`` and its parameter
-    pytree with numpy leaves (Gauss latent)."""
+    ``(ind_up, ind_down, variant, hidden, alpha)``, its parameter pytree
+    with numpy leaves and its latent family (the ported ones: Gauss,
+    cos_dist, double_well; the last two have empty ``dist_params``)."""
     specs = tuple(
         coupling.BlockSpec(ind_up=tuple(int(i) for i in up),
                            ind_down=tuple(int(i) for i in down),
@@ -32,7 +34,8 @@ def from_jax(blocks: Iterable[Tuple], params_np,
         for up, down, variant, hidden, alpha in blocks
     )
     dim = specs[0].dim
-    flow = Flow(dim=dim, blocks=specs, offset=None if offset is None
+    flow = Flow(dim=dim, blocks=specs, latent_name=latent_name,
+                offset=None if offset is None
                 else tuple(float(o) for o in offset))
     theta = torch.as_tensor(flow.layout.ravel(params_np), dtype=dtype,
                             device=device)

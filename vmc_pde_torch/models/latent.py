@@ -1,8 +1,16 @@
 """Latent base distribution, the counterpart of
-vmc_pde_tpu/models/latent.py for the Gauss family: a multivariate Gaussian
-with covariance S = U U^T, U upper-triangular with its strictly-upper
-entries from the packed vector ``L`` and diag(U) = exp(L_diag), and mean
-``mu``. Student-t, the cosine bump and the double well are not ported yet
+vmc_pde_tpu/models/latent.py:
+
+- ``Gauss``: a multivariate Gaussian with covariance S = U U^T, U
+  upper-triangular with its strictly-upper entries from the packed vector
+  ``L`` and diag(U) = exp(L_diag), and mean ``mu``;
+- ``cos_dist``: the normalized 2-D cosine bump of the ML-fluids paper;
+- ``double_well``: the normalized double-well Boltzmann density in the 2-D
+  phase space [x, p].
+
+The last two are fixed (their parameters are unused: the flow learns all
+deformation) and have no closed-form sampler; the Metropolis sampler
+draws them (sampling/sampler.py). Student-t is not ported yet
 (ROADMAP.md).
 """
 
@@ -15,7 +23,34 @@ import torch
 
 NAMES = ("Gauss", "Student_t", "cos_dist", "double_well")
 EXACT_NAMES = ("Gauss", "Student_t")  # closed-form samplers exist
-PORTED = ("Gauss",)
+PORTED = ("Gauss", "cos_dist", "double_well")
+
+# Normalization of the 2-D cosine bump f(x) = (1 + cos(pi min(1, 4|x|))) / 2:
+# Z = pi/32 - 1/(8 pi) (compact support |x| <= 1/4)
+_COS_BUMP_LOG_Z_2D = math.log(math.pi / 32.0 - 1.0 / (8.0 * math.pi))
+
+# Double-well Boltzmann latent at the quench temperature T0:
+#     p(z) ~ exp(-(DW_V2/2 x^2 + DW_LAM x^4 + p^2/2) / DW_T0)
+# with the doubleWell preset's potential (wells at x = +-1, barrier 1) and
+# T0 = 3 x its bath T = 0.5. The x-marginal's normalization has no closed
+# form; it comes from an f64 quadrature, once.
+DW_V2, DW_LAM, DW_T0 = -4.0, 1.0, 1.5
+
+
+def dw_x_quadrature():
+    """(xs, unnormalized pdf) of the latent's x-marginal on the dense
+    quadrature grid behind its normalization."""
+    xs = np.linspace(-8.0, 8.0, 400001)
+    v = 0.5 * DW_V2 * xs**2 + DW_LAM * xs**4
+    return xs, np.exp(-v / DW_T0)
+
+
+def _dw_log_zx() -> float:
+    xs, pdf = dw_x_quadrature()
+    return float(np.log(np.trapezoid(pdf, xs)))
+
+
+_DW_LOG_Z = _dw_log_zx() + 0.5 * math.log(2.0 * math.pi * DW_T0)
 
 
 def check_ported(name: str) -> None:
@@ -27,7 +62,8 @@ def check_ported(name: str) -> None:
 
 
 def init_params(dim: int, name: str):
-    """Zero-initialized numpy latent parameters: S = I, mu = 0."""
+    """Zero-initialized numpy latent parameters: S = I, mu = 0 (no extra
+    distribution parameters for the ported names)."""
     check_ported(name)
     return {
         "L": np.zeros(((dim * dim - dim) // 2,)),
@@ -61,8 +97,31 @@ def gauss_log_prob(latent_params, dim: int, x):
                    + 2.0 * latent_params["L_diag"].sum() + quad)
 
 
+def cos_bump_log_prob(latent_params, dim: int, x):
+    """Normalized cosine bump for x of shape (..., 2)."""
+    if dim != 2:
+        raise ValueError("cos_dist latent is defined for dim=2")
+    r = torch.clamp(4.0 * (x * x).sum(-1).sqrt(), max=1.0)
+    return torch.log(0.5 * (1.0 + torch.cos(math.pi * r))) \
+        - _COS_BUMP_LOG_Z_2D
+
+
+def double_well_log_prob(latent_params, dim: int, x):
+    """Normalized double-well Boltzmann density for z = [x, p] of shape
+    (..., 2)."""
+    if dim != 2:
+        raise ValueError("double_well latent is defined for dim=2 ([x, p])")
+    q, p = x[..., 0], x[..., 1]
+    h = 0.5 * DW_V2 * q**2 + DW_LAM * q**4 + 0.5 * p**2
+    return -h / DW_T0 - _DW_LOG_Z
+
+
 def log_prob(name: str, latent_params, dim: int, x):
     check_ported(name)
+    if name == "cos_dist":
+        return cos_bump_log_prob(latent_params, dim, x)
+    if name == "double_well":
+        return double_well_log_prob(latent_params, dim, x)
     return gauss_log_prob(latent_params, dim, x)
 
 
@@ -70,6 +129,8 @@ def sample(name: str, gen: torch.Generator, latent_params, dim: int, n: int,
            dtype: torch.dtype):
     """n exact draws z = mu + U eps, shape (n, dim)."""
     check_ported(name)
+    if name not in EXACT_NAMES:
+        raise ValueError(f"no closed-form sampler for latent {name!r}")
     mu = latent_params["mu"]
     eps = torch.randn((n, dim), generator=gen, dtype=dtype, device=mu.device)
     U = chol_factor(latent_params, dim).to(dtype)

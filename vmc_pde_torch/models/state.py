@@ -8,9 +8,10 @@ differentiate. The flat order is ``jax.flatten_util.ravel_pytree``'s:
 dict keys sorted, lists in order, each leaf raveled row-major. For a flow
 that gives ``blocks`` before ``latent``; within a block the nets in key
 order (s1, s2, t1, t2); within a net all biases, then all weights; and the
-latent as L, L_diag, dist_params (empty for Gauss), mu. The per-sample
-kernel's O rows follow the same order (kernels/persample.py), and weights
-carried across from JAX (models/convert.py) keep their positions.
+latent as L, L_diag, dist_params (empty for every ported latent), mu.
+The per-sample kernel's O rows follow the same order
+(kernels/persample.py), and weights carried across from JAX
+(models/convert.py) keep their positions.
 """
 
 from __future__ import annotations
@@ -115,6 +116,19 @@ class VarState:
         coords = torch.as_tensor(coords, dtype=self.precision.compute,
                                  device=self.device)
         return self.flow.log_prob(self.params, coords)
+
+    def sample(self, numSamples: int, key: int):
+        """Draw from the model density: latent draws (exact, or Metropolis
+        chains carried across calls) pushed through the inverse flow.
+        Returns (x (n, d), logp (n,)) with n the sampler's rounded
+        budget."""
+        if self.sampler is None:
+            raise ValueError("VarState has no sampler")
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(key)
+        params = self.params
+        z, _ = self.sampler.sample(gen, self.flow, params, numSamples)
+        return self.flow.push(params, z.to(self.precision.compute))
 
     def integrate(self, grid) -> torch.Tensor:
         """Riemann-sum normalization check on a dense grid."""

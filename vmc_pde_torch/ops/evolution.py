@@ -8,6 +8,8 @@ from the coordinate score g = grad_x log p and the Hessian quadratic trace
 along ``hessian_trace_dirs``. Ported so far:
 
 - ``diffusion``: dp/dt = D lap p, Eloc = D (|g|^2 + tr H);
+- ``advection_paper``: Liouville transport by the ML-fluids paper's
+  time-periodic 2-D swirl, Eloc = -g . v (no Hessian);
 - ``advection_hamiltonian_wDiss``: phase-space Fokker-Planck, Liouville
   transport by the symplectic flow of the (coupled) harmonic Hamiltonian
   plus momentum diffusion m gamma sum_i T_i (g_{p_i}^2 + H_{p_i p_i}) and
@@ -21,10 +23,22 @@ equations of the JAX package are not ported yet (ROADMAP.md).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def velocity_field_mlpaper(coord, t, T=5.0):
+    """Time-periodic 2-D swirl of the ML-fluids paper for coord of shape
+    (..., 2)."""
+    x, y = coord[..., 0], coord[..., 1]
+    c = math.cos(math.pi * t / T)
+    return torch.stack([
+        -torch.sin(math.pi * x) ** 2 * torch.sin(2 * math.pi * y) * c,
+        torch.sin(math.pi * y) ** 2 * torch.sin(2 * math.pi * x) * c,
+    ], dim=-1)
 
 
 def hamiltonian(coord, m=1.0, omega=1.0, lam=0.0, coupled=False, v2=1.0,
@@ -91,6 +105,17 @@ class Diffusion(Equation):
 
 
 @dataclasses.dataclass(frozen=True)
+class AdvectionPaper(Equation):
+    """Liouville transport by the ML-paper 2-D field: dlogp/dt = -g . v."""
+
+    T: float = 5.0
+    name: str = "advection_paper"
+
+    def eloc(self, x, g, hess, t):
+        return -(g * velocity_field_mlpaper(x, t, self.T)).sum(-1)
+
+
+@dataclasses.dataclass(frozen=True)
 class AdvectionHamiltonian(Equation):
     """Liouville transport by the symplectic flow."""
 
@@ -151,7 +176,7 @@ class FokkerPlanck(AdvectionHamiltonian):
         return adv + diff + damp
 
 
-_NOT_PORTED = ("diffusion_drift", "diffusion_anisotropic", "advection_paper",
+_NOT_PORTED = ("diffusion_drift", "diffusion_anisotropic",
                "advection_hamiltonian")
 
 
@@ -160,6 +185,8 @@ def make_equation(name: str, dim: int, **overrides) -> Equation:
         return Diffusion(**overrides)
     if name == "advection_hamiltonian_wDiss":
         return FokkerPlanck(**overrides)
+    if name == "advection_paper":
+        return AdvectionPaper(**overrides)
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"equation {name!r} is not ported yet (ROADMAP.md)")

@@ -1,11 +1,13 @@
 """TDVP right-hand side, the counterpart of vmc_pde_tpu/solver/tdvp.py for
-the main path: exact latent sampling, direct or chunked statistics with
-the f32, sym2 or tri2 Gram and the bf16 or int8 cross term
-(parallel/stats.py), the spectral eigh or the Tikhonov-Cholesky solve,
+the main path: exact latent sampling or Metropolis chains carried across
+right-hand sides, direct or chunked statistics with the f32, syrk, sym2
+or tri2 Gram and the bf16 or int8 cross term (parallel/stats.py,
+kernels/syrk.py), the spectral eigh or the Tikhonov-Cholesky solve,
 observables and the fixed Heun pair.
 
-One right-hand side (RHS): draw latent z, push it through the inverse
-flow to samples x; per sample logp, score g, Hessian quadratic trace and
+One right-hand side (RHS): draw latent z (exact draws, or n / n_chains
+sweeps of the Metropolis chains), push it through the inverse flow to
+samples x; per sample logp, score g, Hessian quadratic trace and
 the O row (kernels/persample.py: the CUDA kernel on the card, the
 torch.func pipeline otherwise); E_loc from the equation; the force
 F = E[e_c O_c] and Gram S = E[O_c^T O_c] of the centered quantities (plus
@@ -15,10 +17,9 @@ as the reference does; the update u is dtheta/dt.
 theta is held in the master dtype (f64) by the integrator and cast to the
 compute dtype per stage. Random numbers come from ``torch.Generator``s
 seeded from an integer key; ``fold_in`` derives independent keys per step
-and stage. The syrk Gram backend, f64 Gram precisions, cg/minSR,
-importance sampling, Eloc clipping, the host solve, multi-device
-statistics and the adaptive steppers' S metric are not ported yet
-(ROADMAP.md).
+and stage. The f64 Gram precisions, cg/minSR, importance sampling, Eloc
+clipping, the host solve, multi-device statistics and the adaptive
+steppers' S metric are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from ..kernels import persample, quant8
+from ..kernels import persample, quant8, syrk
 from ..models.state import VarState
 from ..ops.evolution import Equation
 from ..parallel import stats
@@ -111,9 +112,7 @@ def _check_ported(cfg: TDVPConfig) -> None:
         raise ValueError(f"unknown solver_method {cfg.solver_method!r}")
     if cfg.gram_precision not in ("highest", "high"):
         raise _not_ported(f"gram_precision={cfg.gram_precision!r}")
-    if cfg.gram_backend == "syrk":
-        raise _not_ported("gram_backend='syrk'")
-    if cfg.gram_backend not in ("auto", "xla", "sym2", "tri2"):
+    if cfg.gram_backend not in ("auto", "xla", "syrk", "sym2", "tri2"):
         raise ValueError(f"unknown gram_backend {cfg.gram_backend!r}")
     if cfg.gram_cross not in ("auto", "bf16", "int8"):
         raise ValueError(f"unknown gram_cross {cfg.gram_cross!r}")
@@ -229,8 +228,6 @@ class TDVP:
         self.precision = precision or state.precision
         self.sampler = state.sampler
         self.device = state.device
-        if not self.sampler.exact:
-            raise _not_ported("MCMC sampling")
         self.n_samples = self.sampler.rounded_budget(n_samples)
         self.n_samples_obs = (self.sampler.rounded_budget(n_samples_obs)
                               if n_samples_obs is not None
@@ -266,16 +263,18 @@ class TDVP:
         self.cfg = cfg
 
         # Gram backend: "auto" resolves as the JAX package resolves it off
-        # a TPU, to the plain f32 product; only an explicit sym2/tri2
-        # engages the bf16 split, and only an explicit int8 its int8 cross
-        # term (parallel/stats.py)
+        # a TPU, to the plain f32 product; only an explicit syrk/sym2/tri2
+        # engages the bf16 split (syrk: the triangle kernel,
+        # kernels/syrk.py), and only an explicit int8 its int8 cross term
+        # (parallel/stats.py)
         split_ok = (self.precision.compute == torch.float32
                     and cfg.gram_precision == "high")
-        if cfg.gram_backend in ("sym2", "tri2") and not split_ok:
+        if cfg.gram_backend in ("syrk", "sym2", "tri2") and not split_ok:
             raise ValueError(
                 f"gram_backend={cfg.gram_backend!r} implements f32 "
                 "statistics at gram_precision='high' numerics; use "
                 "'auto'/'xla' with this precision configuration")
+        self._use_syrk = cfg.gram_backend == "syrk"
         self._use_sym2 = cfg.gram_backend == "sym2"
         self._use_tri2 = cfg.gram_backend == "tri2"
         self._cross_int8 = cfg.gram_cross == "int8"
@@ -318,6 +317,14 @@ class TDVP:
         self._ps_split = (persample.per_sample_split
                           if use_kernel and (self._use_sym2
                                              or self._use_tri2)
+                          else None)
+
+        # Metropolis latents: the chain state passes from RHS to RHS (and
+        # from Heun stage 0 to stage 1) through the sampler, which starts
+        # it on the first RHS (ensure_chain_state). As in the JAX package
+        # the chain here is the torch one, never the Metropolis kernel
+        self._mcmc = not self.sampler.exact
+        self._chain_fn = (self.sampler.make_chain_fn() if self._mcmc
                           else None)
 
         self.ev = None
@@ -368,7 +375,8 @@ class TDVP:
         gram_sum(Os, w=None) the unnormalized chunk moment Os^T diag(w) Os,
         gram_zero() its accumulator, gram_fin(acc) the assembled (P, P).
         tri2 accumulates the raw triangle strips and cross term and
-        mirrors them once; the other backends the matrix itself."""
+        mirrors them once; the other backends the matrix itself (syrk:
+        one kernel launch per moment, mirrored inside)."""
         P, cdt = self.n_params, self.precision.compute
         dev, cross = self.device, self._cross_int8
         if self._use_tri2:
@@ -385,7 +393,9 @@ class TDVP:
                         Os, w, bounds, cross_int8=cross),
                     gram_zero,
                     lambda acc: stats.tri2_gram_finalize(acc, bounds))
-        if self._use_sym2:
+        if self._use_syrk:
+            gram_sum = syrk.syrk
+        elif self._use_sym2:
             gram_sum = lambda Os, w=None: stats.sym2_gram_sum(  # noqa: E731
                 Os, w, cross_int8=cross)
         else:
@@ -566,15 +576,28 @@ class TDVP:
 
     # ------------------------------------------------------------------
     def _rhs_impl(self, theta_c, t, key: int, z_ext=None,
-                  with_obs: bool = True):
+                  with_obs: bool = True, chain_state=None):
         """One RHS. ``z_ext``: latent draws to use instead of sampling
         (tests hand both packages the same draws). Only the first stage of
-        an integrator step records observables."""
+        an integrator step records observables. ``chain_state`` (Metropolis
+        latents): the (n_chains, dim) chains, advanced n / n_chains sweeps
+        (chain-major samples) in place of the exact draw; the advanced
+        state comes back in aux["_chain_state"] and the counts in
+        aux["mcmc_accepted"] (a device tensor) and aux["mcmc_proposed"]."""
         cfg = self.cfg
         params = self._unravel(theta_c)
         k_sample, k_obs, _, k_spec = (fold_in(key, i) for i in range(4))
         z = z_ext
-        if z is None:
+        mcmc = None
+        if z is None and chain_state is not None:
+            sweeps = self.n_samples // self.sampler.n_chains
+            z, cs, acc = self._chain_fn(self._gen(k_sample), chain_state,
+                                        self.sampler.chain_rw_scale(),
+                                        sweeps)
+            mcmc = dict(state=cs, acc=acc,
+                        prop=sweeps * self.sampler.n_chains)
+            z = z.to(theta_c.dtype)
+        elif z is None:
             z = self.flow.latent_sample(self._gen(k_sample), params,
                                         self.n_samples, theta_c.dtype)
         n = z.shape[0]
@@ -633,13 +656,27 @@ class TDVP:
 
         if cfg.observables and with_obs:
             if self.n_samples_obs > n:
-                z_o = self.flow.latent_sample(self._gen(k_obs), params,
-                                              self.n_samples_obs,
-                                              theta_c.dtype)
+                if mcmc is not None:
+                    # the observables' budget continues the chains
+                    sweeps = self.n_samples_obs // self.sampler.n_chains
+                    z_o, mcmc["state"], acc = self._chain_fn(
+                        self._gen(k_obs), mcmc["state"],
+                        self.sampler.chain_rw_scale(), sweeps)
+                    mcmc["acc"] = mcmc["acc"] + acc
+                    mcmc["prop"] += sweeps * self.sampler.n_chains
+                    z_o = z_o.to(theta_c.dtype)
+                else:
+                    z_o = self.flow.latent_sample(self._gen(k_obs), params,
+                                                  self.n_samples_obs,
+                                                  theta_c.dtype)
                 x_o, logp_o = self.flow.push(params, z_o)
             else:
                 x_o, logp_o = x, st["logp"]
             aux = self._observables(x_o, logp_o, aux)
+        if mcmc is not None:
+            aux["_chain_state"] = mcmc["state"]
+            aux["mcmc_accepted"] = mcmc["acc"]
+            aux["mcmc_proposed"] = mcmc["prop"]
         aux["nan"] = torch.isnan(update).any()
         return aux
 
@@ -651,36 +688,67 @@ class TDVP:
         self.ElocMean = aux["eloc_mean"]
         self.ElocVar = aux["eloc_var"]
 
+    def _chain_inputs(self, key: int):
+        """The chain state for a call keyed by ``key`` (None for exact
+        latents); the first call starts the chains from fold_in(key,
+        997)."""
+        if not self._mcmc:
+            return None
+        return self.sampler.ensure_chain_state(fold_in(key, 997),
+                                               self.device)
+
+    def _absorb_mcmc(self, aux):
+        """Hand a call's advanced chain state and counts to the sampler
+        (the rw scale adapts there, between calls); nothing waits for the
+        device."""
+        cs = aux.pop("_chain_state", None)
+        if cs is not None:
+            self.sampler.note_fused_acceptance(cs, aux["mcmc_accepted"],
+                                               aux["mcmc_proposed"])
+
     def rhs(self, theta, t, key: int, intStep: int = 0):
         """Host-facing RHS: theta in master dtype -> (dtheta master, aux).
         ``intStep`` decorrelates the random draws of an integrator's
         stages; only stage 0 records observables."""
         theta_c = theta.to(self.precision.compute)
         aux = self._rhs_impl(theta_c, t, fold_in(key, intStep),
-                             with_obs=intStep % 5 == 0)
+                             with_obs=intStep % 5 == 0,
+                             chain_state=self._chain_inputs(key))
+        self._absorb_mcmc(aux)
         self._finish(aux)
         return aux["update"].to(self.precision.master), aux
 
     # ------------------------------------------------------------------
-    def _stage(self, th, t, key, i, z, with_obs=True):
-        aux = self._rhs_impl(th, t, fold_in(key, i), z, with_obs)
+    def _stage(self, th, t, key, i, z, with_obs=True, chain_state=None):
+        aux = self._rhs_impl(th, t, fold_in(key, i), z, with_obs,
+                             chain_state)
         return aux["update"].to(th.dtype), aux
 
-    def _heun_pair_impl(self, theta_c, t, dt, key, z_ext=None):
+    def _heun_pair_impl(self, theta_c, t, dt, key, z_ext=None,
+                        chain_state=None):
         """Fixed-Heun pair dy = dt/2 (k0 + k1) in compute dtype. The aux
         is the first stage's (observables at time t); the NaN flag is
-        OR-ed across both stages. ``z_ext``: optional pair of latent
-        batches, one per stage."""
+        OR-ed across both stages, the Metropolis counts summed, and the
+        chain state passes from stage 0 to stage 1. ``z_ext``: optional
+        pair of latent batches, one per stage."""
         z0, z1 = z_ext if z_ext is not None else (None, None)
-        k0, aux = self._stage(theta_c, t, key, 0, z0)
+        k0, aux = self._stage(theta_c, t, key, 0, z0,
+                              chain_state=chain_state)
+        cs = aux.pop("_chain_state", chain_state)
         k1, aux1 = self._stage(theta_c + dt * k0, t + dt, key, 1, z1,
-                               with_obs=False)
+                               with_obs=False, chain_state=cs)
+        if "_chain_state" in aux1:
+            aux["_chain_state"] = aux1["_chain_state"]
+            for k in ("mcmc_accepted", "mcmc_proposed"):
+                aux[k] = aux.get(k, 0) + aux1[k]
         aux["nan"] = aux["nan"] | aux1["nan"]
         return 0.5 * dt * (k0 + k1), aux
 
     def heun_pair(self, theta, t, dt, key: int, z_ext=None):
         """(dy master, aux) for a whole fixed-Heun step."""
         dy, aux = self._heun_pair_impl(theta.to(self.precision.compute), t,
-                                       dt, key, z_ext)
+                                       dt, key, z_ext,
+                                       self._chain_inputs(key))
+        self._absorb_mcmc(aux)
         self._finish(aux)
         return dy.to(self.precision.master), aux
