@@ -20,9 +20,10 @@
    at the preset's N=16384 for 5 fixed-Heun steps: the per-sample kernel's
    launch counter must rise, nothing may be NaN, the solver residual must
    be finite and below 1e-3;
-6. the chunked statistics on one batch of 131072 at the theta phase 5
-   ends on, tri2 + int8 against the f32 Gram: S0, F0 and A within 1e-4 of
-   each one's largest value;
+6. the chunked statistics on one batch of 131072 in chunks of 65536 at
+   the theta phase 5 ends on, tri2 + int8 and syrk each against the f32
+   Gram on the same draws: S0, F0 and A within 1e-4 of each one's largest
+   value;
 7. the chunked path at the production operating point, N=524288 in
    chunks of 65536 with the tri2 Gram and the int8 cross term, for 3
    steps: 3 steps x 2 RHS x 8 chunks split launches, twice that many
@@ -42,10 +43,14 @@
    the grid integral on [0, 1]^2 within 0.05 of 1, the entropy drift;
 12. ``doubleWell`` through the driver for 20 steps: no NaN, acceptance in
    (0.05, 0.95), the adapted random-walk scale;
-13. the syrk kernel against its plain version on the main path's centered
-   O at N=16384, P=9264, unweighted (within 2e-5 of the largest entry)
-   and with the signed weight E_loc - mean (3e-5); timed against the
-   plain version and against torch.mm(O^T, O) in f32;
+13. the syrk kernel against its plain version at P=9264 on the operands
+   the syrk paths give it, at the theta phase 5 ends on: one chunk of the
+   chunked path, N=65536, unweighted (within 2e-5 of the largest entry)
+   and with the weights es and es^2 (3e-5), after the plain-mode
+   per-sample kernel that makes the chunk is held against its plain
+   version at N=65536; then the direct path's centered O at N=16384,
+   unweighted and with the signed weight E_loc - mean, where it is timed
+   against the plain version and against torch.mm(O^T, O) in f32;
 14. ``fokkerPlanck32 --gram-backend syrk``: 5 steps at N=16384 with
    exactly 20 syrk launches, S0 and A within 1e-4 of the f32 Gram's on one
    batch, then the chunked statistics at N=131072 in chunks of 65536 for
@@ -170,6 +175,31 @@ def _rel(a, ref, scale=None):
     return float((a.double() - ref).abs().max() / scale)
 
 
+def _persample_vs_plain(flow, theta, x, dirs, label, loose=False):
+    """The plain-mode kernel against the plain pipeline in f64 on the same
+    f32 inputs, to TOL (with ``loose``, to twice plain f32's own error
+    where that is larger); returns the largest abs error of O."""
+    n = x.shape[0]
+    got = persample.per_sample_cuda(flow, theta, x, dirs)
+    ref = persample.per_sample_plain(flow, theta.double(), x.double(),
+                                     dirs.double())
+    ref32 = persample.per_sample_plain(flow, theta, x, dirs)
+    torch.cuda.synchronize()
+    for name, a, r, p in zip(("logp", "g", "quad", "O"), got, ref, ref32):
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            fail(f"kernel {name} at N={n}: shape {tuple(a.shape)} vs "
+                 f"{tuple(r.shape)}, or not finite")
+        rel, rel32 = _rel(a, r), _rel(p, r)
+        tol = max(TOL[name], 2.0 * rel32) if loose else TOL[name]
+        print(f"kernel vs plain, {label} theta, N={n}, {name}: max abs "
+              f"err {float((a.double() - r).abs().max()):.3e}, relative "
+              f"{rel:.3e} (tol {tol:.2e}; plain f32 {rel32:.3e})")
+        if not rel < tol:
+            fail(f"kernel {name} disagrees with the plain version at "
+                 f"N={n}: {rel:.3e}")
+    return float((got[3].double() - ref[3]).abs().max())
+
+
 def phase_kernel(dev, prob):
     flow, theta0, perturbed, _, dirs = prob
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -187,28 +217,9 @@ def phase_kernel(dev, prob):
         params = flow.layout.unravel(theta)
         x, _ = flow.push(params, flow.latent_sample(gen, params, n,
                                                     torch.float32))
-        got = persample.per_sample_cuda(flow, theta, x, dirs)
-        ref = persample.per_sample_plain(flow, theta.double(), x.double(),
-                                         dirs.double())
-        ref32 = persample.per_sample_plain(flow, theta, x, dirs)
-        torch.cuda.synchronize()
-        for name, a, r, p in zip(("logp", "g", "quad", "O"), got, ref, ref32):
-            if a.shape != r.shape or not torch.isfinite(a).all():
-                fail(f"kernel {name} at N={n}: shape {tuple(a.shape)} vs "
-                     f"{tuple(r.shape)}, or not finite")
-            rel, rel32 = _rel(a, r), _rel(p, r)
-            tol = TOL[name]
-            if label == "perturbed" and n == 16384:
-                tol = max(tol, 2.0 * rel32)
-            print(f"kernel vs plain, {label} theta, N={n}, {name}: max abs "
-                  f"err {float((a.double() - r).abs().max()):.3e}, relative "
-                  f"{rel:.3e} (tol {tol:.2e}; plain f32 {rel32:.3e})")
-            if not rel < tol:
-                fail(f"kernel {name} disagrees with the plain version at "
-                     f"N={n}: {rel:.3e}")
-            if name == "O":
-                max_abs = max(max_abs, float((a.double() - r).abs().max()))
-        del got, ref, ref32
+        max_abs = max(max_abs, _persample_vs_plain(
+            flow, theta, x, dirs, label,
+            loose=label == "perturbed" and n == 16384))
 
     # time both on the main path's theta and batch, the last case above
     ms = _time_ms(lambda: persample.per_sample_cuda(flow, theta, x, dirs), 20)
@@ -398,13 +409,14 @@ def phase_chunked_path():
     return counts
 
 
-def phase_split_vs_f32(theta):
-    """The chunked statistics on one batch through both Gram paths, at the
-    theta the main path ends on."""
+def phase_chunked_vs_f32(theta):
+    """The chunked statistics on one batch of draws through the tri2+int8,
+    the syrk and the f32 Gram, at the theta the main path ends on."""
     n, c = 131072, 65536
     out = {}
     for label, over in (("tri2+int8", dict(gram_backend="tri2",
                                            gram_cross="int8")),
+                        ("syrk", dict(gram_backend="syrk")),
                         ("f32", {})):
         cfg = preset("fokkerPlanck32", device="cuda", n_samples_tdvp=n,
                      n_samples_obs=n, chunk_size=c, **over)
@@ -419,15 +431,17 @@ def phase_split_vs_f32(theta):
         st = tdvp._chunked_stats(theta_c, 0.0, x)
         torch.cuda.synchronize()
         out[label] = (st, time.perf_counter() - t0)
-    (split, t_split), (full, t_full) = out["tri2+int8"], out["f32"]
-    print(f"chunked statistics at N={n}, chunk {c}: tri2+int8 "
-          f"{t_split:.3f} s, f32 Gram {t_full:.3f} s (first call each)")
-    for key in ("S0", "F0", "A"):
-        rel = _rel(split[key], full[key], full[key].abs().max())
-        print(f"tri2+int8 vs f32 {key}: max abs diff / max {rel:.3e} "
-              f"(tol 1e-4)")
-        if not rel <= 1e-4:
-            fail(f"tri2+int8 {key} differs from the f32 Gram path: {rel}")
+    print(f"chunked statistics at N={n}, chunk {c}, first call each: "
+          + ", ".join(f"{label} {t:.3f} s" for label, (_, t) in out.items()))
+    full = out.pop("f32")[0]
+    for label, (st, _) in out.items():
+        for key in ("S0", "F0", "A"):
+            rel = _rel(st[key], full[key], full[key].abs().max())
+            print(f"chunked {label} vs f32 {key} at N={n}: max abs diff / "
+                  f"max {rel:.3e} (tol 1e-4)")
+            if not rel <= 1e-4:
+                fail(f"chunked {label} {key} differs from the f32 Gram "
+                     f"path: {rel}")
 
 
 def phase_mwe():
@@ -601,38 +615,65 @@ def phase_doublewell():
         fail(f"doubleWell acceptance {rate}")
 
 
-def phase_syrk(dev, theta):
-    """The syrk kernel on the main path's centered O (the per-sample
-    kernel's feature-major output at the theta the main path ends on)."""
-    flow, _, _, eq, dirs = _fp32_problem(dev)
-    theta = theta.to(device=dev, dtype=torch.float32)
+def _syrk_operands(flow, theta, eq, dirs, gen, n, check_persample=False):
+    """(O - mean O, E_loc - mean E_loc) of n fresh draws from the
+    per-sample kernel's plain mode: the direct path's centered operands,
+    and chunk 0 of the chunked path's (its shifts are chunk 0's means)."""
     params = flow.layout.unravel(theta)
-    gen = torch.Generator(device=dev).manual_seed(4)
-    n = 16384
     x, _ = flow.push(params, flow.latent_sample(gen, params, n,
                                                 torch.float32))
+    if check_persample:
+        _persample_vs_plain(flow, theta, x, dirs, "syrk chunk")
     _, g, quad, O = persample.per_sample_cuda(flow, theta, x, dirs)
-    O_c = O - O.mean(0)
     eloc = eq.eloc(x, g, quad, 0.0)
-    e_c = eloc - eloc.mean()
+    return O - O.mean(0), eloc - eloc.mean()
+
+
+def _syrk_vs_plain(O_c, cases):
+    """syrk_cuda against syrk_plain for each (label, w, tol); returns the
+    largest abs error."""
+    n, P = O_c.shape
     max_abs = 0.0
-    for label, w, tol in (("unweighted", None, 2e-5),
-                          ("signed weight E_loc - mean", e_c, 3e-5)):
+    for label, w, tol in cases:
         got = syrk.syrk_cuda(O_c, w)
         ref = syrk.syrk_plain(O_c, w)
         torch.cuda.synchronize()
         scale = float(ref.abs().max())
         err = float((got - ref).abs().max())
         asym = float((got - got.T).abs().max()) / scale
-        print(f"syrk kernel vs plain at N={n}, P={O.shape[1]}, {label}: max "
-              f"abs err {err:.3e}, relative to the largest entry "
-              f"{err / scale:.3e} (tol {tol:.0e}); relative asymmetry "
-              f"{asym:.3e}")
+        print(f"syrk kernel vs plain at N={n}, P={P}, {label}: max abs err "
+              f"{err:.3e}, relative to the largest entry {err / scale:.3e} "
+              f"(tol {tol:.0e}); relative asymmetry {asym:.3e}")
         if not err <= tol * scale:
-            fail(f"syrk kernel disagrees with its plain version ({label})")
+            fail(f"syrk kernel disagrees with its plain version at N={n} "
+                 f"({label})")
         max_abs = max(max_abs, err)
         del got, ref
-    P = O.shape[1]
+    return max_abs
+
+
+def phase_syrk(dev, theta):
+    """The syrk kernel on the operands the syrk paths give it, at the theta
+    the main path ends on: the direct path's centered O at N=16384 with
+    the signed weight E_loc - mean (timed there), and one chunk of the
+    chunked path at N=65536 with the weights es and es^2, after the
+    plain-mode per-sample kernel that makes the chunk is held against its
+    plain version at that N."""
+    flow, _, _, eq, dirs = _fp32_problem(dev)
+    theta = theta.to(device=dev, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    O_c, e_c = _syrk_operands(flow, theta, eq, dirs, gen, 65536,
+                              check_persample=True)
+    max_abs = _syrk_vs_plain(O_c, (("chunk, unweighted", None, 2e-5),
+                                   ("chunk, signed weight es", e_c, 3e-5),
+                                   ("chunk, weight es^2", e_c**2, 3e-5)))
+    del O_c, e_c
+    n = 16384
+    O_c, e_c = _syrk_operands(flow, theta, eq, dirs, gen, n)
+    max_abs = max(max_abs, _syrk_vs_plain(
+        O_c, (("unweighted", None, 2e-5),
+              ("signed weight E_loc - mean", e_c, 3e-5))))
+    P = O_c.shape[1]
     ms = _time_ms(lambda: syrk.syrk_cuda(O_c), 10)
     plain_ms = _time_ms(lambda: syrk.syrk_plain(O_c), 5)
     lib_ms = _time_ms(lambda: torch.mm(O_c.T, O_c), 5)
@@ -704,7 +745,7 @@ def main():
     del split, prob
     state, counts = phase_main_path()
     launches = {"persample": counts["persample"]}
-    phase_split_vs_f32(state.get_parameters())
+    phase_chunked_vs_f32(state.get_parameters())
     counts = phase_chunked_path()
     launches.update(persample_split=counts["persample_split"],
                     quant8=counts["quant8"])

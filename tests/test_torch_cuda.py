@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (vmc_pde_torch/kernels/csrc/persample.cu
-in plain and split mode, csrc/quant8.cu) against their plain versions, on
-the card.
+in plain and split mode, csrc/quant8.cu, csrc/metropolis.cu, csrc/syrk.cu)
+against their plain versions, on the card.
 
 These tests need a CUDA device and nvcc; without one they skip. They
 import nothing of JAX, so on a machine without it they run with
@@ -241,18 +241,27 @@ def test_metropolis_kernel_matches_plain(dev):
         metropolis.metropolis_chain(0, init, n_steps, 0.25, off, u[:, :C])
 
 
-@pytest.mark.parametrize("N,P,weighted", [(1024, 512, False),
-                                          (100, 937, False),
-                                          (2048, 300, True)])
-def test_syrk_kernel_matches_plain(dev, N, P, weighted):
+@pytest.mark.parametrize("N,P,weight", [(1024, 512, None),
+                                        (100, 937, None),
+                                        (2048, 300, "signed"),
+                                        (512, 200, "offset view")])
+def test_syrk_kernel_matches_plain(dev, N, P, weight):
     """The triangle kernel against the plain split products and the f64
     product: padded tiles, a ragged N (copied to a multiple of 4), a
-    signed weight; the result is symmetric."""
+    signed weight, and a weight that is a view one float into its storage
+    (not 16-byte aligned, as the kernel's float4 loads need: the wrapper
+    copies it); the result is symmetric."""
     from vmc_pde_torch.kernels import syrk
 
     gen = torch.Generator(device=dev).manual_seed(P)
     O = torch.randn((N, P), generator=gen, device=dev)
-    w = torch.randn((N,), generator=gen, device=dev) if weighted else None
+    w = None
+    if weight == "signed":
+        w = torch.randn((N,), generator=gen, device=dev)
+    elif weight == "offset view":
+        w = torch.randn((N + 1,), generator=gen, device=dev)[1:]
+        assert w.is_contiguous() and w.data_ptr() % 16
+    weighted = w is not None
     before = syrk.syrk_cuda.launches
     S = syrk.syrk(O, w)
     plain = syrk.syrk_plain(O, w)

@@ -158,6 +158,9 @@ def test_metropolis_kernel_contract_and_philox():
     with pytest.raises(ValueError, match="multiple of 128"):
         metropolis.metropolis_chain(0, torch.full((64, d), 0.25), 8, 0.25,
                                     OFF)
+    with pytest.raises(ValueError, match="2-D"):
+        metropolis.metropolis_chain(0, torch.full((C, 3), 0.25), 8, 0.25,
+                                    (0.25,) * 3)
     with pytest.raises(ValueError, match="CUDA"):
         metropolis.metropolis_chain_cuda(0, init, 8, 0.25, OFF)
     kat = metropolis.philox4x32_10((0x243F6A88, 0x85A308D3, 0x13198A2E,
@@ -233,11 +236,12 @@ def test_chain_statistics_match_jax():
         assert abs(p2 / latent.DW_T0 - 1) < 0.1, p2
 
 
-def test_sampler_kernel_gate_and_budgets():
+def test_sampler_kernel_gate_and_budgets(monkeypatch):
     """The kernel route's gate (a CUDA device, the cos_dist target,
     independence proposals, n_chains % 128 == 0), the budget rounding to
     whole chains, and the kernel route's sweep rounding, trimming and
-    proposal count, through its plain version on the CPU."""
+    proposal count, through its plain version on the CPU (the gate opened
+    for the CPU by hand)."""
     s = sampling.Sampler(2, "cos_dist", n_chains=128,
                          mcmc_info={"offset": np.asarray(OFF), "bound": 0.25})
     assert s.uses_kernel("cuda") and not s.uses_kernel("cpu")
@@ -248,9 +252,6 @@ def test_sampler_kernel_gate_and_budgets():
         other = sampling.Sampler(2, **kw)
         assert not other.uses_kernel("cuda")
     assert sampling.Sampler(2, "double_well").rounded_budget(10000) == 10020
-    with pytest.raises(ValueError, match="independence"):
-        sampling.Sampler(2, "cos_dist", n_chains=128, proposal_mode="rw",
-                         use_kernel=True)
     with pytest.raises(ValueError, match="proposal_mode"):
         sampling.Sampler(2, "cos_dist", proposal_mode="mala")
 
@@ -258,7 +259,8 @@ def test_sampler_kernel_gate_and_budgets():
                                     latent_name="cos_dist")
     k = sampling.Sampler(2, "cos_dist", dtype=torch.float64, n_chains=128,
                          mcmc_info={"offset": np.asarray(OFF),
-                                    "bound": 0.25}, use_kernel=True)
+                                    "bound": 0.25})
+    monkeypatch.setattr(k, "uses_kernel", lambda device: True)
     state = VarState(flow, theta, sampler=k,
                      precision=Precision.f64_everywhere())
     x, logp = state.sample(1500, key=3)  # 12 sweeps, rounded to 16

@@ -41,7 +41,7 @@ SIGNATURES = {
     },
     "metropolis": {
         "metropolis_f32": [_vp, _vp, ctypes.c_float, _vp, ctypes.c_ulonglong]
-        + [_ci] * 3 + [_vp] * 4,
+        + [_ci] * 2 + [_vp] * 4,
     },
     "syrk": {
         "syrk_f32": [_vp] * 2 + [_ci] * 3 + [_vp] * 2,

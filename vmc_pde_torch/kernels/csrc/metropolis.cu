@@ -45,6 +45,9 @@
 namespace {
 
 constexpr int THREADS = 64;
+// the cosine bump is the 2-D latent of the fluidpaper preset
+constexpr int DIM = 2;
+constexpr int ROWS = 2 * DIM + 2;
 constexpr unsigned FULL_MASK = 0xffffffffu;
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
@@ -74,7 +77,6 @@ __device__ __forceinline__ float to_uniform(uint32_t w) {
                    1e-12f);
 }
 
-template <int DIM>
 __device__ __forceinline__ float cos_bump_lp(const float* x,
                                              const float* off) {
   float s = 0.f;
@@ -88,13 +90,12 @@ __device__ __forceinline__ float cos_bump_lp(const float* x,
   return logf(__fmul_rn(0.5f, __fadd_rn(1.f, cosf(__fmul_rn(PI_F, r)))));
 }
 
-template <int DIM, bool EXT>
+template <bool EXT>
 __global__ void __launch_bounds__(THREADS) metropolis_kernel(
     const float* __restrict__ init, const float* __restrict__ offset,
     float bound, const float* __restrict__ u, unsigned long long seed,
     int n_chains, int n_steps, float* __restrict__ samples,
     float* __restrict__ final_states, unsigned long long* __restrict__ n_acc) {
-  constexpr int ROWS = 2 * DIM + 2;
   constexpr float INV_DIM = 1.f / DIM;
   const int c = blockIdx.x * THREADS + threadIdx.x;
   unsigned long long acc = 0;
@@ -107,7 +108,7 @@ __global__ void __launch_bounds__(THREADS) metropolis_kernel(
       off[k] = offset[k];
       x[k] = init[(size_t)c * DIM + k];
     }
-    float lp = cos_bump_lp<DIM>(x, off);
+    float lp = cos_bump_lp(x, off);
     for (int s = 0; s < n_steps; ++s) {
       float uu[ROWS];
       if (EXT) {
@@ -139,7 +140,7 @@ __global__ void __launch_bounds__(THREADS) metropolis_kernel(
 #pragma unroll
       for (int k = 0; k < DIM; ++k)
         prop[k] = __fadd_rn(__fmul_rn(rad, __fdiv_rn(dv[k], nrm)), off[k]);
-      const float lp_new = cos_bump_lp<DIM>(prop, off);
+      const float lp_new = cos_bump_lp(prop, off);
       if (uu[2 * DIM + 1] < expf(__fsub_rn(lp_new, lp))) {
 #pragma unroll
         for (int k = 0; k < DIM; ++k) x[k] = prop[k];
@@ -158,52 +159,29 @@ __global__ void __launch_bounds__(THREADS) metropolis_kernel(
   if ((threadIdx.x & 31) == 0 && acc) atomicAdd(n_acc, acc);
 }
 
-template <int DIM>
-cudaError_t launch(const float* init, const float* offset, float bound,
-                   const float* u, unsigned long long seed, int n_chains,
-                   int n_steps, float* samples, float* final_states,
-                   unsigned long long* n_acc, cudaStream_t stream) {
-  const int blocks = (n_chains + THREADS - 1) / THREADS;
-  if (u)
-    metropolis_kernel<DIM, true><<<blocks, THREADS, 0, stream>>>(
-        init, offset, bound, u, seed, n_chains, n_steps, samples,
-        final_states, n_acc);
-  else
-    metropolis_kernel<DIM, false><<<blocks, THREADS, 0, stream>>>(
-        init, offset, bound, u, seed, n_chains, n_steps, samples,
-        final_states, n_acc);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // C entry point: launches on ``stream`` and returns cudaGetLastError() (0 on
-// success; cudaErrorInvalidValue for dim outside 1..4 or empty shapes).
-// init (C, dim) f32, offset (dim,) f32, u (2 dim + 2, n_steps * C) f32 or
-// NULL for the Philox stream of ``seed``; outputs samples (n_steps * C, dim)
-// sweep-major, final_states (C, dim) and n_acc, one int64 the caller zeroes.
+// success; cudaErrorInvalidValue for empty shapes). init (C, 2) f32, offset
+// (2,) f32, u (6, n_steps * C) f32 or NULL for the Philox stream of
+// ``seed``; outputs samples (n_steps * C, 2) sweep-major, final_states
+// (C, 2) and n_acc, one int64 the caller zeroes.
 extern "C" int metropolis_f32(const float* init, const float* offset,
                               float bound, const float* u,
-                              unsigned long long seed, int dim, int n_chains,
+                              unsigned long long seed, int n_chains,
                               int n_steps, float* samples, float* final_states,
                               void* n_acc, void* stream) {
   if (n_chains <= 0 || n_steps <= 0) return (int)cudaErrorInvalidValue;
   auto* acc = static_cast<unsigned long long*>(n_acc);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (dim) {
-    case 1:
-      return (int)launch<1>(init, offset, bound, u, seed, n_chains, n_steps,
-                            samples, final_states, acc, s);
-    case 2:
-      return (int)launch<2>(init, offset, bound, u, seed, n_chains, n_steps,
-                            samples, final_states, acc, s);
-    case 3:
-      return (int)launch<3>(init, offset, bound, u, seed, n_chains, n_steps,
-                            samples, final_states, acc, s);
-    case 4:
-      return (int)launch<4>(init, offset, bound, u, seed, n_chains, n_steps,
-                            samples, final_states, acc, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  const int blocks = (n_chains + THREADS - 1) / THREADS;
+  if (u)
+    metropolis_kernel<true><<<blocks, THREADS, 0, s>>>(
+        init, offset, bound, u, seed, n_chains, n_steps, samples,
+        final_states, acc);
+  else
+    metropolis_kernel<false><<<blocks, THREADS, 0, s>>>(
+        init, offset, bound, u, seed, n_chains, n_steps, samples,
+        final_states, acc);
+  return (int)cudaGetLastError();
 }

@@ -27,7 +27,8 @@ sampler's standalone route uses it (sampling/sampler.py).
 
 Contract kept from the JAX kernel: n_chains a multiple of 128 (else
 ValueError), sweep counts rounded up to multiples of SWEEPS_PER_BLOCK,
-a uniforms block of another shape a ValueError.
+a uniforms block of another shape a ValueError. The cosine bump is 2-D
+(fluidpaper's latent), and so is the kernel: another dim is a ValueError.
 """
 
 from __future__ import annotations
@@ -39,7 +40,6 @@ import numpy as np
 import torch
 
 SWEEPS_PER_BLOCK = 8
-MAX_DIM = 4  # dimensions the kernel is instantiated for (csrc/metropolis.cu)
 
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -60,9 +60,9 @@ def _check(init_states, n_steps: int, uniforms):
     if C % 128 or C == 0:
         raise ValueError("n_chains must be a multiple of 128 (the JAX "
                          "kernel's lane contract)")
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"the Metropolis kernel takes 1 <= dim <= "
-                         f"{MAX_DIM}, got {d}")
+    if d != 2:
+        raise ValueError(f"the Metropolis kernel's cosine bump is 2-D, got "
+                         f"dim={d}")
     n_steps = rounded_sweeps(n_steps)
     if uniforms is not None:
         expected = (2 * d + 2, n_steps * C)
@@ -197,7 +197,7 @@ def metropolis_chain_cuda(seed: int, init_states, n_steps: int,
     code = lib.metropolis_f32(
         init.data_ptr(), off.data_ptr(), ctypes.c_float(float(bound)),
         None if u is None else u.data_ptr(),
-        ctypes.c_ulonglong(int(seed) & 0xFFFFFFFFFFFFFFFF), d, C, n_steps,
+        ctypes.c_ulonglong(int(seed) & 0xFFFFFFFFFFFFFFFF), C, n_steps,
         samples.data_ptr(), final.data_ptr(), n_acc.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "metropolis_f32")

@@ -72,8 +72,11 @@ def syrk_cuda(O, w=None):
         raise ValueError(f"expected f32 weights ({N},) on {dev}")
     X, Np = _feature_major(O)
     if w is not None:
-        w = w.contiguous() if Np == N else torch.cat(
-            [w, w.new_zeros(Np - N)])
+        if Np != N:
+            w = torch.cat([w, w.new_zeros(Np - N)])
+        elif not w.is_contiguous() or w.data_ptr() % 16:
+            # the kernel reads w as float4: a fresh, aligned copy
+            w = w.clone(memory_format=torch.contiguous_format)
     W = torch.empty((P, P), dtype=torch.float32, device=dev)
     lib = build.library("syrk")
     code = lib.syrk_f32(X.data_ptr(), None if w is None else w.data_ptr(),

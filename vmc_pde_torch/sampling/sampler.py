@@ -121,9 +121,6 @@ class Sampler:
     latent_log_prob: Optional[Callable] = None
     proposer: Callable = radial_proposal
     burn_in: int = 0
-    # the hand-written Metropolis kernel for standalone sample() calls;
-    # None = auto (uses_kernel)
-    use_kernel: Optional[bool] = None
     # "independence" (uniform ball covering the support, the reference's)
     # or "rw" (Gaussian random walk; the scale adapts between calls toward
     # the acceptance rw_target_accept by a Robbins-Monro step on its log)
@@ -148,10 +145,6 @@ class Sampler:
                 self.latent_log_prob = lambda x: \
                     latent_mod.double_well_log_prob(
                         None, self.dim, x - self._offset_like(x))
-        if self.use_kernel and not self._kernel_target():
-            raise ValueError("the Metropolis kernel implements independence "
-                             "proposals of the cos_dist target with "
-                             "n_chains % 128 == 0")
         self._states = None
         self._offsets = {}
         self._rw_adapt_t = 0
@@ -177,8 +170,6 @@ class Sampler:
         """Whether standalone sample() calls on ``device`` run the
         Metropolis kernel: the JAX package's gate with "on a CUDA device"
         in place of "on TPU"."""
-        if self.use_kernel is not None:
-            return self.use_kernel
         return torch.device(device).type == "cuda" and self._kernel_target()
 
     # ------------------------------------------------------------------
