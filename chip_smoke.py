@@ -56,7 +56,32 @@
    batch, then the chunked statistics at N=131072 in chunks of 65536 for
    2 steps with exactly 24 syrk and 8 per-sample launches. The chunked
    syrk run is cut to 2 steps and N=131072, the direct one to 5 steps,
-   to keep the whole script well inside its time limit.
+   to keep the whole script well inside its time limit;
+15. (A) the per-sample kernel's Student-t and global-affine branches at
+   full width: fokkerPlanck32's flow with the Student-t latent and the
+   global affine in every block (d=32, P=9397), on the preset's initial
+   theta and a perturbed one (nu = 2.5, g_scale off 1): plain mode at
+   N=1024, a ragged 1000 and 16384, split mode at 1024, 1000 and 65536,
+   to TOL (on the perturbed theta's heavy-tailed draws, to plain f32's own
+   error sample by sample: GRADE_Q and GRADE_MAX below), the nu and
+   g_scale rows reported on their own; both modes timed; then
+   diffusion_anisotropic's flow (d=12, P=762) with its dense Cholesky
+   trace directions at N=16384;
+16. (B) ``driver.run(preset("fokkerPlanck32", latent_name="Student_t",
+   global_affine=True))`` at N=16384 for 4 steps: exactly 8 plain-mode
+   launches, no NaN, residual below 1e-3; then the chunked statistics at
+   N=131072 in chunks of 65536 with tri2 + int8 (2 split launches)
+   against the f32 Gram on the same draws, S0, F0 and A within 1e-4;
+17. (C) ``diffusion`` (d=8, Student-t, P=365) through the CLI with
+   ``--per-sample-backend cuda`` for 20 steps: exactly 40 plain-mode
+   launches, no NaN, residual below 1e-3, the f64 entropy on common
+   random numbers rising every step; then ``--is-gamma 0.5`` for 10 steps
+   (20 launches) with the IS weights' effective sample share;
+18. (D) ``diffusion_anisotropic`` in f64 (the torch pipeline) for 50
+   steps against Sigma(t) = I + 2 t D and 1/2 log det(2 pi e Sigma(t)),
+   within 5 Monte Carlo standard errors; ``harmonicOsc`` for 20 steps
+   (entropy within 5 standard errors of the initial log(2 pi e), grid
+   integral within 0.05 of 1) and ``harmonicOsc_diff`` for 20 steps.
 
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
@@ -175,26 +200,101 @@ def _rel(a, ref, scale=None):
     return float((a.double() - ref).abs().max() / scale)
 
 
-def _persample_vs_plain(flow, theta, x, dirs, label, loose=False):
+def _row_groups(flow):
+    """The O rows of the Student-t and global-affine branches, by name:
+    the nu row and every block's g_scale row (and g_offset rows)."""
+    lay, groups = flow.layout, {}
+    if flow.latent_name == "Student_t":
+        groups["nu row"] = [lay.offset(("latent", "dist_params"))]
+    ga = [b for b, spec in enumerate(flow.blocks) if spec.global_affine]
+    if ga:
+        groups["g_scale rows"] = [lay.offset(("blocks", b, "g_scale"))
+                                  for b in ga]
+        groups["g_offset rows"] = [
+            lay.offset(("blocks", b, "g_offset")) + i
+            for b in ga for i in range(flow.dim)]
+    return groups
+
+
+def _print_rows(label, n, O, O_ref, O_32, groups):
+    """Max abs error of each row group of O, relative to the group's
+    largest reference value, beside plain f32's."""
+    for name, rows in groups.items():
+        r = O_ref[:, rows]
+        scale = r.abs().max().clamp_min(1e-30)
+        err = float((O[:, rows].double() - r).abs().max())
+        err32 = float((O_32[:, rows].double() - r).abs().max())
+        print(f"  {label}, N={n}, {name}: max abs err {err:.3e}, relative "
+              f"to the rows' largest value {err / float(scale):.3e} (plain "
+              f"f32 {err32 / float(scale):.3e})")
+
+
+# Heavy-tailed draws of a perturbed flow (phase 15): a few samples are so
+# ill-conditioned that f32 itself loses three digits there, and which of
+# two f32 evaluations errs more at the worst one is a coin toss
+# (over seven draws of 16384 on the card, six of them through
+# tools/persample_blocks.py, the kernel's largest g error was 0.46-4.2
+# times plain f32's, while their per-sample error quantiles up to 0.999
+# agreed within 25%). There each
+# per-sample output is held to plain f32's own error sample by sample:
+# the quantiles GRADE_Q of the per-sample error within twice plain f32's,
+# the largest within GRADE_MAX times plain f32's largest (or TOL).
+GRADE_Q = (0.5, 0.99, 0.999)
+GRADE_MAX = 10.0
+
+
+def _grade_ok(name, a, r, p, tol, where):
+    """The same-grade check of kernel output ``a`` against the f64
+    reference ``r``, beside plain f32's ``p``, each sample's largest error
+    relative to the largest reference value; prints it, returns whether it
+    holds."""
+    scale = r.double().abs().max().clamp_min(1.0)
+
+    def per_sample(v):
+        e = (v.double() - r).abs()
+        return (e if e.ndim == 1 else e.amax(1)) / scale
+
+    ek, ep = per_sample(a), per_sample(p)
+    qs = torch.tensor(GRADE_Q, dtype=torch.float64, device=ek.device)
+    qk, qp = torch.quantile(ek, qs).tolist(), torch.quantile(ep, qs).tolist()
+    mk, mp = float(ek.max()), float(ep.max())
+    limit = max(tol, GRADE_MAX * mp)
+    print(f"{where}, {name}: per-sample error at quantiles {GRADE_Q}: "
+          f"kernel {' '.join(f'{v:.2e}' for v in qk)}, plain f32 "
+          f"{' '.join(f'{v:.2e}' for v in qp)}; largest kernel {mk:.3e}, "
+          f"plain f32 {mp:.3e} (limit {limit:.2e})")
+    return (all(k <= 2.0 * q + 2.0**-24 for k, q in zip(qk, qp))
+            and mk < limit)
+
+
+def _persample_vs_plain(flow, theta, x, dirs, label, loose=False,
+                        grade=False):
     """The plain-mode kernel against the plain pipeline in f64 on the same
     f32 inputs, to TOL (with ``loose``, to twice plain f32's own error
-    where that is larger); returns the largest abs error of O."""
+    where that is larger; with ``grade``, to plain f32's own error sample
+    by sample, _grade_ok); returns the largest abs error of O. The
+    Student-t and global-affine rows are also reported on their own."""
     n = x.shape[0]
     got = persample.per_sample_cuda(flow, theta, x, dirs)
     ref = persample.per_sample_plain(flow, theta.double(), x.double(),
                                      dirs.double())
     ref32 = persample.per_sample_plain(flow, theta, x, dirs)
     torch.cuda.synchronize()
+    _print_rows(f"kernel vs plain, {label} theta", n, got[3], ref[3],
+                ref32[3], _row_groups(flow))
     for name, a, r, p in zip(("logp", "g", "quad", "O"), got, ref, ref32):
         if a.shape != r.shape or not torch.isfinite(a).all():
             fail(f"kernel {name} at N={n}: shape {tuple(a.shape)} vs "
                  f"{tuple(r.shape)}, or not finite")
         rel, rel32 = _rel(a, r), _rel(p, r)
         tol = max(TOL[name], 2.0 * rel32) if loose else TOL[name]
-        print(f"kernel vs plain, {label} theta, N={n}, {name}: max abs "
-              f"err {float((a.double() - r).abs().max()):.3e}, relative "
+        where = f"kernel vs plain, {label} theta, N={n}"
+        print(f"{where}, {name}: max abs err "
+              f"{float((a.double() - r).abs().max()):.3e}, relative "
               f"{rel:.3e} (tol {tol:.2e}; plain f32 {rel32:.3e})")
-        if not rel < tol:
+        ok = (_grade_ok(name, a, r, p, TOL[name], where) if grade
+              else rel < tol)
+        if not ok:
             fail(f"kernel {name} disagrees with the plain version at "
                  f"N={n}: {rel:.3e}")
     return float((got[3].double() - ref[3]).abs().max())
@@ -234,9 +334,59 @@ def phase_kernel(dev, prob):
                 bound_ms=bound[0], bound_by=bound[1])
 
 
+def _split_vs_plain(flow, theta, x, dirs, label, grade=False):
+    """The split-mode kernel against the plain pipeline in f64 and split,
+    to TOL (with ``grade``, the per-sample outputs to plain f32's own
+    error sample by sample, _grade_ok, and the column statistics to twice
+    plain f32's where that is larger). The shift is the pilot's: the
+    plain f32 mean O of the first 2048 samples. Returns (kernel outputs,
+    shift, largest abs error of hi + lo)."""
+    n = x.shape[0]
+    shift = persample.per_sample_plain(flow, theta, x[:2048],
+                                       dirs)[3].mean(0)
+    got = persample.per_sample_split_cuda(flow, theta, x, dirs, shift)
+    ref = persample.per_sample_plain(flow, theta.double(), x.double(),
+                                     dirs.double())
+    ref32 = persample.per_sample_split_plain(flow, theta, x, dirs, shift)
+    torch.cuda.synchronize()
+    o_ref = ref[3] - shift.double()
+    o_scale = o_ref.abs().max().clamp_min(1.0)
+    pair = got[3][0].double() + got[3][1].double()
+    pair32 = ref32[3][0].double() + ref32[3][1].double()
+    _print_rows(f"split kernel vs plain, {label} theta", n, pair, o_ref,
+                pair32, _row_groups(flow))
+    checks = [(name, a, r, p, TOL[name], None) for name, a, r, p in
+              zip(("logp", "g", "quad"), got, ref, ref32)]
+    checks += [
+        ("hi+lo", pair, o_ref, pair32, TOL["O"] + 2**-16, None),
+        # per-element scale: a sum of n terms each within the O bar
+        ("colsum", got[4], o_ref.sum(0), ref32[4], TOL["O"], n * o_scale),
+        ("colmax", got[5], o_ref.abs().amax(0), ref32[5], TOL["O"],
+         o_scale)]
+    max_abs = 0.0
+    for name, a, r, p, tol, scale in checks:
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            fail(f"split kernel {name} at N={n}: shape "
+                 f"{tuple(a.shape)} vs {tuple(r.shape)}, or not finite")
+        rel, rel32 = _rel(a, r, scale), _rel(p, r, scale)
+        per_sample = scale is None
+        if grade and not per_sample:
+            tol = max(tol, 2.0 * rel32)
+        where = f"split kernel vs plain, {label} theta, N={n}"
+        print(f"{where}, {name}: relative {rel:.3e} (tol {tol:.1e}; plain "
+              f"f32 {rel32:.3e})")
+        ok = (_grade_ok(name, a, r, p, tol, where) if grade and per_sample
+              else rel < tol)
+        if not ok:
+            fail(f"split kernel {name} disagrees with the plain version "
+                 f"at N={n}: {rel:.3e}")
+        if name == "hi+lo":
+            max_abs = float((a - r).abs().max())
+    return got, shift, max_abs
+
+
 def phase_split(dev, prob):
-    """Split mode against the plain pipeline and split. The shift is the
-    pilot's: the plain f32 mean O of the first 2048 samples."""
+    """Split mode against the plain pipeline and split."""
     flow, theta0, perturbed, eq, dirs = prob
     gen = torch.Generator(device=dev).manual_seed(1)
     max_abs = 0.0
@@ -246,40 +396,8 @@ def phase_split(dev, prob):
         params = flow.layout.unravel(theta)
         x, _ = flow.push(params, flow.latent_sample(gen, params, n,
                                                     torch.float32))
-        shift = persample.per_sample_plain(flow, theta, x[:2048],
-                                           dirs)[3].mean(0)
-        got = persample.per_sample_split_cuda(flow, theta, x, dirs, shift)
-        ref = persample.per_sample_plain(flow, theta.double(), x.double(),
-                                         dirs.double())
-        ref32 = persample.per_sample_split_plain(flow, theta, x, dirs, shift)
-        torch.cuda.synchronize()
-        o_ref = ref[3] - shift.double()
-        o_scale = o_ref.abs().max().clamp_min(1.0)
-        checks = [(name, a, r, p, TOL[name], None) for name, a, r, p in
-                  zip(("logp", "g", "quad"), got, ref, ref32)]
-        checks += [
-            ("hi+lo", got[3][0].double() + got[3][1].double(), o_ref,
-             ref32[3][0].double() + ref32[3][1].double(),
-             TOL["O"] + 2**-16, None),
-            # per-element scale: a sum of n terms each within the O bar
-            ("colsum", got[4], o_ref.sum(0), ref32[4], TOL["O"],
-             n * o_scale),
-            ("colmax", got[5], o_ref.abs().amax(0), ref32[5], TOL["O"],
-             o_scale)]
-        for name, a, r, p, tol, scale in checks:
-            if a.shape != r.shape or not torch.isfinite(a).all():
-                fail(f"split kernel {name} at N={n}: shape "
-                     f"{tuple(a.shape)} vs {tuple(r.shape)}, or not finite")
-            rel, rel32 = _rel(a, r, scale), _rel(p, r, scale)
-            print(f"split kernel vs plain, {label} theta, N={n}, {name}: "
-                  f"relative {rel:.3e} (tol {tol:.1e}; plain f32 "
-                  f"{rel32:.3e})")
-            if not rel < tol:
-                fail(f"split kernel {name} disagrees with the plain version "
-                     f"at N={n}: {rel:.3e}")
-            if name == "hi+lo":
-                max_abs = max(max_abs, float((a - r).abs().max()))
-        del ref, ref32
+        got, shift, err = _split_vs_plain(flow, theta, x, dirs, label)
+        max_abs = max(max_abs, err)
 
     P, d, k = flow.layout.size, flow.dim, dirs.shape[0]
     ms = _time_ms(lambda: persample.per_sample_split_cuda(
@@ -347,21 +465,32 @@ def _counts():
     return {name: fn.launches for name, fn in WRAPPERS.items()}
 
 
-def _drive(args, label, n_steps, dim=32):
-    """Run the driver; returns (state, recorder arrays, counts)."""
+def _drive(args, label, n_steps, dim=32, cfg=None, callbacks=()):
+    """Run the driver's CLI on ``args`` (or ``driver.run`` on ``cfg``);
+    returns (state, recorder arrays, counts). Each of ``callbacks`` runs
+    after every step, outside the step's timing."""
     stamps = []
 
     def record(n_step, t, state, info):
         torch.cuda.synchronize()
         stamps.append(time.perf_counter())
+        for cb in callbacks:
+            cb(n_step, t, state, info)
+        torch.cuda.synchronize()
+        starts.append(time.perf_counter())  # the next step's clock
 
+    starts = []
     _zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, rec = driver.main(args + ["--max-steps", str(n_steps),
-                                     "--device", "cuda"], callbacks=[record])
+    if cfg is None:
+        state, rec = driver.main(
+            args + ["--max-steps", str(n_steps), "--device", "cuda"],
+            callbacks=[record])
+    else:
+        state, rec = driver.run(cfg, max_steps=n_steps, callbacks=[record])
     counts = _counts()
-    steps = np.diff([t0] + stamps)
+    steps = np.array(stamps) - np.array([t0] + starts[:-1])
     print(f"{label}: {len(steps)} Heun steps, wall s/step "
           f"{' '.join(f'{s:.3f}' for s in steps)} (first includes set-up), "
           f"mean of steps 2-{len(steps)} {steps[1:].mean():.3f} s")
@@ -409,17 +538,17 @@ def phase_chunked_path():
     return counts
 
 
-def phase_chunked_vs_f32(theta):
+def phase_chunked_vs_f32(theta, syrk_too=True, **flow_overrides):
     """The chunked statistics on one batch of draws through the tri2+int8,
-    the syrk and the f32 Gram, at the theta the main path ends on."""
+    the syrk (``syrk_too``) and the f32 Gram, at the theta a path ends on;
+    tri2+int8 must run the split kernel once per chunk."""
     n, c = 131072, 65536
     out = {}
-    for label, over in (("tri2+int8", dict(gram_backend="tri2",
-                                           gram_cross="int8")),
-                        ("syrk", dict(gram_backend="syrk")),
-                        ("f32", {})):
+    backends = [("tri2+int8", dict(gram_backend="tri2", gram_cross="int8")),
+                ("syrk", dict(gram_backend="syrk")), ("f32", {})]
+    for label, over in backends if syrk_too else backends[::2]:
         cfg = preset("fokkerPlanck32", device="cuda", n_samples_tdvp=n,
-                     n_samples_obs=n, chunk_size=c, **over)
+                     n_samples_obs=n, chunk_size=c, **over, **flow_overrides)
         state, tdvp = driver.build_problem(cfg)[:2]
         theta_c = theta.to(device=state.device, dtype=torch.float32)
         params = state.flow.layout.unravel(theta_c)
@@ -427,10 +556,14 @@ def phase_chunked_vs_f32(theta):
         x, _ = state.flow.push(params, state.flow.latent_sample(
             gen, params, n, torch.float32))
         torch.cuda.synchronize()
+        _zero_counts()
         t0 = time.perf_counter()
         st = tdvp._chunked_stats(theta_c, 0.0, x)
         torch.cuda.synchronize()
         out[label] = (st, time.perf_counter() - t0)
+        if label == "tri2+int8" and _counts()["persample_split"] != n // c:
+            fail(f"chunked tri2+int8 statistics ran the split kernel "
+                 f"{_counts()['persample_split']} times, expected {n // c}")
     print(f"chunked statistics at N={n}, chunk {c}, first call each: "
           + ", ".join(f"{label} {t:.3f} s" for label, (_, t) in out.items()))
     full = out.pop("f32")[0]
@@ -730,6 +863,231 @@ def phase_syrk_paths(theta):
 
 
 
+def _student_problem(dev):
+    """fokkerPlanck32's flow with the Student-t latent and the global
+    affine in every block (P=9397): the preset's initial theta, and a
+    perturbed one with nu = 2.5 and g_scale 0.9, 1.1, 0.95, 1.05."""
+    cfg = preset("fokkerPlanck32")
+    flow, theta0 = build_flow(cfg.seed, cfg.dim, depth=cfg.depth,
+                              hidden=cfg.hidden_resolved(),
+                              variant=cfg.variant, global_affine=True,
+                              latent_name="Student_t",
+                              out_scale=cfg.init_scale, dtype=torch.float32,
+                              device=dev)
+    lay = flow.layout
+    if lay.size != 9397:
+        fail(f"the Student-t fokkerPlanck32 flow has P={lay.size}, "
+             f"expected 9397")
+    perturbed = perturb_theta(flow, theta0, np.random.default_rng(0),
+                              out_scale=0.03)
+    perturbed[lay.offset(("latent", "dist_params"))] = math.log(1.5)
+    for b, g in enumerate((0.9, 1.1, 0.95, 1.05)):
+        perturbed[lay.offset(("blocks", b, "g_scale"))] = g
+    eq = make_equation(cfg.equation, cfg.dim, **cfg.equation_params)
+    dirs = torch.as_tensor(eq.hessian_trace_dirs(cfg.dim),
+                           dtype=torch.float32, device=dev)
+    return flow, theta0, perturbed, dirs
+
+
+def phase_student_kernel(dev):
+    """Phase A: the kernel's Student-t and global-affine branches against
+    the plain version at full width, plain and split mode, on the preset's
+    initial theta (to TOL) and the perturbed one (to plain f32's own error
+    sample by sample, _grade_ok); timed at the main paths' N; then the
+    kernel on diffusion_anisotropic's flow with its dense trace
+    directions."""
+    flow, theta0, perturbed, dirs = _student_problem(dev)
+    gen = torch.Generator(device=dev).manual_seed(10)
+    P, d, k = flow.layout.size, flow.dim, dirs.shape[0]
+    n_ga = bounds.flow_ga(flow)
+    out = {}
+    max_abs = 0.0
+    for label, theta, n in (("Student-t perturbed", perturbed, 1024),
+                            ("Student-t perturbed", perturbed, 1000),
+                            ("Student-t perturbed", perturbed, 16384),
+                            ("Student-t initial", theta0, 16384)):
+        params = flow.layout.unravel(theta)
+        x, _ = flow.push(params, flow.latent_sample(gen, params, n,
+                                                    torch.float32))
+        max_abs = max(max_abs, _persample_vs_plain(
+            flow, theta, x, dirs, label, grade="perturbed" in label))
+    ms = _time_ms(lambda: persample.per_sample_cuda(flow, theta, x, dirs), 20)
+    plain_ms = _time_ms(
+        lambda: persample.per_sample_plain(flow, theta, x, dirs), 3)
+    bound = bounds.persample(bounds.flow_layers(flow), d, P, n, k, n_ga=n_ga)
+    print(f"per-sample, Student-t + global affine, at N={n}, P={P}: CUDA "
+          f"kernel {ms:.3f} ms, plain torch.func {plain_ms:.3f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]})")
+    out["persample"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                            bound_ms=bound[0], bound_by=bound[1], P=P, N=n)
+
+    max_abs = 0.0
+    for label, theta, n in (("Student-t perturbed", perturbed, 1024),
+                            ("Student-t perturbed", perturbed, 1000),
+                            ("Student-t initial", theta0, 65536)):
+        params = flow.layout.unravel(theta)
+        x, _ = flow.push(params, flow.latent_sample(gen, params, n,
+                                                    torch.float32))
+        _, shift, err = _split_vs_plain(flow, theta, x, dirs, label,
+                                        grade="perturbed" in label)
+        max_abs = max(max_abs, err)
+    ms = _time_ms(lambda: persample.per_sample_split_cuda(
+        flow, theta, x, dirs, shift), 10)
+    plain_ms = _time_ms(lambda: persample.per_sample_split_plain(
+        flow, theta, x, dirs, shift), 2)
+    bound = bounds.persample(bounds.flow_layers(flow), d, P, n, k,
+                             split=True, n_ga=n_ga)
+    print(f"split per-sample, Student-t + global affine, at N={n}, P={P}: "
+          f"CUDA kernel {ms:.3f} ms, plain torch.func + split "
+          f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+    out["persample_split"] = dict(max_abs_err=max_abs, ms=ms,
+                                  plain_ms=plain_ms, bound_ms=bound[0],
+                                  bound_by=bound[1], P=P, N=n)
+    del x
+
+    acfg = preset("diffusion_anisotropic")
+    aflow, atheta = build_flow(acfg.seed, acfg.dim, depth=acfg.depth,
+                               hidden=acfg.hidden_resolved(),
+                               variant=acfg.variant,
+                               out_scale=acfg.init_scale,
+                               dtype=torch.float32, device=dev)
+    if aflow.layout.size != 762:
+        fail(f"diffusion_anisotropic has P={aflow.layout.size}, "
+             f"expected 762")
+    aeq = make_equation(acfg.equation, acfg.dim, **acfg.equation_params)
+    adirs = torch.as_tensor(aeq.hessian_trace_dirs(acfg.dim),
+                            dtype=torch.float32, device=dev)
+    aperturbed = perturb_theta(aflow, atheta, np.random.default_rng(1),
+                               out_scale=0.03)
+    for label, theta in (("anisotropic initial", atheta),
+                         ("anisotropic perturbed", aperturbed)):
+        params = aflow.layout.unravel(theta)
+        x, _ = aflow.push(params, aflow.latent_sample(gen, params, 16384,
+                                                      torch.float32))
+        _persample_vs_plain(aflow, theta, x, adirs, label,
+                            grade="perturbed" in label)
+    return out
+
+
+def phase_student_path():
+    """Phase B: fokkerPlanck32 with the Student-t latent and the global
+    affine through driver.run at N=16384: one plain-mode launch per RHS,
+    no NaN, residual below 1e-3; nu per step."""
+    n_steps = 4
+    cfg = preset("fokkerPlanck32", latent_name="Student_t",
+                 global_affine=True, device="cuda")
+    state, arrays, counts = _drive(
+        None, "fokkerPlanck32 Student-t + global affine N=16384", n_steps,
+        cfg=cfg)
+    if counts["persample"] != 2 * n_steps:
+        fail(f"the Student-t path launched the per-sample kernel "
+             f"{counts['persample']} times, expected {2 * n_steps}")
+    nu = np.exp(arrays["dist_params"][:, 0]) + 1.0
+    print(f"fokkerPlanck32 Student-t: nu per step "
+          f"{' '.join(f'{v:.7f}' for v in nu)}")
+    return state, counts
+
+
+def _crn_entropy(n=65536, seed=123):
+    """(values, callback): the flow's entropy -E[log p] in f64 on common
+    random numbers (the same generator seed every step), so that its
+    change from step to step is the model's, free of Monte Carlo noise."""
+    values = []
+
+    def cb(n_step, t, state, info):
+        theta = state.theta.double()
+        params = state.flow.layout.unravel(theta)
+        gen = torch.Generator(device=theta.device).manual_seed(seed)
+        z = state.flow.latent_sample(gen, params, n, torch.float64)
+        values.append(float(-state.flow.push(params, z)[1].mean()))
+
+    return values, cb
+
+
+def phase_diffusion():
+    """Phase C: the d=8 Student-t diffusion preset through the CLI with
+    the per-sample kernel (P=365: auto would leave it on torch), 20 steps:
+    exactly one plain-mode launch per RHS (direct statistics, the
+    observables on the same batch), no NaN, residual below 1e-3, the
+    entropy on common random numbers rising every step; then 10 steps with
+    --is-gamma 0.5 (one launch per RHS; observables resample without the
+    kernel) and the IS weights' effective sample share."""
+    n_steps = 20
+    ent, cb = _crn_entropy()
+    _, arrays, counts = _drive(["diffusion", "--per-sample-backend", "cuda"],
+                               "diffusion (d=8, Student-t) N=10000", n_steps,
+                               dim=8, callbacks=[cb])
+    if counts["persample"] != 2 * n_steps:
+        fail(f"diffusion launched the per-sample kernel "
+             f"{counts['persample']} times, expected {2 * n_steps}")
+    rise = np.diff(ent)
+    nu = np.exp(arrays["dist_params"][:, 0]) + 1.0
+    print(f"diffusion: f64 entropy on common random numbers (N=65536) "
+          f"{ent[0]:.9f} -> {ent[-1]:.9f}, smallest step-to-step rise "
+          f"{rise.min():.3e}; nu {nu[0]:.7f} -> {nu[-1]:.7f}; recorded MC "
+          f"entropy {arrays['entropy'][0]:.5f} -> {arrays['entropy'][-1]:.5f}")
+    if not (rise > 0).all():
+        fail(f"diffusion entropy did not rise every step: {rise}")
+    launches = counts["persample"]
+
+    n_is = 10
+    _, arrays, counts = _drive(
+        ["diffusion", "--per-sample-backend", "cuda", "--is-gamma", "0.5"],
+        "diffusion --is-gamma 0.5", n_is, dim=8)
+    if counts["persample"] != 2 * n_is:
+        fail(f"diffusion --is-gamma launched the per-sample kernel "
+             f"{counts['persample']} times, expected {2 * n_is}")
+    ess = arrays["is_ess_share"]
+    print(f"diffusion --is-gamma 0.5: IS effective sample share per step "
+          f"{' '.join(f'{v:.4f}' for v in ess)}")
+    if not ((ess > 0) & (ess <= 1)).all():
+        fail(f"IS effective sample share out of (0, 1]: {ess}")
+    return launches
+
+
+def phase_anisotropic_and_oscillators():
+    """Phase D: diffusion_anisotropic in f64 (the torch pipeline; the
+    kernel is f32 only) against Sigma(t) = I + 2 t D and the entropy
+    1/2 log det(2 pi e Sigma(t)); then harmonicOsc and harmonicOsc_diff
+    for 20 steps each."""
+    n_steps = 50
+    cfg = preset("diffusion_anisotropic", precision="f64", device="cuda",
+                 verbose=False)
+    _, a, _ = _drive(None, "diffusion_anisotropic f64 N=10000", n_steps,
+                     dim=12, cfg=cfg)
+    D = make_equation("diffusion_anisotropic", 12).D_matrix
+    t, N = a["times"][-1], cfg.n_samples_obs
+    sigma = np.eye(12) + 2.0 * t * D
+    cov_err = np.abs(a["covar"][-1] - sigma).max()
+    # Gaussian sample covariance: Var(S_ij) = (S_ii S_jj + S_ij^2) / N;
+    # Var(-log p) = d/2 for a Gaussian
+    se_cov = math.sqrt(float((np.outer(np.diag(sigma), np.diag(sigma))
+                              + sigma**2).max()) / N)
+    ent = 0.5 * np.linalg.slogdet(2 * math.pi * math.e * sigma)[1]
+    ent_err = abs(a["entropy"][-1] - ent)
+    se_ent = math.sqrt(6.0 / N)
+    print(f"diffusion_anisotropic f64 at t={t:.4f} (D's eigenvalues "
+          f"{np.linalg.eigvalsh(D).min():.3f}..{np.linalg.eigvalsh(D).max():.3f}"
+          f"): covar max abs err {cov_err:.4f} (5 SE {5 * se_cov:.4f}), "
+          f"entropy {a['entropy'][-1]:.5f} vs {ent:.5f} (5 SE "
+          f"{5 * se_ent:.4f}), solver_res {a['solver_res'][-1]:.3e}")
+    if not (t > 0.05 and cov_err < 5 * se_cov and ent_err < 5 * se_ent):
+        fail("diffusion_anisotropic misses Sigma(t) = I + 2 t D")
+
+    state, a, _ = _drive(["harmonicOsc"], "harmonicOsc", 20, dim=2)
+    ent = math.log(2 * math.pi * math.e)  # the initial N(offset, I)
+    se = math.sqrt(1.0 / preset("harmonicOsc").n_samples_obs)
+    drift = np.abs(a["entropy"] - ent).max()
+    integral = float(state.integrate(Grid(np.ones(2) * 8.0, 200)))
+    print(f"harmonicOsc: entropy {a['entropy'][0]:.5f} -> "
+          f"{a['entropy'][-1]:.5f}, largest distance from log(2 pi e) "
+          f"{drift:.4f} (5 SE {5 * se:.4f}; Liouville transport conserves "
+          f"it), grid integral on [-8, 8]^2 {integral:.5f}")
+    if not (drift < 5 * se and abs(integral - 1.0) < 0.05):
+        fail("harmonicOsc: entropy not conserved or mass lost")
+    _drive(["harmonicOsc_diff"], "harmonicOsc_diff", 20, dim=6)
+
+
 def main():
     phase_device()
     full_f32_matmuls()
@@ -756,6 +1114,23 @@ def main():
     phase_doublewell()
     results["syrk"] = phase_syrk(dev, state.get_parameters())
     launches["syrk"] = phase_syrk_paths(state.get_parameters())
+    student = phase_student_kernel(dev)
+    state, counts = phase_student_path()
+    paths = {"fokkerPlanck32": launches["persample"],
+             "fokkerPlanck32 Student-t + global affine": counts["persample"]}
+    phase_chunked_vs_f32(state.get_parameters(), syrk_too=False,
+                         latent_name="Student_t", global_affine=True)
+    paths["diffusion"] = phase_diffusion()
+    phase_anisotropic_and_oscillators()
+    scope = {"persample": "Gauss and Student_t latents, with and without "
+                          "the global affine (fokkerPlanck32 flows at "
+                          "P=9264 and P=9397, diffusion_anisotropic's)",
+             "persample_split": "Gauss and Student_t latents, with and "
+                                "without the global affine (P=9264, 9397)"}
+    for name in scope:
+        results[name] = dict(results[name], scope=scope[name],
+                             student_t_global_affine=student[name])
+    results["persample"]["launches_by_path"] = paths
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name],

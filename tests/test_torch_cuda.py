@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (vmc_pde_torch/kernels/csrc/persample.cu
-in plain and split mode, csrc/quant8.cu, csrc/metropolis.cu, csrc/syrk.cu)
+in plain and split mode, Gauss and Student-t latents, with and without the
+learned global affine; csrc/quant8.cu, csrc/metropolis.cu, csrc/syrk.cu)
 against their plain versions, on the card.
 
 These tests need a CUDA device and nvcc; without one they skip. They
@@ -46,12 +47,15 @@ def dev():
     return torch.device("cuda")
 
 
-def _case(dev, variant, dim, depth, hidden, n, out_scale, push, seed=3):
-    """Flow, perturbed theta and samples: latent draws pushed through the
-    flow (``push``), or the draws themselves as x."""
+def _case(dev, variant, dim, depth, hidden, n, out_scale, push, seed=3,
+          latent_name="Gauss", global_affine=False):
+    """Flow, perturbed theta (a Student-t nu and the global affine's
+    g_scale move off 2 and 1) and samples: standard normal draws pushed
+    through the flow (``push``), or the draws themselves as x."""
     flow, theta = build_flow(seed, dim, depth=depth, hidden=hidden,
-                             variant=variant, dtype=torch.float64,
-                             device=dev)
+                             variant=variant, latent_name=latent_name,
+                             global_affine=global_affine,
+                             dtype=torch.float64, device=dev)
     theta = perturb_theta(flow, theta, np.random.default_rng(seed),
                           out_scale=out_scale)
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -170,6 +174,41 @@ def test_split_kernel_matches_plain_fokker_planck32(dev):
     assert persample.per_sample_split_cuda.launches == before + 1
 
 
+@pytest.mark.parametrize("variant,ga,lat", [
+    ("scale", True, "Gauss"), ("affine", True, "Gauss"),
+    ("scale", False, "Student_t"), ("affine", False, "Student_t"),
+    ("affine", True, "Student_t"), ("additive", True, "Student_t"),
+    ("scale_shift", True, "Student_t")])
+def test_kernel_student_t_and_global_affine_small(dev, variant, ga, lat):
+    """The Student-t latent (the nu row, the s-scaled latent rows and jet
+    term) and the learned global affine (the g_scale and g_offset rows,
+    the scaled tangents), in plain and split mode, ragged batch of 77."""
+    flow, theta, x = _case(dev, variant, 6, 3, (3, 4), 77, out_scale=0.3,
+                           push=False, latent_name=lat, global_affine=ga)
+    assert persample.supports(flow, np.eye(6), None)
+    dirs = np.random.default_rng(2).standard_normal((4, 6))
+    _check(flow, theta, x, dirs)
+    _check_split(flow, theta, x, dirs)
+
+
+def test_kernel_student_t_global_affine_fokker_planck32(dev):
+    """fokkerPlanck32's flow with the Student-t latent and the global
+    affine (P=9397), ragged 1000, both modes, and one launch per call."""
+    flow, theta, x = _case(dev, "affine", 32, 4, (16,), 1000,
+                           out_scale=0.03, push=True, latent_name="Student_t",
+                           global_affine=True)
+    assert flow.layout.size == 9397
+    eq = make_equation("advection_hamiltonian_wDiss", 32, T=10.0,
+                       coupled=True)
+    before = (persample.per_sample_cuda.launches,
+              persample.per_sample_split_cuda.launches)
+    _check(flow, theta, x, eq.hessian_trace_dirs(32))
+    _check_split(flow, theta, x, eq.hessian_trace_dirs(32))
+    assert (persample.per_sample_cuda.launches,
+            persample.per_sample_split_cuda.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+
+
 @pytest.mark.parametrize("kv", [1, 2])
 def test_quant8_kernel_matches_plain(dev, kv):
     """q8 bit-identical to the plain quantization, with a zero row, ties at
@@ -212,6 +251,21 @@ def test_bf16_product_accumulates_at_f32_grade(dev):
     assert got.dtype == torch.float32
     assert float((got.double() - ref).abs().max()
                  / ref.abs().max()) < 1e-5
+
+
+@pytest.mark.parametrize("r,c,k", [(33, 9397, 64), (9, 11, 13)])
+def test_int8_product_at_sizes_cublaslt_refuses(dev, r, c, k):
+    """torch._int_mm on the card wants more than 16 rows and inner and
+    column sizes that are multiples of 8; _mm_int8 pads, so the int8 cross
+    term runs at P=9397 and gives the exact int32 product."""
+    gen = torch.Generator(device=dev).manual_seed(r)
+    a = torch.randint(-127, 128, (r, k), dtype=torch.int8, device=dev,
+                      generator=gen)
+    b = torch.randint(-127, 128, (c, k), dtype=torch.int8, device=dev,
+                      generator=gen)
+    got = stats._mm_int8(a, b)
+    assert got.shape == (r, c)
+    assert torch.equal(got.cpu(), (a.cpu().long() @ b.cpu().long().T).int())
 
 
 def test_metropolis_kernel_matches_plain(dev):

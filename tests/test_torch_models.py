@@ -43,13 +43,15 @@ def block_tuples(jflow):
 
 
 def parity_flow(variant, dim=4, depth=2, hidden=(3,), seed=5,
-                out_scale=0.3, offset=None, latent_name="Gauss"):
+                out_scale=0.3, offset=None, latent_name="Gauss",
+                global_affine=False):
     """(jflow, jparams, flow, theta): the same f64 flow in both packages.
     Output-layer weights are U[-out_scale, out_scale] instead of the
     init's 1e-5, so the nonlinear parts of the flow are exercised."""
     jflow, jparams = jax_build_flow(seed, dim, depth=depth, hidden=hidden,
                                     variant=variant, offset=offset,
                                     latent_name=latent_name,
+                                    global_affine=global_affine,
                                     dtype=jnp.float64)
     flow, theta = from_jax(block_tuples(jflow),
                            jax.tree.map(np.asarray, jparams), offset=offset,

@@ -27,6 +27,7 @@ import torch
 
 from test_torch_models import normal, parity_flow, rel_err, t64
 from vmc_pde_torch import driver
+from vmc_pde_torch.config import preset
 from vmc_pde_torch.models.state import VarState
 from vmc_pde_torch.ops import evolution
 from vmc_pde_torch.sampling.sampler import Sampler
@@ -76,17 +77,39 @@ def test_eloc_matches_jax(name, params):
 
 def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evolution.make_equation("diffusion_drift", 2)
+        driver.build_problem(preset("mwe", device="cpu",
+                                    stepper="adaptive_heun"))
     _, _, flow, theta = parity_flow("scale", dim=DIM)
     state = VarState(flow, theta, sampler=Sampler(DIM, dtype=torch.float64),
                      precision=Precision.f64_everywhere())
     eq = evolution.make_equation("diffusion", DIM)
-    for cfg in (TDVPConfig(is_gamma=0.5),
+    for cfg in (TDVPConfig(solver_method="minsr"),
                 TDVPConfig(solver_method="cg"),
                 TDVPConfig(gram_precision="f64acc", chunk_size=4),
                 TDVPConfig(hessian_mode="block")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TDVP(state, eq, cfg, n_samples=8)
+
+
+@pytest.mark.parametrize("latent_name,cfg,match", [
+    ("Gauss", dict(is_gamma=0.5), "Student_t"),
+    ("Student_t", dict(is_gamma=0.5, chunk_size=4), "direct"),
+    ("Student_t", dict(is_gamma=1.5), "0, 1"),
+    ("Gauss", dict(eloc_clip=3.0, chunk_size=4), "chunk_size=0"),
+    ("Gauss", dict(eloc_clip=-1.0), ">= 0"),
+])
+def test_is_gamma_and_eloc_clip_refusals(latent_name, cfg, match):
+    """The JAX package's ValueErrors: importance tempering needs the exact
+    Student-t latent, the direct statistics and a gamma in (0, 1);
+    E_loc clipping the direct statistics and a nonnegative width."""
+    _, _, flow, theta = parity_flow("scale", dim=DIM,
+                                    latent_name=latent_name)
+    state = VarState(flow, theta,
+                     sampler=Sampler(DIM, latent_name, dtype=torch.float64),
+                     precision=Precision.f64_everywhere())
+    with pytest.raises(ValueError, match=match):
+        TDVP(state, evolution.make_equation("diffusion", DIM),
+             TDVPConfig(**cfg), n_samples=8)
 
 
 def _port_tdvp(flow, theta, **cfg):

@@ -1,5 +1,5 @@
-"""Experiment configuration, the counterpart of vmc_pde_tpu/config.py for
-the ported presets. Field names and defaults follow the JAX package's
+"""Experiment configuration, the counterpart of vmc_pde_tpu/config.py:
+all of its presets. Field names and defaults follow the JAX package's
 RunConfig; fields of paths not ported yet are left out, and ``device``
 is new: the port runs on one explicit torch device.
 """
@@ -45,6 +45,12 @@ class RunConfig:
     use_snr: bool = False
     snr_tol: float = 2.0
     svd_tol: float = 1e-11
+    # > 0: winsorize Eloc at this many robust (MAD) sigmas (direct
+    # statistics only; solver/tdvp.py _maybe_clip_eloc)
+    eloc_clip: float = 0.0
+    # < 1: tail-tempered importance sampling of the TDVP statistics batch
+    # (Student_t latent; TDVPConfig.is_gamma)
+    is_gamma: float = 1.0
     diagonal_shift: float = 0.0
     solver_method: str = "auto"     # auto | eigh | cholesky
     eigh_max_params: int = 2048
@@ -88,6 +94,33 @@ PRESETS = {
         name="mwe", dim=2, offset=(0.0, 0.0), latent_name="Gauss",
         equation="diffusion", variant="scale",
         dt0=1e-7, max_step=1e-2, grid_bound=10.0,
+    ),
+    # Liouville transport of a 2-D Gaussian by the harmonic oscillator's
+    # symplectic flow (no Hessian)
+    "harmonicOsc": RunConfig(
+        name="harmonicOsc", dim=2, offset=(1.0, 1.0), latent_name="Gauss",
+        equation="advection_hamiltonian", variant="affine",
+        dt0=1e-4, max_step=1e-2, grid_bound=8.0,
+    ),
+    # phase-space Fokker-Planck of three uncoupled oscillators (d=6)
+    "harmonicOsc_diff": RunConfig(
+        name="harmonicOsc_diff", dim=6,
+        offset=(1.0, 0.0, 0.0, 1.0, 0.0, 0.0), latent_name="Gauss",
+        equation="advection_hamiltonian_wDiss", variant="affine",
+        dt0=1e-4, max_step=1e-2, grid_bound=8.0,
+    ),
+    # the reference's d=8 diffusion of a Student-t density (nu = 2 at t=0)
+    "diffusion": RunConfig(
+        name="diffusion", dim=8, offset=(0.0,) * 8, latent_name="Student_t",
+        equation="diffusion", variant="scale",
+        dt0=1e-7, max_step=1e-2, grid_bound=10.0,
+    ),
+    # d=12 anisotropic diffusion div(D grad p), D the JAX package's random
+    # SPD matrix of seed 0
+    "diffusion_anisotropic": RunConfig(
+        name="diffusion_anisotropic", dim=12, offset=(0.0,) * 12,
+        latent_name="Gauss", equation="diffusion_anisotropic",
+        variant="scale", dt0=1e-7, max_step=1e-2, grid_bound=10.0,
     ),
     # the ML-fluids paper's advection of a cosine bump by a time-periodic
     # swirl on [0, 1]^2 (Metropolis sampling, independence proposals)

@@ -7,7 +7,12 @@ the reference-compatible infos schema.
         --chunk-size 65536 --gram-backend tri2 --gram-cross int8
     python -m vmc_pde_torch.driver fokkerPlanck32 --gram-backend syrk
     python -m vmc_pde_torch.driver fluidpaper --max-steps 20
+    python -m vmc_pde_torch.driver diffusion --is-gamma 0.5
     python -m vmc_pde_torch.driver mwe --precision f64 --device cpu
+
+The latent family and the learned global affine have no flags, as in the
+JAX package: ``run(preset("fokkerPlanck32", latent_name="Student_t",
+global_affine=True))``.
 
 ``--device`` defaults to cuda and raises when no CUDA device is present;
 pass ``--device cpu`` to run on the CPU.
@@ -59,6 +64,7 @@ def build_problem(cfg: RunConfig):
     equation = make_equation(cfg.equation, cfg.dim, **cfg.equation_params)
     tdvp_cfg = TDVPConfig(
         use_snr=cfg.use_snr, snr_tol=cfg.snr_tol, svd_tol=cfg.svd_tol,
+        eloc_clip=cfg.eloc_clip, is_gamma=cfg.is_gamma,
         diagonal_shift=cfg.diagonal_shift, solver_method=cfg.solver_method,
         eigh_max_params=cfg.eigh_max_params,
         gram_precision=cfg.gram_precision,
@@ -186,6 +192,9 @@ def main(argv=None, callbacks=()):
                         "per-column-quantized int8 product)")
     p.add_argument("--chunk-size", type=int, default=None,
                    help=">0: stream samples through the stats in chunks")
+    p.add_argument("--is-gamma", type=float, default=None,
+                   help="<1: tail-tempered importance sampling of the TDVP "
+                        "statistics (Student_t latent; TDVPConfig.is_gamma)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; raises without one)")
     args = p.parse_args(argv)
@@ -202,7 +211,7 @@ def main(argv=None, callbacks=()):
         overrides["workdir"] = args.workdir
     if args.per_sample_backend is not None:
         overrides["per_sample_backend"] = args.per_sample_backend
-    for name in ("gram_backend", "gram_cross", "chunk_size"):
+    for name in ("gram_backend", "gram_cross", "chunk_size", "is_gamma"):
         if getattr(args, name) is not None:
             overrides[name] = getattr(args, name)
     return run(preset(args.mode, **overrides), max_steps=args.max_steps,

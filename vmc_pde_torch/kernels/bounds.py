@@ -26,14 +26,22 @@ def bound_ms(n_bytes, n_ops, ops_rate=F32_FLOP_S):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def persample_flops(layers, dim, k_dirs):
+def persample_flops(layers, dim, k_dirs, n_ga=0):
     """Scalar f32 operations of one sample of the per-sample kernel,
     counted from the conditioners' (in, out) layer shapes: 2 in out
     forward, 3 in out backward (the weight rows and the input cotangent)
     and 4 in out per trace direction for the two jet tangents; the latent's
-    d x d products likewise."""
+    d x d products likewise; each of ``n_ga`` global affines 2 dim forward,
+    3 dim backward and 2 dim per direction. The Student-t latent adds a
+    few operations per sample and per direction, not counted."""
     per = sum((5 + 4 * k_dirs) * a * b for a, b in layers)
+    per += n_ga * (5 + 2 * k_dirs) * dim
     return per + (4.5 + 4 * k_dirs) * dim**2
+
+
+def flow_ga(flow):
+    """Number of blocks of a port Flow with the learned global affine."""
+    return sum(spec.global_affine for spec in flow.blocks)
 
 
 def flow_layers(flow):
@@ -47,13 +55,13 @@ def flow_layers(flow):
     return out
 
 
-def persample(layers, dim, P, n, k_dirs, split=False):
+def persample(layers, dim, P, n, k_dirs, split=False, n_ga=0):
     """The per-sample kernel at n samples: x and theta in; logp, g, quad
     and the (P, n) f32 O out -- or, split, the shift in and the bf16 pair
     and the two (P,) column statistics out."""
     n_bytes = 4 * (n * dim + P + n + n * dim + n)
     n_bytes += 4 * 2 * P + 2 * 2 * P * n if split else 4 * P * n
-    return bound_ms(n_bytes, n * persample_flops(layers, dim, k_dirs))
+    return bound_ms(n_bytes, n * persample_flops(layers, dim, k_dirs, n_ga))
 
 
 def quant8(P, n, kv):
@@ -90,9 +98,16 @@ def fokker_planck32():
 
 def main():
     layers, d, P, k = fokker_planck32()
+    # the same flow with a Student-t latent (+1 row) and the global affine
+    # in each of its 4 blocks (+33 rows each): P = 9397
+    P_t = P + 1 + 4 * (d + 1)
     rows = [
         ("make_per_sample_pallas, plain mode (N=16384)",
          persample(layers, d, P, 16384, k)),
+        ("same, Student-t + global affine (N=16384, P=9397)",
+         persample(layers, d, P_t, 16384, k, n_ga=4)),
+        ("same, emit_split, Student-t + global affine (N=65536, P=9397)",
+         persample(layers, d, P_t, 65536, k, split=True, n_ga=4)),
         ("make_per_sample_pallas, plain mode, pilot (N=2048)",
          persample(layers, d, P, 2048, k)),
         ("make_per_sample_pallas, emit_split (N=65536)",

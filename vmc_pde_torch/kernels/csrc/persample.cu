@@ -4,9 +4,24 @@
 //
 // Replaces the TPU kernel vmc_pde_tpu/kernels/persample.py::
 // make_per_sample_pallas in plain mode, and computes the mathematics of its
-// reference functions _forward (forward flow and Gauss latent), _backward
-// (hand-written parameter and coordinate backward) and _tile_quad_jet
-// (second-order jets: one (value, first, second) triple per direction).
+// reference functions _forward (forward flow, Gauss or Student-t latent),
+// _backward (hand-written parameter and coordinate backward) and
+// _tile_quad_jet (second-order jets: one (value, first, second) triple per
+// direction), for every coupling variant with or without the learned
+// global affine.
+//
+// Student-t latent: the two theta-only scalars the TPU kernel takes from
+// outside (student_t_consts: nu, c0 = lgam((nu+d)/2) - lgam(nu/2) -
+// d/2 log(nu pi), dg = (psi((nu+d)/2) - psi(nu/2))/2 - d/(2 nu)) ride in
+// fconst, so the kernel never evaluates lgamma or digamma. Per sample,
+// logp = c0 - sum L_diag - (nu+d)/2 log1p(q/nu) + logjac; every
+// q-derived gradient scales by s = (nu+d)/(nu+q), and the nu row is
+// (nu-1)(dg - log1p(q/nu)/2 + s q/(2 nu)).
+// Global affine (per block, after the coupling): z = g ym + g_offset,
+// logjac += d log g; the backward writes the g row sum(ym zbar) + d/g and
+// the g_offset rows zbar, then continues with g zbar; the jets' tangents
+// scale by g. ym is recomputed from the saves (v1 is its up half, the down
+// half couple(u2, s1(v1), t1(v1))), so it costs no saves.
 //
 // Bound on the card: the (P, N) f32 O store -- 607 MB per right-hand side at
 // P = 9264, N = 16384 -- against ~5 GFLOP of scalar f32 work, mostly the 16
@@ -45,7 +60,9 @@ constexpr int MAX_HALF = 32;
 constexpr int MAX_WIDTH = 64;
 constexpr int MAX_LAYERS = 4;
 constexpr int NET_REC = 5 * MAX_LAYERS;
-constexpr int BLOCK_REC = 8 + 4 * NET_REC + 2 * MAX_HALF;
+constexpr int BLOCK_REC = 8 + 4 * NET_REC + 2 * MAX_HALF + 2;
+// slot of a block record holding the g_scale and g_offset offsets
+constexpr int GA_REC = 8 + 4 * NET_REC + 2 * MAX_HALF;
 constexpr int THREADS = 64;
 
 enum Variant { ADDITIVE = 0, AFFINE = 1, SCALE = 2, SCALE_SHIFT = 3 };
@@ -295,10 +312,14 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
 
   const int d = meta[0], nb = meta[1], k_dirs = meta[2];
   const int off_L = meta[4], off_ld = meta[5], off_mu = meta[6];
+  const bool student = meta[8] != 0;
+  const int off_dp = meta[9];
   const float* W = fc;  // U^{-1}, row-major (d, d)
   const float* offset = W + d * d;
   const float* dirs = offset + d;
   const float* alphas = dirs + k_dirs * d;
+  // Student-t: nu, c0, dg (computed from theta by the wrapper)
+  const float nu = student ? alphas[nb] : 0.f;
   const Sample<SPLIT> S{saves, O, O_hi, O_lo, shift, psum, pmax,
                         (size_t)gridDim.x * blockDim.x, (size_t)N, n,
                         n / 32, P, valid};
@@ -330,9 +351,15 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
       if (variant != ADDITIVE) logjac += sv[i];
     }
     for (int i = 0; i < n_up; ++i) z[up[i]] = v1[i];
+    if (blk[7]) {  // global affine
+      const float g = th[blk[GA_REC]];
+      const float* g_off = th + blk[GA_REC + 1];
+      for (int i = 0; i < d; ++i) z[i] = fmaf(g, z[i], g_off[i]);
+      logjac += d * logf(g);
+    }
   }
 
-  // ---- Gauss latent: y = W (z - offset - mu), q = |y|^2
+  // ---- latent: y = W (z - offset - mu), q = |y|^2
   float y[MAX_DIM];
   float q = 0.f, sum_ld = 0.f;
   for (int i = 0; i < d; ++i) {
@@ -343,19 +370,24 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
     q = fmaf(acc, acc, q);
     sum_ld += th[off_ld + i];
   }
+  // Student-t: dlogp/dq = -s/2 with s = (nu+d)/(nu+q) (Gauss: s = 1)
+  const float l1q = student ? log1pf(q / nu) : 0.f;
+  const float s_t = student ? (nu + d) / (nu + q) : 1.f;
   if (valid)
-    logp_out[n] =
-        -0.5f * (d * 1.8378770664093453f + 2.f * sum_ld + q) + logjac;
+    logp_out[n] = student
+        ? alphas[nb + 1] - sum_ld - 0.5f * (nu + d) * l1q + logjac
+        : -0.5f * (d * 1.8378770664093453f + 2.f * sum_ld + q) + logjac;
 
-  // ---- backward. Latent: dlogp/dU[i,j] = (W^T y)_i y_j,
-  // dlogp/dL_diag_i = (W^T y)_i y_i exp(L_diag_i) - 1, dlogp/dmu = W^T y,
-  // dlogp/dz = -W^T y.
+  // ---- backward. Latent (Gauss; Student-t scales each q-derived term by
+  // s): dlogp/dU[i,j] = (W^T y)_i y_j, dlogp/dL_diag_i =
+  // (W^T y)_i y_i exp(L_diag_i) - 1, dlogp/dmu = W^T y, dlogp/dz = -W^T y.
   float zbar[MAX_DIM];
   {
     float wty[MAX_DIM];
     for (int i = 0; i < d; ++i) {
       float acc = 0.f;
       for (int j = 0; j < d; ++j) acc = fmaf(W[j * d + i], y[j], acc);
+      acc *= s_t;
       wty[i] = acc;
       zbar[i] = -acc;
       S.o(off_mu + i, acc);
@@ -364,6 +396,9 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
     int k = off_L;  // strictly-upper entries in row-major (triu) order
     for (int i = 0; i < d; ++i)
       for (int j = i + 1; j < d; ++j) S.o(k++, wty[i] * y[j]);
+    if (student)
+      S.o(off_dp, (nu - 1.f) * (alphas[nb + 2] - 0.5f * l1q
+                                + s_t * q / (2.f * nu)));
   }
   for (int b = nb - 1; b >= 0; --b) {
     const int* blk = meta + HDR + b * BLOCK_REC;
@@ -376,14 +411,29 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
     for (int i = 0; i < n_up; ++i) {
       u1[i] = S.sv(blk[4] + i);
       v1[i] = S.sv(blk[6] + i);
-      v1bar[i] = zbar[up[i]];
     }
-    for (int i = 0; i < n_down; ++i) {
-      u2[i] = S.sv(blk[5] + i);
-      v2bar[i] = zbar[down[i]];
-    }
-    // v2 = couple(u2, s1(v1), t1(v1))
+    for (int i = 0; i < n_down; ++i) u2[i] = S.sv(blk[5] + i);
     net_out(blk, S1, nl, alpha, sv, S);
+    if (blk[7]) {
+      // global affine z = g ym + g_offset: g row sum(ym zbar) + d/g,
+      // g_offset rows zbar, then ym's cotangent g zbar. ym's down half is
+      // recomputed from the saves as the forward made it
+      if (variant == AFFINE) net_out(blk, T1, nl, alpha, tv, S);
+      const float g = th[blk[GA_REC]];
+      float acc = 0.f;
+      for (int i = 0; i < n_up; ++i) acc = fmaf(v1[i], zbar[up[i]], acc);
+      for (int i = 0; i < n_down; ++i)
+        acc = fmaf(couple_fwd(variant, u2[i], sv[i], tv[i]), zbar[down[i]],
+                   acc);
+      S.o(blk[GA_REC], acc + d / g);
+      for (int i = 0; i < d; ++i) {
+        S.o(blk[GA_REC + 1] + i, zbar[i]);
+        zbar[i] *= g;
+      }
+    }
+    for (int i = 0; i < n_up; ++i) v1bar[i] = zbar[up[i]];
+    for (int i = 0; i < n_down; ++i) v2bar[i] = zbar[down[i]];
+    // v2 = couple(u2, s1(v1), t1(v1))
     couple_bwd(variant, n_down, v2bar, u2, sv, sbar, tbar, ubar);
     mlp_bwd(blk, S1, nl, th, alpha, v1, sbar, v1bar, S);
     if (variant == AFFINE) mlp_bwd(blk, T1, nl, th, alpha, v1, tbar, v1bar, S);
@@ -451,18 +501,35 @@ __global__ void __launch_bounds__(THREADS) persample_kernel(
         z1[down[i]] = a1[i];
         z2[down[i]] = a2[i];
       }
+      if (blk[7]) {
+        const float g = th[blk[GA_REC]];
+        for (int i = 0; i < d; ++i) {
+          z1[i] *= g;
+          z2[i] *= g;
+        }
+      }
     }
-    // logp'' = -(|y'|^2 + y . y'') + logjac'' with y' = W z', y'' = W z''
-    float q2 = 0.f;
+    // with y' = W z', y'' = W z'': q' = 2 q1, q'' = 2 q2 below. Gauss:
+    // logp'' = -q''/2 + logjac''. Student-t: logp = f(q) + ..., f' = -h1,
+    // f'' = h1 / (nu (1 + q/nu)), h1 = (nu+d) / (2 nu (1 + q/nu))
+    float q1 = 0.f, q2 = 0.f;
     for (int i = 0; i < d; ++i) {
       float p1 = 0.f, p2 = 0.f;
       for (int k = 0; k < d; ++k) {
         p1 = fmaf(W[i * d + k], z1[k], p1);
         p2 = fmaf(W[i * d + k], z2[k], p2);
       }
+      q1 = fmaf(y[i], p1, q1);
       q2 += p1 * p1 + y[i] * p2;
     }
-    quad += lj2 - q2;
+    if (student) {
+      const float onepu = 1.f + q / nu;
+      const float h1 = 0.5f * (nu + d) / nu / onepu;
+      const float h2 = h1 / nu / onepu;
+      quad += lj2 - (h1 * 2.f * q2 - h2 * 4.f * q1 * q1);
+    } else {
+      quad += lj2 - q2;
+    }
   }
   if (valid) quad_out[n] = quad;
 }
@@ -508,7 +575,8 @@ int launch(const float* x, const float* theta, const float* fconst,
 
 // C entry points: launch on ``stream`` and return cudaGetLastError() (0 on
 // success). x (N, d) row-major; theta (P,); fconst = [W (d*d), offset (d),
-// dirs (k*d), alphas (n_blocks)]; meta the block plan. Outputs: logp (N,),
+// dirs (k*d), alphas (n_blocks), and for Student-t nu, c0, dg]; meta the
+// block plan. Outputs: logp (N,),
 // g (d, N), quad (N,) (may be null when the plan has no directions), and O
 // (P, N) f32 -- or, split, O_hi and O_lo (P, N) bf16 of O - shift, colsum
 // and colmax (P,). Scratch: saves (n_saves, ceil(N / 64) * 64) and, split,

@@ -5,7 +5,13 @@ quadratic trace and the O row, for a batch of samples.
 csrc/persample.cu. It replaces the TPU kernel
 vmc_pde_tpu/kernels/persample.py::make_per_sample_pallas in plain mode
 (f32 O), and computes the same mathematics as its reference functions
-``_forward``, ``_backward`` and ``_tile_quad_jet``. ``per_sample_plain``
+``_forward``, ``_backward`` and ``_tile_quad_jet``, for the Gauss and the
+Student-t latent and every coupling variant with or without the learned
+global affine. Student-t's three theta-only scalars [nu, c0, dg] (the TPU
+wrapper's ``student_t_consts``) are computed here on the device, with
+``torch.lgamma``/``torch.digamma``, and handed in with the other
+constants: no host synchronization, no special functions in the kernel.
+``per_sample_plain``
 is the torch.func pipeline of ops/score.py with the same signature.
 ``per_sample`` takes the plain version only for a tensor on the CPU; for
 a CUDA tensor it launches the kernel or raises.
@@ -46,14 +52,17 @@ The TPU layout tricks are not carried over: no bf16 hi/lo split matmuls
 (plain f32 FMAs), no 0/1 selection matrices (direct indexing), no fused
 (s, t) conditioner pair, no outer-product relayouts.
 
-Scope (``supports``): Gauss latent, all four coupling variants, no global
-affine, trace-mode Hessians, f32, dim <= 64, layer widths <= 64, at most
+Scope (``supports``): the JAX kernel's -- Gauss or Student-t latent, any
+coupling variant, the global affine allowed, trace-mode Hessians -- within
+the port's own limits: f32, dim <= 64, each coupling half <= 32
+coordinates, layer widths <= 64, at most
 MAX_LAYERS linear layers per conditioner, and shared memory within the
 card's 227 KB per block.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
@@ -70,16 +79,18 @@ MAX_HALF = 32
 MAX_WIDTH = 64
 MAX_LAYERS = 4
 NET_REC = 5 * MAX_LAYERS
-BLOCK_REC = 8 + 4 * NET_REC + 2 * MAX_HALF
+GA_REC = 8 + 4 * NET_REC + 2 * MAX_HALF  # g_scale, g_offset offsets
+BLOCK_REC = GA_REC + 2
 NETS = ("s1", "s2", "t1", "t2")
 VARIANT_CODES = {"additive": 0, "affine": 1, "scale": 2, "scale_shift": 3}
+LATENT_CODES = {"Gauss": 0, "Student_t": 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 THREADS = 64  # threads per block of the kernel (csrc/persample.cu)
 
 
 def _smem_bytes(flow, n_dirs: int) -> int:
     d = flow.dim
-    n_fconst = d * d + d + n_dirs * d + len(flow.blocks)
+    n_fconst = d * d + d + n_dirs * d + len(flow.blocks) + 3
     n_meta = HDR + len(flow.blocks) * BLOCK_REC
     return 4 * (flow.layout.size + n_fconst + n_meta)
 
@@ -88,13 +99,13 @@ def supports(flow, hess_dirs: Optional[np.ndarray], hess_idx) -> bool:
     """Static capability check for the CUDA kernel."""
     n_dirs = 0 if hess_dirs is None else int(np.shape(hess_dirs)[0])
     return (
-        flow.latent_name == "Gauss"
+        flow.latent_name in LATENT_CODES
         and (hess_idx is None or hess_dirs is not None)  # trace mode only
         and flow.dim <= MAX_DIM
-        and all(not s.global_affine
-                and len(s.hidden) + 1 <= MAX_LAYERS
+        and all(len(s.hidden) + 1 <= MAX_LAYERS
                 and max((*s.hidden, len(s.ind_up), len(s.ind_down)))
                 <= MAX_WIDTH
+                and max(len(s.ind_up), len(s.ind_down)) <= MAX_HALF
                 for s in flow.blocks)
         and _smem_bytes(flow, n_dirs) <= SMEM_LIMIT
     )
@@ -105,11 +116,14 @@ def block_plan(flow, n_dirs: int):
     csrc/persample.cu reads, and the number of f32 saves per sample.
 
     meta[:HDR] = d, n_blocks, n_dirs, P, offset of latent L, of L_diag,
-    of mu, n_saves. Then one BLOCK_REC record per block: variant, n_up,
-    n_down, n_layers, save offsets of u1, u2 and v1, a pad slot; for each
-    net (s1, s2, t1, t2) and layer: in, out, bias offset, weight offset
-    and save offset of the layer's tanh output; then ind_up and ind_down,
-    each padded to MAX_HALF."""
+    of mu, n_saves, the latent's code (LATENT_CODES), offset of
+    dist_params (Student-t's nu row; 0 otherwise). Then one BLOCK_REC
+    record per block: variant, n_up, n_down, n_layers, save offsets of u1,
+    u2 and v1, a global-affine flag; for each net (s1, s2, t1, t2) and
+    layer: in, out, bias offset, weight offset and save offset of the
+    layer's tanh output; then ind_up and ind_down, each padded to
+    MAX_HALF; then, at GA_REC, the offsets of g_scale and g_offset (0
+    without the global affine)."""
     lay = flow.layout
     nb = len(flow.blocks)
     meta = np.zeros(HDR + nb * BLOCK_REC, dtype=np.int32)
@@ -139,9 +153,18 @@ def block_plan(flow, n_dirs: int):
         ind = r + 8 + 4 * NET_REC
         meta[ind:ind + n_up] = spec.ind_up
         meta[ind + MAX_HALF:ind + MAX_HALF + n_down] = spec.ind_down
-    meta[:8] = (flow.dim, nb, n_dirs, lay.size,
-                lay.offset(("latent", "L")), lay.offset(("latent", "L_diag")),
-                lay.offset(("latent", "mu")), n_sv)
+        if spec.global_affine:
+            meta[r + 7] = 1
+            meta[r + GA_REC:r + GA_REC + 2] = (
+                lay.offset(("blocks", b, "g_scale")),
+                lay.offset(("blocks", b, "g_offset")))
+    student = flow.latent_name == "Student_t"
+    meta[:10] = (flow.dim, nb, n_dirs, lay.size,
+                 lay.offset(("latent", "L")),
+                 lay.offset(("latent", "L_diag")),
+                 lay.offset(("latent", "mu")), n_sv,
+                 LATENT_CODES[flow.latent_name],
+                 lay.offset(("latent", "dist_params")) if student else 0)
     return meta, n_sv
 
 
@@ -192,8 +215,26 @@ def _launch_inputs(flow, theta, x, dirs):
                                      device=dev).reshape(-1))
     parts.append(torch.as_tensor([s.alpha for s in flow.blocks],
                                  dtype=torch.float32, device=dev))
+    if flow.latent_name == "Student_t":
+        parts.append(student_t_consts(flow, theta))
     fconst = torch.cat(parts).contiguous()
     return x, theta, fconst, meta, n_sv, n_dirs
+
+
+def student_t_consts(flow, theta):
+    """[nu, c0, dg] of a Student-t flow, on theta's device and in its
+    dtype (the TPU wrapper's student_t_consts): nu = exp(dist_params[0]) +
+    1, c0 = lgam((nu+d)/2) - lgam(nu/2) - d/2 log(nu pi) and dg =
+    (psi((nu+d)/2) - psi(nu/2))/2 - d/(2 nu), so that the kernel's logp is
+    c0 - sum L_diag - (nu+d)/2 log1p(q/nu) + logjac and its nu row
+    (nu-1)(dg - log1p(q/nu)/2 + s q/(2 nu)). Device tensor ops only."""
+    d = flow.dim
+    nu = latent.nu_value(flow.layout.unravel(theta)["latent"])
+    half = 0.5 * (nu + d)
+    c0 = (torch.lgamma(half) - torch.lgamma(0.5 * nu)
+          - 0.5 * d * torch.log(nu * math.pi))
+    dg = 0.5 * (torch.digamma(half) - torch.digamma(0.5 * nu)) - 0.5 * d / nu
+    return torch.stack([nu, c0, dg])
 
 
 def _padded(n: int) -> int:

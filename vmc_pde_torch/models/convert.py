@@ -24,14 +24,18 @@ def from_jax(blocks: Iterable[Tuple], params_np,
              latent_name: str = "Gauss"):
     """(Flow, theta) from the JAX package's per-block
     ``(ind_up, ind_down, variant, hidden, alpha)``, its parameter pytree
-    with numpy leaves and its latent family (the ported ones: Gauss,
-    cos_dist, double_well; the last two have empty ``dist_params``)."""
+    with numpy leaves and its latent family. A block whose parameters hold
+    ``g_scale`` carries the learned global affine (``g_scale``,
+    ``g_offset``); a Student-t latent carries its raw degrees of freedom in
+    ``dist_params`` (empty for the other latents)."""
     specs = tuple(
         coupling.BlockSpec(ind_up=tuple(int(i) for i in up),
                            ind_down=tuple(int(i) for i in down),
                            hidden=tuple(int(h) for h in hidden),
-                           variant=variant, alpha=float(alpha))
-        for up, down, variant, hidden, alpha in blocks
+                           variant=variant, alpha=float(alpha),
+                           global_affine="g_scale" in p)
+        for (up, down, variant, hidden, alpha), p in zip(
+            blocks, params_np["blocks"])
     )
     dim = specs[0].dim
     flow = Flow(dim=dim, blocks=specs, latent_name=latent_name,

@@ -7,10 +7,11 @@ the counterpart of vmc_pde_tpu/models/coupling.py. All four variants:
 - ``scale_shift``: v = u * exp(s) + s      log|J| = sum s
 
 Each block transforms the ind_up half conditioned on the ind_down half,
-then the ind_down half conditioned on the new ind_up half. Functions take
-batches of shape (..., dim), so the same code serves a whole batch and a
-single sample under ``torch.func.vmap``. The learned global affine of the
-JAX package is not ported yet (ROADMAP.md).
+then the ind_down half conditioned on the new ind_up half. With
+``global_affine`` the block ends with a learned affine map of all
+coordinates, z = g_scale y + g_offset (one scalar scale, log|J| += dim
+log g_scale). Functions take batches of shape (..., dim), so the same code
+serves a whole batch and a single sample under ``torch.func.vmap``.
 """
 
 from __future__ import annotations
@@ -44,9 +45,6 @@ class BlockSpec:
             raise ValueError(f"unknown coupling variant {self.variant!r}")
         if set(self.ind_up) & set(self.ind_down):
             raise ValueError("ind_up and ind_down overlap")
-        if self.global_affine:
-            raise NotImplementedError(
-                "the learned global affine is not ported yet (ROADMAP.md)")
 
     @property
     def dim(self) -> int:
@@ -76,13 +74,22 @@ class BlockSpec:
 
 
 def init(rng: np.random.Generator, spec: BlockSpec):
-    """Numpy parameter dict {'s1', 's2'[, 't1', 't2']}."""
-    return {net: mlp.init(rng, *_io(spec, net), spec.out_scale)
-            for net in spec.nets}
+    """Numpy parameter dict {'s1', 's2'[, 't1', 't2'][, 'g_scale' = 1,
+    'g_offset' = 0]}."""
+    params = {net: mlp.init(rng, *_io(spec, net), spec.out_scale)
+              for net in spec.nets}
+    if spec.global_affine:
+        params["g_scale"] = np.ones((1,))
+        params["g_offset"] = np.zeros((spec.dim,))
+    return params
 
 
 def shapes(spec: BlockSpec):
-    return {net: mlp.shapes(*_io(spec, net)) for net in spec.nets}
+    out = {net: mlp.shapes(*_io(spec, net)) for net in spec.nets}
+    if spec.global_affine:
+        out["g_scale"] = (1,)
+        out["g_offset"] = (spec.dim,)
+    return out
 
 
 def _io(spec, net):
@@ -132,13 +139,21 @@ def forward(params, spec: BlockSpec, x):
     s1 = mlp.apply(params["s1"], v1, spec.alpha)
     t1 = mlp.apply(params["t1"], v1, spec.alpha) if affine else None
     v2, lj2 = _couple_fwd(u2, s1, t1, spec.variant)
-    return _merge(spec, v1, v2), lj1.sum(-1) + lj2.sum(-1)
+    y, log_jac = _merge(spec, v1, v2), lj1.sum(-1) + lj2.sum(-1)
+    if spec.global_affine:
+        y = params["g_scale"] * y + params["g_offset"]
+        log_jac = log_jac + spec.dim * params["g_scale"][0].log()
+    return y, log_jac
 
 
 def inverse(params, spec: BlockSpec, y):
     """Latent -> real half-step; exact inverse of ``forward``. The returned
     log-Jacobian is the negative of the forward one."""
     affine = spec.variant == "affine"
+    lj_g = 0.0
+    if spec.global_affine:
+        y = (y - params["g_offset"]) / params["g_scale"]
+        lj_g = spec.dim * params["g_scale"][0].log()
     v1, v2 = _split(spec, y)
     s1 = mlp.apply(params["s1"], v1, spec.alpha)
     t1 = mlp.apply(params["t1"], v1, spec.alpha) if affine else None
@@ -146,4 +161,4 @@ def inverse(params, spec: BlockSpec, y):
     s2 = mlp.apply(params["s2"], u2, spec.alpha)
     t2 = mlp.apply(params["t2"], u2, spec.alpha) if affine else None
     u1, lj1 = _couple_inv(v1, s2, t2, spec.variant)
-    return _merge(spec, u1, u2), -(lj1.sum(-1) + lj2.sum(-1))
+    return _merge(spec, u1, u2), -lj_g - (lj1.sum(-1) + lj2.sum(-1))

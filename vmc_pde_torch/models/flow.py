@@ -39,7 +39,7 @@ class Flow:
             object.__setattr__(self, "offset", (0.0,) * self.dim)
         if len(self.offset) != self.dim:
             raise ValueError("offset length != dim")
-        latent.check_ported(self.latent_name)
+        latent.check_name(self.latent_name)
 
     @functools.cached_property
     def layout(self) -> Layout:
@@ -96,6 +96,17 @@ class Flow:
         z = latent.sample(self.latent_name, gen, params["latent"], self.dim,
                           n, dtype)
         return z + self._offset(z)
+
+    def latent_sample_tempered(self, gen: torch.Generator, params, n: int,
+                               gamma: float, dtype: torch.dtype):
+        """(z, log_w) from the tail-tempered Student-t importance proposal
+        (latent.student_t_tempered_sample); the offset shifts target and
+        proposal alike, so the weights do not change."""
+        if self.latent_name != "Student_t":
+            raise ValueError("tempered sampling is a Student_t feature")
+        z, log_w = latent.student_t_tempered_sample(
+            gen, params["latent"], self.dim, n, gamma, dtype)
+        return z + self._offset(z), log_w
 
 
 def perturb_theta(flow: Flow, theta: torch.Tensor, rng: np.random.Generator,

@@ -6,9 +6,11 @@ cuts it into the JAX package's nested parameter dict as views, so a
 function of the dict is a function of theta that ``torch.func`` can
 differentiate. The flat order is ``jax.flatten_util.ravel_pytree``'s:
 dict keys sorted, lists in order, each leaf raveled row-major. For a flow
-that gives ``blocks`` before ``latent``; within a block the nets in key
-order (s1, s2, t1, t2); within a net all biases, then all weights; and the
-latent as L, L_diag, dist_params (empty for every ported latent), mu.
+that gives ``blocks`` before ``latent``; within a block the global affine
+(g_offset, g_scale) where the block has one, then the nets in key order
+(s1, s2, t1, t2); within a net all biases, then all weights; and the
+latent as L, L_diag, dist_params (Student-t's one raw degrees of freedom,
+empty for the other latents), mu.
 The per-sample kernel's O rows follow the same order
 (kernels/persample.py), and weights carried across from JAX
 (models/convert.py) keep their positions.

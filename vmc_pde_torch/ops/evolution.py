@@ -5,29 +5,36 @@ Each equation computes the per-sample local "energy"
     Eloc_i = (d/dt) log p(x_i)   prescribed by the PDE at sample x_i,
 
 from the coordinate score g = grad_x log p and the Hessian quadratic trace
-along ``hessian_trace_dirs``. Ported so far:
+along ``hessian_trace_dirs``. All six equations of the JAX package:
 
 - ``diffusion``: dp/dt = D lap p, Eloc = D (|g|^2 + tr H);
+- ``diffusion_drift``: adds the drift mu sum_i g_i;
+- ``diffusion_anisotropic``: dp/dt = div(D grad p) with the JAX package's
+  random SPD D, Eloc = g^T D g + tr(H D), the trace along the columns of
+  D's Cholesky factor;
 - ``advection_paper``: Liouville transport by the ML-fluids paper's
   time-periodic 2-D swirl, Eloc = -g . v (no Hessian);
-- ``advection_hamiltonian_wDiss``: phase-space Fokker-Planck, Liouville
-  transport by the symplectic flow of the (coupled) harmonic Hamiltonian
-  plus momentum diffusion m gamma sum_i T_i (g_{p_i}^2 + H_{p_i p_i}) and
-  damping gamma sum_i p_i g_{p_i}. T may be one bath temperature per
-  (x, p) pair.
+- ``advection_hamiltonian``: Liouville transport by the symplectic flow of
+  the (coupled) harmonic Hamiltonian, Eloc = -g . v (no Hessian);
+- ``advection_hamiltonian_wDiss``: phase-space Fokker-Planck, that
+  transport plus momentum diffusion m gamma sum_i T_i (g_{p_i}^2 +
+  H_{p_i p_i}) and damping gamma sum_i p_i g_{p_i}. T may be one bath
+  temperature per (x, p) pair.
 
-Coordinate layout for phase space: [x1, p1, x2, p2, ...]. The other
-equations of the JAX package are not ported yet (ROADMAP.md).
+Coordinate layout for phase space: [x1, p1, x2, p2, ...].
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils import threefry
 
 
 def velocity_field_mlpaper(coord, t, T=5.0):
@@ -105,6 +112,63 @@ class Diffusion(Equation):
 
 
 @dataclasses.dataclass(frozen=True)
+class DiffusionDrift(Equation):
+    """Diffusion plus the constant drift mu along every coordinate:
+    Eloc = D (|g|^2 + tr H) + mu sum_i g_i."""
+
+    D: float = 1.0
+    mu: float = 4.0
+    name: str = "diffusion_drift"
+
+    def hessian_coords(self, dim):
+        return tuple(range(dim))
+
+    def hessian_trace_dirs(self, dim):
+        return np.eye(dim)
+
+    def eloc(self, x, g, hess, t):
+        return self.D * ((g**2).sum(-1) + hess) + self.mu * g.sum(-1)
+
+
+@functools.lru_cache(maxsize=None)
+def random_spd_matrix(dim: int, seed: int = 0) -> np.ndarray:
+    """The JAX package's random SPD diffusion matrix D = A^T A, A the f64
+    normal draw of PRNGKey(seed) (utils/threefry.py gives it bit for
+    bit). The product sums over the rows of A in order."""
+    A = threefry.normal_f64(seed, (dim, dim))
+    D = np.zeros((dim, dim))
+    for row in A:
+        D = D + row[:, None] * row[None, :]
+    return D
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionAnisotropic(Equation):
+    """dp/dt = div(D grad p) with a constant SPD matrix D:
+    Eloc = g^T D g + tr(H D). ``seed`` picks the JAX package's random D."""
+
+    dim: int = 2
+    seed: int = 0
+    name: str = "diffusion_anisotropic"
+
+    @property
+    def D_matrix(self) -> np.ndarray:
+        return random_spd_matrix(self.dim, self.seed)
+
+    def hessian_coords(self, dim):
+        return tuple(range(dim))
+
+    def hessian_trace_dirs(self, dim):
+        # tr(H D) = sum_j (L e_j)^T H (L e_j) with D = L L^T: the columns
+        # of the Cholesky factor are exact trace directions
+        return np.linalg.cholesky(self.D_matrix).T
+
+    def eloc(self, x, g, hess, t):
+        D = torch.as_tensor(self.D_matrix, dtype=g.dtype, device=g.device)
+        return ((g @ D) * g).sum(-1) + hess
+
+
+@dataclasses.dataclass(frozen=True)
 class AdvectionPaper(Equation):
     """Liouville transport by the ML-paper 2-D field: dlogp/dt = -g . v."""
 
@@ -176,18 +240,17 @@ class FokkerPlanck(AdvectionHamiltonian):
         return adv + diff + damp
 
 
-_NOT_PORTED = ("diffusion_drift", "diffusion_anisotropic",
-               "advection_hamiltonian")
-
-
 def make_equation(name: str, dim: int, **overrides) -> Equation:
     if name == "diffusion":
         return Diffusion(**overrides)
-    if name == "advection_hamiltonian_wDiss":
-        return FokkerPlanck(**overrides)
+    if name == "diffusion_drift":
+        return DiffusionDrift(**overrides)
+    if name == "diffusion_anisotropic":
+        return DiffusionAnisotropic(dim=dim, **overrides)
     if name == "advection_paper":
         return AdvectionPaper(**overrides)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"equation {name!r} is not ported yet (ROADMAP.md)")
+    if name == "advection_hamiltonian":
+        return AdvectionHamiltonian(**overrides)
+    if name == "advection_hamiltonian_wDiss":
+        return FokkerPlanck(**overrides)
     raise ValueError(f"unknown evolution equation {name!r}")

@@ -26,7 +26,8 @@ are XLA contractions outside any Pallas kernel:
   exact in f32, so only the summation order differs;
 - int8 x int8 -> int32 (``_mm_int8``): ``torch._int_mm``, exact. cuBLASLt
   wants more than 16 rows and inner and column sizes that are multiples
-  of 8; both operands are passed as (rows, contraction) row-major.
+  of 8 (operands are zero-padded to them); both operands are passed as
+  (rows, contraction) row-major.
 
 A bf16 output is never taken from a plain bf16 matmul.
 """
@@ -99,8 +100,17 @@ def _mm_bf16(a, b):
 
 def _mm_int8(a_rk, b_ck):
     """a_rk @ b_ck^T for int8 operands (rows, k) and (cols, k): the exact
-    int32 product contracting k."""
-    return torch._int_mm(a_rk.contiguous(), b_ck.contiguous().T)
+    int32 product contracting k. Operands whose sizes cuBLASLt refuses
+    (P = 9397 with a Student-t latent and the global affine, for one) are
+    zero-padded, which adds nothing to the sums, and the product is cut
+    back."""
+    (r, k), c = a_rk.shape, b_ck.shape[0]
+    pad_r, pad_k, pad_c = max(17 - r, 0), -k % 8, -c % 8
+    if pad_r or pad_k:
+        a_rk = torch.nn.functional.pad(a_rk, (0, pad_k, 0, pad_r))
+    if pad_c or pad_k:
+        b_ck = torch.nn.functional.pad(b_ck, (0, pad_k, 0, pad_c))
+    return torch._int_mm(a_rk.contiguous(), b_ck.contiguous().T)[:r, :c]
 
 
 def _split_bf16(x):

@@ -1,6 +1,7 @@
 """Latent-space samplers, the counterpart of
 vmc_pde_tpu/sampling/sampler.py: exact draws z = mu + U eps + offset from
-the Gauss latent, and Metropolis MCMC for the latents without a
+the Gauss latent (times sqrt(nu / chi^2_nu) for Student-t; models/latent.
+py), and Metropolis MCMC for the latents without a
 closed-form sampler (the ML-fluids paper's cosine bump ``cos_dist``, the
 double-well Boltzmann ``double_well``).
 
@@ -131,7 +132,7 @@ class Sampler:
     rw_target_accept: float = 0.234
 
     def __post_init__(self):
-        latent_mod.check_ported(self.name)
+        latent_mod.check_name(self.name)
         self.exact = self.name in latent_mod.EXACT_NAMES
         if self.mcmc_info is None:
             self.mcmc_info = {"offset": np.zeros(self.dim), "bound": 0.25}

@@ -1,9 +1,11 @@
 """TDVP right-hand side, the counterpart of vmc_pde_tpu/solver/tdvp.py for
-the main path: exact latent sampling or Metropolis chains carried across
-right-hand sides, direct or chunked statistics with the f32, syrk, sym2
-or tri2 Gram and the bf16 or int8 cross term (parallel/stats.py,
-kernels/syrk.py), the spectral eigh or the Tikhonov-Cholesky solve,
-observables and the fixed Heun pair.
+the main path: exact latent sampling (with the tail-tempered Student-t
+importance proposal of ``is_gamma``) or Metropolis chains carried across
+right-hand sides, direct statistics (self-normalized importance-weighted
+under ``is_gamma``, E_loc winsorized under ``eloc_clip``) or chunked
+statistics, with the f32, syrk, sym2 or tri2 Gram and the bf16 or int8
+cross term (parallel/stats.py, kernels/syrk.py), the spectral eigh or the
+Tikhonov-Cholesky solve, observables and the fixed Heun pair.
 
 One right-hand side (RHS): draw latent z (exact draws, or n / n_chains
 sweeps of the Metropolis chains), push it through the inverse flow to
@@ -17,9 +19,9 @@ as the reference does; the update u is dtheta/dt.
 theta is held in the master dtype (f64) by the integrator and cast to the
 compute dtype per stage. Random numbers come from ``torch.Generator``s
 seeded from an integer key; ``fold_in`` derives independent keys per step
-and stage. The f64 Gram precisions, cg/minSR, importance sampling, Eloc
-clipping, the host solve, multi-device statistics and the adaptive
-steppers' S metric are not ported yet (ROADMAP.md).
+and stage. The f64 Gram precisions, cg/minSR, the host solve,
+multi-device statistics and the adaptive steppers' S metric are not
+ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -57,7 +59,11 @@ class TDVPConfig:
     svd_tol: float = 1e-11
     diagonal_shift: float = 0.0
     eig_cutoff: float = 1e-14
+    # > 0: winsorize E_loc at this many robust sigmas (1.4826 MAD) around
+    # its median (direct statistics only)
     eloc_clip: float = 0.0
+    # < 1: draw the statistics batch from the Student-t proposal with
+    # nu_q = max(is_gamma nu, 1.05) and weight it back (direct statistics)
     is_gamma: float = 1.0
     # "eigh" (spectral pseudo-inverse with the reference's per-mode
     # regularizers), "cholesky" (Tikhonov (S + svd_tol lambda_max I) u = F
@@ -102,10 +108,6 @@ def _not_ported(what: str):
 
 
 def _check_ported(cfg: TDVPConfig) -> None:
-    if cfg.eloc_clip:
-        raise _not_ported("eloc_clip")
-    if cfg.is_gamma != 1.0:
-        raise _not_ported("is_gamma importance sampling")
     if cfg.solver_method in ("cg", "minsr"):
         raise _not_ported(f"solver_method={cfg.solver_method!r}")
     if cfg.solver_method not in ("auto", "eigh", "cholesky"):
@@ -250,6 +252,22 @@ class TDVP:
                       else "cholesky")
         else:
             method = cfg.solver_method
+        if cfg.eloc_clip < 0:
+            raise ValueError("eloc_clip must be >= 0 (robust sigmas)")
+        if cfg.eloc_clip and cfg.chunk_size > 0:
+            raise ValueError("eloc_clip needs the direct stats path (global "
+                             "median); use chunk_size=0")
+        if cfg.is_gamma != 1.0:
+            if not 0.0 < cfg.is_gamma < 1.0:
+                raise ValueError("is_gamma must be in (0, 1] (proposal must "
+                                 "dominate the target's tails)")
+            if not (self.sampler.exact
+                    and self.flow.latent_name == "Student_t"):
+                raise ValueError("is_gamma tempering needs the exact "
+                                 "Student_t latent")
+            if cfg.chunk_size:
+                raise ValueError("is_gamma tempering runs on the direct "
+                                 "eigh/cholesky statistics path")
         self.solver_method = method
         if method == "cholesky":
             # per-mode SNR exists only in the top-k Ritz basis
@@ -346,28 +364,61 @@ class TDVP:
                                             self._hess_dirs)
         return logp, self.equation.eloc(x, g, quad, t), O
 
-    def _direct_stats(self, theta_c, t, x):
+    def _maybe_clip_eloc(self, eloc):
+        """Winsorize E_loc at eloc_clip robust standard deviations
+        (1.4826 MAD) around its median (cfg.eloc_clip > 0): heavy-tailed
+        workloads (Student-t at nu = 2 has infinite E_loc variance) trade
+        a small controlled bias for that variance. Medians as jnp.median
+        takes them (the midpoint of the two middle values)."""
+        c = self.cfg.eloc_clip
+        if not c:
+            return eloc
+        med = torch.quantile(eloc, 0.5, interpolation="midpoint")
+        scale = 1.4826 * torch.quantile((eloc - med).abs(), 0.5,
+                                        interpolation="midpoint")
+        return med + torch.clamp(eloc - med, -c * scale, c * scale)
+
+    def _direct_stats(self, theta_c, t, x, log_w=None):
         """Materialize O once, center, contract with the configured Gram
-        backend."""
+        backend. ``log_w``: per-sample log importance weights (x drawn
+        from the is_gamma proposal): every statistic becomes its
+        self-normalized estimator, with the weights normalized to mean 1
+        so that the /n forms hold -- weighted means and centering, the
+        weight in the force and in every Gram."""
         n = x.shape[0]
         logp, eloc, O = self._per_sample_batch(theta_c, x, t)
-        eloc_mean = stats.mean(eloc)
+        eloc = self._maybe_clip_eloc(eloc)
+        w = None
+        if log_w is not None:
+            w = torch.exp(log_w - log_w.max())
+            w = w / stats.mean(w)
+
+        def wmean(a):
+            if w is None:
+                return stats.mean(a)
+            return stats.mean((w if a.ndim == 1 else w[:, None]) * a)
+
+        def wtimes(a):
+            return a if w is None else w * a
+
+        eloc_mean = wmean(eloc)
         e_c = eloc - eloc_mean
-        O_c = O - stats.mean(O)
+        O_c = O - wmean(O)
         gram_sum, _, gram_fin = self._gram_backend()
         A = None
         if self.cfg.compute_snr or self.cfg.use_snr:
-            A = gram_fin(gram_sum(O_c, e_c**2)) / n
+            A = gram_fin(gram_sum(O_c, wtimes(e_c**2))) / n
         return dict(
             logp=logp,
             eloc=eloc,
             eloc_mean=eloc_mean,
-            eloc_abs_mean=stats.mean(eloc.abs()),
-            eloc_var=stats.mean(e_c**2),
-            eloc_sq_mean=stats.mean(eloc**2),
-            F0=(e_c @ O_c) / n,
-            S0=gram_fin(gram_sum(O_c)) / n,
+            eloc_abs_mean=wmean(eloc.abs()),
+            eloc_var=wmean(e_c**2),
+            eloc_sq_mean=wmean(eloc**2),
+            F0=(wtimes(e_c) @ O_c) / n,
+            S0=gram_fin(gram_sum(O_c, w)) / n,
             A=A,
+            is_ess_share=None if w is None else 1.0 / stats.mean(w**2),
         )
 
     def _gram_backend(self):
@@ -589,6 +640,7 @@ class TDVP:
         k_sample, k_obs, _, k_spec = (fold_in(key, i) for i in range(4))
         z = z_ext
         mcmc = None
+        log_w = None
         if z is None and chain_state is not None:
             sweeps = self.n_samples // self.sampler.n_chains
             z, cs, acc = self._chain_fn(self._gen(k_sample), chain_state,
@@ -597,6 +649,11 @@ class TDVP:
             mcmc = dict(state=cs, acc=acc,
                         prop=sweeps * self.sampler.n_chains)
             z = z.to(theta_c.dtype)
+        elif z is None and cfg.is_gamma != 1.0:
+            # the tail-tempered importance proposal (TDVPConfig.is_gamma)
+            z, log_w = self.flow.latent_sample_tempered(
+                self._gen(k_sample), params, self.n_samples, cfg.is_gamma,
+                theta_c.dtype)
         elif z is None:
             z = self.flow.latent_sample(self._gen(k_sample), params,
                                         self.n_samples, theta_c.dtype)
@@ -606,7 +663,7 @@ class TDVP:
         if cfg.chunk_size and cfg.chunk_size < n:
             st = self._chunked_stats(theta_c, t, x)
         else:
-            st = self._direct_stats(theta_c, t, x)
+            st = self._direct_stats(theta_c, t, x, log_w=log_w)
         S0, F0 = st["S0"], st["F0"]
         S = S0
         if cfg.diagonal_shift > 1e-10:
@@ -653,9 +710,13 @@ class TDVP:
         aux["eloc_abs_mean"] = st["eloc_abs_mean"]
         aux["eloc_var"] = st["eloc_var"]
         aux["max_grad"] = st["eloc"].max()
+        if st.get("is_ess_share") is not None:
+            # effective sample share 1 / E[w^2] of the mean-1 IS weights
+            aux["is_ess_share"] = st["is_ess_share"]
 
         if cfg.observables and with_obs:
-            if self.n_samples_obs > n:
+            # the IS batch is proposal-distributed: observables resample
+            if self.n_samples_obs > n or log_w is not None:
                 if mcmc is not None:
                     # the observables' budget continues the chains
                     sweeps = self.n_samples_obs // self.sampler.n_chains
