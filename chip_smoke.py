@@ -81,7 +81,27 @@
    steps against Sigma(t) = I + 2 t D and 1/2 log det(2 pi e Sigma(t)),
    within 5 Monte Carlo standard errors; ``harmonicOsc`` for 20 steps
    (entropy within 5 standard errors of the initial log(2 pi e), grid
-   integral within 0.05 of 1) and ``harmonicOsc_diff`` for 20 steps.
+   integral within 0.05 of 1) and ``harmonicOsc_diff`` for 20 steps;
+19. (E) the sharded statistics at full width, in 4 rank processes on the
+   one card (spawned after every kernel is built; they exchange over gloo,
+   through the host): fokkerPlanck32 through ``driver.run`` with
+   ``stats_partitioning="shard_map"`` and ``mesh_dp=4``, (a) direct at
+   N=16384 for 3 steps (exactly 2 plain-mode launches per step per rank),
+   (b) chunked tri2 + int8 at N=262144 in global chunks of 65536 for 2
+   steps (each rank 4 local chunks of 16384: exactly 16 split, 32 quant8
+   and 4 pilot launches per rank); in both no NaN, residual below 1e-3,
+   theta bitwise equal across ranks after every step, and S0, F0 and A on
+   one batch within 1e-4 of the one-rank f32 statistics on the same global
+   draws; step times and the all-reduce's share and bytes printed; (c)
+   ``per_sample_sharded`` against its plain version on a rank's 4096 rows
+   (timed), then the GSPMD counterpart (``eloc_clip=2``) for 2 steps with
+   exactly 4 of its launches per rank;
+20. (F) ``metropolis_chain_sharded`` on the 4 ranks, 8192 chains x 128
+   sweeps: each rank's launch against the plain version with its
+   chain_base, and the gathered shards against the single launch, bit for
+   bit, accept counts equal, with external uniforms and with Philox (the
+   per-rank launch timed); then ``VarState.sample`` of fluidpaper's flow on
+   the mesh with 8192 chains: 2 launches on every rank.
 
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
@@ -90,12 +110,19 @@ is the per-kernel JSON record and the last line
 
 import json
 import math
+import multiprocessing
+import os
+import queue
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from vmc_pde_torch import driver
 from vmc_pde_torch.config import preset
@@ -104,7 +131,8 @@ from vmc_pde_torch.kernels import (bounds, build, metropolis, persample,
 from vmc_pde_torch.models.flow import build_flow, perturb_theta
 from vmc_pde_torch.models.state import VarState
 from vmc_pde_torch.ops.evolution import make_equation
-from vmc_pde_torch.parallel import stats
+from vmc_pde_torch.parallel import mesh, stats
+from vmc_pde_torch.parallel.mesh import ParallelCtx
 from vmc_pde_torch.sampling import sampler as sampling
 from vmc_pde_torch.utils.dtypes import full_f32_matmuls
 from vmc_pde_torch.utils.grid import Grid
@@ -127,12 +155,20 @@ KERNELS = {
                    "vmc_pde_tpu/kernels/metropolis.py:140"),
     "syrk": ("vmc_pde_torch/kernels/csrc/syrk.cu",
              "vmc_pde_tpu/kernels/syrk.py:161"),
+    "persample_sharded": ("vmc_pde_torch/kernels/csrc/persample.cu",
+                          "vmc_pde_tpu/kernels/persample.py:1104"),
+    "metropolis_sharded": ("vmc_pde_torch/kernels/csrc/metropolis.cu",
+                           "vmc_pde_tpu/kernels/metropolis.py:191"),
 }
 WRAPPERS = {"persample": persample.per_sample_cuda,
             "persample_split": persample.per_sample_split_cuda,
             "quant8": quant8.quant_force_cuda,
             "metropolis": metropolis.metropolis_chain_cuda,
-            "syrk": syrk.syrk_cuda}
+            "syrk": syrk.syrk_cuda,
+            "persample_sharded": persample.per_sample_sharded,
+            "metropolis_sharded": metropolis.metropolis_chain_sharded}
+# rank processes of phases 19 and 20, all on the one card
+MESH_WORLD = 4
 
 
 def fail(msg):
@@ -1088,6 +1124,355 @@ def phase_anisotropic_and_oscillators():
     _drive(["harmonicOsc_diff"], "harmonicOsc_diff", 20, dim=6)
 
 
+def _time_all_reduces(log):
+    """Time every torch.distributed.all_reduce (what parallel/mesh.py
+    calls) between two device synchronizations, with its bytes: ``log``
+    accumulates "s" and "bytes"."""
+    plain = dist.all_reduce
+
+    def timed(tensor, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain(tensor, *args, **kw)
+        torch.cuda.synchronize()
+        log["s"] += time.perf_counter() - t0
+        log["bytes"] += tensor.numel() * tensor.element_size()
+        return out
+
+    dist.all_reduce = timed
+
+
+def _rank_drive(cfg, n_steps, label, log):
+    """``driver.run`` of this rank for n_steps with every count set to 0
+    just before: the counts just after, each step's wall time and its
+    all-reduce seconds and bytes, and whether theta was bitwise the
+    coordinator's after every step (checked outside the step's time)."""
+    stamps, starts, ar_s, ar_bytes, same = [], [], [], [], []
+
+    def record(n_step, t, state, info):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        ar_s.append(log["s"])
+        ar_bytes.append(log["bytes"])
+        theta = state.get_parameters()
+        same.append(bool(torch.equal(
+            theta, mesh.broadcast_from_coordinator(theta))))
+        torch.cuda.synchronize()
+        log.update(s=0.0, bytes=0)
+        starts.append(time.perf_counter())
+
+    _zero_counts()
+    log.update(s=0.0, bytes=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, rec = driver.run(cfg, max_steps=n_steps, callbacks=[record])
+    counts = _counts()
+    steps = np.array(stamps) - np.array([t0] + starts[:-1])
+    a = rec.as_arrays()
+    for key in ("solver_res", "tdvp_error", "entropy", "covar", "x1"):
+        if not np.isfinite(a[key]).all():
+            fail(f"non-finite {key} in the {label} run")
+    if a["nan"].any() or not (a["solver_res"] < 1e-3).all():
+        fail(f"{label}: NaN or residual above 1e-3: {a['solver_res']}")
+    if not all(same) or len(same) != n_steps:
+        fail(f"{label}: theta differs across ranks after a step: {same}")
+    if mesh.is_coordinator():
+        print(f"[mesh] {label}: {n_steps} Heun steps per rank, wall s/step "
+              f"{' '.join(f'{v:.3f}' for v in steps)} (first includes "
+              f"set-up), all-reduce s/step "
+              f"{' '.join(f'{v:.3f}' for v in ar_s)} (gloo through the host, "
+              f"{ar_bytes[-1] / 2 / 1e6:.1f} MB per RHS), share of steps "
+              f"2-{n_steps} {sum(ar_s[1:]) / steps[1:].sum():.3f}; "
+              f"solver_res {' '.join(f'{r:.3e}' for r in a['solver_res'])};"
+              f" launches on rank 0 {counts}", flush=True)
+    return state, dict(step_s=steps.tolist(), all_reduce_s=ar_s,
+                       all_reduce_bytes_per_rhs=ar_bytes[-1] / 2,
+                       counts=counts)
+
+
+def _sharded_vs_one_rank(ctx, cfg, ref_cfg, theta, n, label):
+    """The mesh's statistics on one batch (this rank's rows of a global
+    draw) against one rank's on the whole batch, computed by the
+    coordinator (``ref_cfg``): S0, F0 and A within 1e-4 of each one's
+    largest value."""
+    state, tdvp = driver.build_problem(cfg)[:2]
+    chunked = cfg.chunk_size > 0
+    theta_c = theta.to(device=ctx.device, dtype=torch.float32)
+    params = state.flow.layout.unravel(theta_c)
+    gen = torch.Generator(device=ctx.device).manual_seed(7)
+    z = state.flow.latent_sample(gen, params, n, torch.float32)
+    x_loc = state.flow.push(params, ctx.local_rows(z))[0]
+    fn = tdvp._chunked_stats if chunked else tdvp._direct_stats
+    st = fn(theta_c, 0.0, x_loc)
+    del tdvp, x_loc
+    out = {}
+    torch.cuda.synchronize()
+    if ctx.rank == 0:
+        one = ParallelCtx.single_device(ctx.device)
+        rtdvp = driver.build_problem(ref_cfg, ctx=one)[1]
+        x = state.flow.push(params, z)[0]
+        ref = (rtdvp._chunked_stats if chunked
+               else rtdvp._direct_stats)(theta_c, 0.0, x)
+        for key in ("S0", "F0", "A"):
+            out[key] = _rel(st[key], ref[key], ref[key].abs().max())
+        print(f"[mesh] {label} vs one rank's f32 statistics on the same "
+              f"N={n} draws: " + ", ".join(f"{k} {v:.3e}"
+                                           for k, v in out.items())
+              + " (max abs diff / max, tol 1e-4)", flush=True)
+        if not all(v <= 1e-4 for v in out.values()):
+            fail(f"{label} differs from one rank's statistics: {out}")
+        del rtdvp, ref, x
+    del st
+    torch.cuda.synchronize()
+    mesh.sync_global_devices()
+    return out
+
+
+def _coordinator_times(ctx, fns):
+    """Time each (label, fn, reps) on the coordinator while the other
+    ranks wait at a barrier with an idle card; {label: ms}."""
+    torch.cuda.synchronize()
+    out = {}
+    if ctx.rank == 0:
+        out = {label: _time_ms(fn, reps) for label, fn, reps in fns}
+    mesh.sync_global_devices()
+    return out
+
+
+def phase_mesh_stats(ctx, log):
+    """Phase 19 on this rank: (a) direct and (b) chunked shard_map
+    statistics through driver.run, each against one rank on one batch;
+    (c) per_sample_sharded against its plain version, timed, and the GSPMD
+    counterpart through driver.run."""
+    W = ctx.world
+    base = dict(device="cuda", mesh_dp=W, verbose=False)
+    n_steps = 3
+    cfg = preset("fokkerPlanck32", stats_partitioning="shard_map", **base)
+    state, direct = _rank_drive(cfg, n_steps, "19a fokkerPlanck32 N=16384 "
+                                "shard_map direct", log)
+    if direct["counts"]["persample"] != 2 * n_steps:
+        fail(f"19a: plain-mode launches {direct['counts']} on rank "
+             f"{ctx.rank}, expected {2 * n_steps}")
+    theta = state.get_parameters()
+    direct["vs_one_rank"] = _sharded_vs_one_rank(
+        ctx, cfg, preset("fokkerPlanck32", device="cuda"), theta, 16384,
+        "19a direct, 4 ranks")
+    del state
+
+    n_steps, n, c = 2, 262144, 65536
+    over = dict(n_samples_tdvp=n, n_samples_obs=n, chunk_size=c)
+    cfg = preset("fokkerPlanck32", stats_partitioning="shard_map",
+                 gram_backend="tri2", gram_cross="int8", **over, **base)
+    _, chunked = _rank_drive(cfg, n_steps, "19b fokkerPlanck32 N=262144 "
+                             "chunk 65536 shard_map tri2+int8", log)
+    local_chunks = (n // W) // (c // W)
+    want = n_steps * 2 * local_chunks
+    got = chunked["counts"]
+    if (got["persample_split"] != want or got["quant8"] != 2 * want
+            or got["persample"] != n_steps * 2):
+        fail(f"19b: launches {got} on rank {ctx.rank}, expected {want} "
+             f"split, {2 * want} quant8, {n_steps * 2} pilot")
+    chunked["vs_one_rank"] = _sharded_vs_one_rank(
+        ctx, cfg, preset("fokkerPlanck32", device="cuda", **over), theta, n,
+        "19b chunked tri2+int8, 4 ranks")
+
+    # (c) the sharded per-sample wrapper on a rank's rows at the preset's
+    # theta, against its plain version, then timed
+    flow, theta0, _, eq, dirs = _fp32_problem(ctx.device)
+    params = flow.layout.unravel(theta0)
+    gen = torch.Generator(device=ctx.device).manual_seed(11)
+    x_loc = ctx.local_rows(flow.push(params, flow.latent_sample(
+        gen, params, 16384, torch.float32))[0])
+    got = persample.per_sample_sharded(ctx, flow, theta0, x_loc, dirs)
+    ref = persample.per_sample_plain(flow, theta0.double(), x_loc.double(),
+                                     dirs.double())
+    max_abs = float((got[3].double() - ref[3]).abs().max())
+    for name, a, r in zip(("logp", "g", "quad", "O"), got, ref):
+        rel = _rel(a, r)
+        if not rel < TOL[name]:
+            fail(f"per_sample_sharded {name} on rank {ctx.rank}: {rel:.3e}")
+    del got, ref
+    ms = _coordinator_times(ctx, [
+        ("ms", lambda: persample.per_sample_cuda(flow, theta0, x_loc,
+                                                 dirs), 20),
+        ("plain_ms", lambda: persample.per_sample_plain(flow, theta0, x_loc,
+                                                        dirs), 3)])
+    P, d, k = flow.layout.size, flow.dim, dirs.shape[0]
+    bound = bounds.persample(bounds.flow_layers(flow), d, P,
+                             x_loc.shape[0], k)
+    del x_loc
+    n_steps = 2
+    cfg = preset("fokkerPlanck32", eloc_clip=2.0, **base)
+    _, gspmd = _rank_drive(cfg, n_steps, "19c fokkerPlanck32 N=16384 GSPMD "
+                           "counterpart, eloc_clip=2", log)
+    if gspmd["counts"]["persample_sharded"] != 2 * n_steps:
+        fail(f"19c: sharded per-sample launches {gspmd['counts']} on rank "
+             f"{ctx.rank}, expected {2 * n_steps}")
+    kernel = dict(max_abs_err=max_abs, bound_ms=bound[0], bound_by=bound[1],
+                  launches=gspmd["counts"]["persample_sharded"],
+                  rows_per_rank=16384 // W, **ms)
+    if ctx.rank == 0:
+        print(f"[mesh] per_sample_sharded on a rank's {16384 // W} rows, "
+              f"P={P}: max abs err of O {max_abs:.3e}; CUDA kernel "
+              f"{ms['ms']:.3f} ms, plain torch.func {ms['plain_ms']:.3f} "
+              f"ms, bound {bound[0]:.4f} ms ({bound[1]}), the other ranks "
+              "idle", flush=True)
+    return dict(direct=direct, chunked=chunked, gspmd=gspmd), kernel
+
+
+def phase_mesh_metropolis(ctx):
+    """Phase 20 on this rank: the sharded Metropolis kernel against its
+    plain version and, gathered, against the single launch; timed; then
+    VarState.sample on the mesh."""
+    W, dev = ctx.world, ctx.device
+    C, sweeps = 8192, 128
+    C_loc = C // W
+    base = ctx.rank * C_loc
+    gen = torch.Generator(device=dev).manual_seed(2)
+    init_all = torch.tensor(BUMP_OFFSET, device=dev).repeat(C, 1)
+    init = ctx.local_rows(init_all)
+    u = torch.rand((6, sweeps * C), generator=gen, device=dev) \
+        * (1 - 2e-7) + 1e-7
+    u_loc = u.reshape(6, sweeps, C)[:, :, base:base + C_loc].reshape(6, -1)
+    max_abs = 0.0
+    for label, uu, uu_loc in (("external uniforms", u, u_loc),
+                              ("Philox", None, None)):
+        s, f, acc = metropolis.metropolis_chain_sharded(
+            ctx, 5, init, sweeps, 0.25, BUMP_OFFSET, uu)
+        ps, pf, pacc = metropolis.metropolis_chain_plain(
+            5, init, sweeps, 0.25, BUMP_OFFSET, uu_loc, chain_base=base)
+        (pacc,) = mesh.all_reduce_sum(ctx, [pacc])
+        err = max(float((s - ps).abs().max()), float((f - pf).abs().max()))
+        if int(acc) != int(pacc) or not err <= 2e-6:
+            fail(f"metropolis_chain_sharded ({label}) on rank {ctx.rank}: "
+                 f"accepted {int(acc)} vs plain {int(pacc)}, max abs err "
+                 f"{err:.3e}")
+        max_abs = max(max_abs, err)
+        gathered = metropolis.gather_sweep_major(ctx, s, sweeps)
+        final = mesh.all_gather_rows(ctx, f)
+        if ctx.rank == 0:
+            single = metropolis.metropolis_chain_cuda(
+                5, init_all, sweeps, 0.25, BUMP_OFFSET, uu)
+            same = (torch.equal(gathered, single[0])
+                    and torch.equal(final, single[1])
+                    and int(acc) == int(single[2]))
+            print(f"[mesh] metropolis_chain_sharded, {W} ranks x {C_loc} "
+                  f"chains x {sweeps} sweeps, {label}: accepted {int(acc)} "
+                  f"(single launch {int(single[2])}), gathered samples and "
+                  f"final states bitwise the single launch's: {same}; each "
+                  f"rank vs its plain version max abs err {err:.3e}",
+                  flush=True)
+            if not same:
+                fail(f"the sharded Metropolis kernel ({label}) does not "
+                     "replay the single launch")
+    ms = _coordinator_times(ctx, [
+        ("ms", lambda: metropolis.metropolis_chain_cuda(
+            5, init, sweeps, 0.25, BUMP_OFFSET, chain_base=base), 20),
+        ("ext_ms", lambda: metropolis.metropolis_chain_cuda(
+            5, init, sweeps, 0.25, BUMP_OFFSET, u_loc, chain_base=base), 20),
+        ("plain_ms", lambda: metropolis.metropolis_chain_plain(
+            5, init, sweeps, 0.25, BUMP_OFFSET, u_loc, chain_base=base), 3)])
+    bound = bounds.metropolis(C_loc * sweeps, 2)
+
+    cfg = preset("fluidpaper")
+    flow, theta = build_flow(cfg.seed, cfg.dim, depth=cfg.depth,
+                             hidden=cfg.hidden_resolved(),
+                             variant=cfg.variant, latent_name=cfg.latent_name,
+                             offset=cfg.offset, out_scale=cfg.init_scale,
+                             dtype=torch.float32, device=dev)
+    sampler = sampling.Sampler(2, cfg.latent_name, n_chains=C,
+                               mcmc_info={"offset": np.asarray(cfg.offset),
+                                          "bound": cfg.mcmc_bound}, ctx=ctx)
+    state = VarState(flow, theta, sampler=sampler, ctx=ctx)
+    n = 2**20
+    _zero_counts()
+    x, logp = state.sample(n, key=1)
+    x2, _ = state.sample(n, key=2)
+    counts = _counts()
+    rate = sampler.last_info.acceptance_rate
+    if (counts["metropolis_sharded"] != 2 or counts["metropolis"] != 2
+            or x.shape != (n // W, 2) or not torch.isfinite(x).all()
+            or not torch.isfinite(logp).all() or not 0.05 < rate < 0.95):
+        fail(f"VarState.sample on the mesh, rank {ctx.rank}: launches "
+             f"{counts}, shard {tuple(x.shape)}, acceptance {rate}")
+    if ctx.rank == 0:
+        print(f"[mesh] per-rank Metropolis launch, {C_loc} chains x "
+              f"{sweeps} sweeps: Philox {ms['ms']:.4f} ms, external "
+              f"uniforms {ms['ext_ms']:.4f} ms, plain torch "
+              f"{ms['plain_ms']:.3f} ms, bound {bound[0]:.6f} ms "
+              f"({bound[1]}), the other ranks idle; VarState.sample on the "
+              f"mesh, 8192 chains: 2 x {n} samples, launches per rank "
+              f"{counts['metropolis_sharded']}, acceptance {rate:.4f}",
+              flush=True)
+    return dict(max_abs_err=max_abs, ms=ms["ms"] if ms else None,
+                ext_ms=ms.get("ext_ms"), plain_ms=ms.get("plain_ms"),
+                bound_ms=bound[0], bound_by=bound[1],
+                launches=counts["metropolis_sharded"],
+                chains_per_rank=C_loc)
+
+
+def _mesh_rank(rank, world, rendezvous, results):
+    """One rank of phases 19 and 20 (a spawned process): its outcome goes
+    to the ``results`` queue, a traceback on failure."""
+    try:
+        mesh.distributed_init(f"file://{rendezvous}", world, rank)
+        ctx = ParallelCtx.create(dp=world, device="cuda")
+        full_f32_matmuls()
+        log = {"s": 0.0, "bytes": 0}
+        _time_all_reduces(log)
+        paths, ps_kernel = phase_mesh_stats(ctx, log)
+        mc_kernel = phase_mesh_metropolis(ctx)
+        results.put((rank, True, dict(paths=paths, persample_sharded=ps_kernel,
+                                      metropolis_sharded=mc_kernel)))
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def phase_mesh():
+    """Phases 19 and 20: MESH_WORLD rank processes on the one card (spawn:
+    CUDA is initialized here; the kernels are built, the ranks only load
+    them); each rank's outcome, rank 0's first. A rank that fails or
+    outlives the time limit fails the phase, and every rank is stopped."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    spawn = multiprocessing.get_context("spawn")
+    results = spawn.Queue()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    procs = [spawn.Process(target=_mesh_rank, args=(
+        r, MESH_WORLD, os.path.join(tmp, "rendezvous"), results))
+        for r in range(MESH_WORLD)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    out = {}
+    try:
+        deadline = time.monotonic() + 600
+        while len(out) < MESH_WORLD:
+            try:
+                rank, ok, payload = results.get(
+                    timeout=max(1.0, deadline - time.monotonic()))
+            except queue.Empty:
+                fail("the mesh ranks did not finish within 600 s")
+            if not ok:
+                fail(f"mesh rank {rank} failed:\n{payload}")
+            out[rank] = payload
+        for p in procs:
+            p.join(timeout=60)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"phases 19-20: {MESH_WORLD} ranks in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return [out[r] for r in range(MESH_WORLD)]
+
+
 def main():
     phase_device()
     full_f32_matmuls()
@@ -1122,6 +1507,19 @@ def main():
                          latent_name="Student_t", global_affine=True)
     paths["diffusion"] = phase_diffusion()
     phase_anisotropic_and_oscillators()
+    ranks = phase_mesh()
+    for name in ("persample_sharded", "metropolis_sharded"):
+        results[name] = dict(ranks[0][name])
+        launches[name] = results[name].pop("launches")
+        results[name]["launches_by_rank"] = [r[name]["launches"]
+                                             for r in ranks]
+    results["persample_sharded"]["launches_by_path"] = {
+        "fokkerPlanck32 GSPMD counterpart (eloc_clip=2), per rank":
+            launches["persample_sharded"]}
+    paths["fokkerPlanck32 shard_map direct, per rank"] = \
+        ranks[0]["paths"]["direct"]["counts"]["persample"]
+    mesh_paths = {name: {k: v for k, v in path.items() if k != "counts"}
+                  for name, path in ranks[0]["paths"].items()}
     scope = {"persample": "Gauss and Student_t latents, with and without "
                           "the global affine (fokkerPlanck32 flows at "
                           "P=9264 and P=9397, diffusion_anisotropic's)",
@@ -1131,6 +1529,7 @@ def main():
         results[name] = dict(results[name], scope=scope[name],
                              student_t_global_affine=student[name])
     results["persample"]["launches_by_path"] = paths
+    print(json.dumps({"mesh_paths": mesh_paths}))
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name],

@@ -327,3 +327,57 @@ def test_syrk_kernel_matches_plain(dev, N, P, weight):
     assert float((S.double() - ref).abs().max()) <= tol
     assert float((S - plain).abs().max()) <= tol
     assert torch.equal(S, S.T) or float((S - S.T).abs().max()) <= tol
+
+
+@pytest.fixture(scope="module")
+def sharded_run(tmp_path_factory):
+    """Two ranks on the one card over gloo (tests/torch_mesh_worker.py,
+    scenario "cuda"): per_sample_sharded on each rank's 1024 of 2048
+    standard normal samples of a perturbed d=4 flow, and metropolis_chain_sharded on each
+    rank's 512 of 1024 chains x 16 sweeps, with external uniforms and
+    with Philox."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_mesh_worker as worker
+
+    flow, theta = build_flow(3, 4, depth=2, hidden=(3,), variant="affine",
+                             dtype=torch.float64)
+    theta = perturb_theta(flow, theta, np.random.default_rng(3),
+                          out_scale=0.3)
+    # the draws themselves as x, as for the other strongly perturbed small
+    # flows here (pushed through such a flow they leave f32's range)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2048, 4))
+    C, sweeps = 1024, 16
+    inputs = dict(theta=theta.numpy(), x=x,
+                  init=np.tile(np.float32([0.25, 0.25]), (C, 1)),
+                  uniforms=rng.uniform(1e-7, 1 - 1e-7, (6, sweeps * C))
+                  .astype(np.float32), sweeps=np.int64(sweeps))
+    spec = {"gauss": worker.spec_of(flow, "advection_hamiltonian_wDiss",
+                                    {"T": 3.0})}
+    return worker.run_ranks("cuda", 2, str(tmp_path_factory.mktemp("cu")),
+                            spec, inputs)
+
+
+def test_per_sample_sharded_kernel_matches_plain(sharded_run):
+    """Each rank's launch of the plain-mode kernel on its shard against
+    the plain version in f64 on the same rows, to TOL; one launch each."""
+    for out in sharded_run:
+        assert int(out["ps/launches"]) == 1
+        for name in ("logp", "g", "quad", "O"):
+            assert float(out[f"ps/{name}"]) < TOL[name], name
+
+
+@pytest.mark.parametrize("label", ["ext", "philox"])
+def test_metropolis_sharded_kernel_matches_plain_and_single(sharded_run,
+                                                            label):
+    """Each rank's kernel launch against the plain version with its
+    chain_base (2e-6, as the single-launch test), and the gathered shards
+    against one launch on all chains, bit for bit, with the accept count
+    summed over the ranks."""
+    for out in sharded_run:
+        assert float(out[f"mcmc/{label}/vs_plain"]) <= 2e-6
+        assert bool(out[f"mcmc/{label}/vs_single"])
+        acc, acc_single = out[f"mcmc/{label}/acc"]
+        assert acc == acc_single > 0
+        assert int(out["mcmc/launches"]) == 2

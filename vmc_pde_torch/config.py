@@ -1,7 +1,7 @@
 """Experiment configuration, the counterpart of vmc_pde_tpu/config.py:
 all of its presets. Field names and defaults follow the JAX package's
 RunConfig; fields of paths not ported yet are left out, and ``device``
-is new: the port runs on one explicit torch device.
+is new: the port runs on one explicit torch device per rank.
 """
 
 from __future__ import annotations
@@ -71,9 +71,16 @@ class RunConfig:
     increase_fac: float = 1.3
     t_end: float = 5.0
 
+    # statistics on a mesh: auto | shard_map | gspmd (TDVPConfig)
+    stats_partitioning: str = "auto"
+
     # runtime
     precision: str = "tpu"          # tpu | tpu_f64stats | f32 | f64
     device: str = "cuda"            # torch device; cuda raises without one
+    # mesh over the process group (parallel/mesh.py): dp sample shards
+    # (-1: all ranks) times tp (more sample shards on the shard_map stats)
+    mesh_dp: int = -1
+    mesh_tp: int = 1
 
     # diagnostics / io
     grid_bound: float = 10.0

@@ -10,6 +10,15 @@ the reference-compatible infos schema.
     python -m vmc_pde_torch.driver diffusion --is-gamma 0.5
     python -m vmc_pde_torch.driver mwe --precision f64 --device cpu
 
+One process per rank on a mesh (parallel/mesh.py), each started with
+its --process-id, e.g. two ranks on the CPU:
+
+    python -m vmc_pde_torch.driver mwe --precision f64 --device cpu \
+        --distributed --coordinator localhost:29500 --num-processes 2 \
+        --process-id 0 --mesh-dp 2
+
+Only the coordinator (rank 0) prints and writes infos.hdf5.
+
 The latent family and the learned global affine have no flags, as in the
 JAX package: ``run(preset("fokkerPlanck32", latent_name="Student_t",
 global_affine=True))``.
@@ -30,6 +39,7 @@ from .config import RunConfig
 from .models.flow import build_flow
 from .models.state import VarState
 from .ops.evolution import make_equation
+from .parallel import mesh
 from .sampling.sampler import Sampler
 from .solver.steppers import FixedStepper
 from .solver.tdvp import TDVP, TDVPConfig, fold_in
@@ -46,21 +56,29 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def build_problem(cfg: RunConfig):
-    """Construct (state, tdvp, stepper, equation, grid) from a RunConfig."""
-    device = resolve_device(cfg.device)
+def build_problem(cfg: RunConfig, ctx=None):
+    """Construct (state, tdvp, stepper, equation, grid) from a RunConfig,
+    on ``ctx`` (default: the mesh of the process group when one is
+    initialized, ``cfg.mesh_dp`` x ``cfg.mesh_tp`` ranks; one device
+    otherwise)."""
+    if ctx is None:
+        ctx = mesh.ParallelCtx.create(dp=cfg.mesh_dp, tp=cfg.mesh_tp,
+                                      device=resolve_device(cfg.device))
+    device = ctx.device
     precision = dtypes.resolve(cfg.precision)
     sampler = Sampler(dim=cfg.dim, name=cfg.latent_name,
                       dtype=precision.compute, n_chains=cfg.n_chains,
                       mcmc_info={"offset": np.asarray(cfg.offset),
                                  "bound": cfg.mcmc_bound},
-                      proposal_mode=cfg.proposal_mode, rw_scale=cfg.rw_scale)
+                      proposal_mode=cfg.proposal_mode, rw_scale=cfg.rw_scale,
+                      ctx=ctx)
     flow, theta = build_flow(
         cfg.seed, cfg.dim, depth=cfg.depth, hidden=cfg.hidden_resolved(),
         variant=cfg.variant, global_affine=cfg.global_affine,
         latent_name=cfg.latent_name, offset=cfg.offset, alpha=cfg.alpha,
         out_scale=cfg.init_scale, dtype=precision.compute, device=device)
-    state = VarState(flow, theta, sampler=sampler, precision=precision)
+    state = VarState(flow, theta, sampler=sampler, precision=precision,
+                     ctx=ctx)
     equation = make_equation(cfg.equation, cfg.dim, **cfg.equation_params)
     tdvp_cfg = TDVPConfig(
         use_snr=cfg.use_snr, snr_tol=cfg.snr_tol, svd_tol=cfg.svd_tol,
@@ -70,6 +88,7 @@ def build_problem(cfg: RunConfig):
         gram_precision=cfg.gram_precision,
         gram_backend=cfg.gram_backend, gram_cross=cfg.gram_cross,
         chunk_size=cfg.chunk_size,
+        stats_partitioning=cfg.stats_partitioning,
         per_sample_backend=cfg.per_sample_backend,
         hessian_mode=cfg.hessian_mode, auto_tol_floor=cfg.auto_tol_floor)
     tdvp = TDVP(state, equation, tdvp_cfg, n_samples=cfg.n_samples_tdvp,
@@ -89,20 +108,28 @@ def build_problem(cfg: RunConfig):
 
 def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
     """Run the time evolution; returns (state, InfoRecorder). Each
-    callback is called as cb(n_step, t, state, info) after every step."""
+    callback is called as cb(n_step, t, state, info) after every step.
+    On a mesh every rank runs this loop; only the coordinator prints and
+    writes."""
     state, tdvp, stepper, _, grid = build_problem(cfg)
     rec = InfoRecorder()
-    wdir = cfg.workdir
+    talk = cfg.verbose and mesh.is_coordinator()
+    wdir = cfg.workdir if mesh.is_coordinator() else None
     if wdir:
         os.makedirs(wdir, exist_ok=True)
 
     # NaN aborts are checked every nan_check_every steps (each check waits
-    # for the device)
+    # for the device), on flags agreed across the ranks, so that all of
+    # them abort together and none waits alone in a collective
     pending_nan = []
 
     def check_nan():
-        for flag, t_at in pending_nan:
-            if bool(flag):
+        if not pending_nan:
+            return
+        flags = mesh.all_reduce_max(state.ctx, torch.stack(
+            [f for f, _ in pending_nan]).to(torch.int32))
+        for flag, (_, t_at) in zip(flags.tolist(), pending_nan):
+            if flag:
                 raise FloatingPointError(
                     f"NaN encountered in TDVP update at t={t_at}")
         pending_nan.clear()
@@ -113,7 +140,7 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
     n_step = 0
     key = cfg.sample_seed + 7
     plotted = set()
-    if grid is not None and cfg.verbose:
+    if grid is not None and talk:
         print("Initial grid integral:", float(state.integrate(grid)))
 
     while t < cfg.t_end + dt and n_step < max_steps:
@@ -127,16 +154,15 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
         rec.append_dict(info)
         rec.append("dist_params", state.params["latent"]["dist_params"])
 
-        if cfg.verbose:
+        if cfg.verbose or n_step % max(cfg.nan_check_every, 1) == 0:
             check_nan()
+        if talk:
             res_f = float(info["solver_res"])  # waits for the device
             print(f"t = {t:.4f}, dt = {dt:e}  "
                   f"[{time.perf_counter() - t0:.3f}s]")
             print(f"\t > Solver Residual = {res_f:.3e}")
             print(f"\t > TDVP Error = {float(info['tdvp_error']):.3e}")
             print(f"\t > Entropy = {float(info['entropy']):.6f}")
-        elif n_step % max(cfg.nan_check_every, 1) == 0:
-            check_nan()
 
         n = round(t / cfg.plot_every)
         if (grid is not None and abs(t - n * cfg.plot_every) < dt
@@ -145,7 +171,7 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
             integral = float(state.integrate(grid))
             rec.append("grid_integral_t", t)
             rec.append("grid_integral", integral)
-            if cfg.verbose:
+            if talk:
                 print("Grid integral:", integral)
 
         for cb in callbacks:
@@ -196,8 +222,34 @@ def main(argv=None, callbacks=()):
                    help="<1: tail-tempered importance sampling of the TDVP "
                         "statistics (Student_t latent; TDVPConfig.is_gamma)")
     p.add_argument("--device", type=str, default="cuda",
-                   help="torch device (default cuda; raises without one)")
+                   help="torch device (default cuda; raises without one); "
+                        "on a mesh each rank takes card rank %% count")
+    p.add_argument("--stats-partitioning", type=str, default=None,
+                   choices=["auto", "gspmd", "shard_map"],
+                   help="statistics on a mesh ('auto' = shard_map where it "
+                        "may run: per-rank statistics and kernels, one "
+                        "all-reduce of the assembled moments per RHS)")
+    p.add_argument("--mesh-dp", type=int, default=None,
+                   help="sample-parallel mesh size (-1 = all ranks)")
+    p.add_argument("--mesh-tp", type=int, default=None,
+                   help="second mesh axis (flattened into sample shards "
+                        "on the shard_map statistics)")
+    p.add_argument("--distributed", action="store_true",
+                   help="one process per rank: initialize torch."
+                        "distributed before building the mesh (NCCL with "
+                        "a card per rank, gloo otherwise)")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="coordinator address host:port, or a torch init "
+                        "URL such as file:///path (with --distributed)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     args = p.parse_args(argv)
+
+    if args.distributed:
+        mesh.distributed_init(
+            coordinator=args.coordinator,
+            num_processes=args.num_processes or 1,
+            process_id=args.process_id or 0, device=args.device)
 
     overrides = {"device": args.device}
     if args.samples is not None:
@@ -211,7 +263,8 @@ def main(argv=None, callbacks=()):
         overrides["workdir"] = args.workdir
     if args.per_sample_backend is not None:
         overrides["per_sample_backend"] = args.per_sample_backend
-    for name in ("gram_backend", "gram_cross", "chunk_size", "is_gamma"):
+    for name in ("gram_backend", "gram_cross", "chunk_size", "is_gamma",
+                 "stats_partitioning", "mesh_dp", "mesh_tp"):
         if getattr(args, name) is not None:
             overrides[name] = getattr(args, name)
     return run(preset(args.mode, **overrides), max_steps=args.max_steps,

@@ -16,9 +16,12 @@
 //
 // Uniforms come from the caller (EXT: the (2d + 2, sweeps * C) block of the
 // JAX kernel's external-uniform contract, column s * C + c) or from
-// Philox-4x32-10 keyed by the 64-bit seed with the counter (chain, sweep,
-// word group, 0): the counterpart of the TPU's hardware PRNG, reproducible
-// and independent of the launch shape. A word becomes (w & 0x7FFFFF) 2^-23
+// Philox-4x32-10 keyed by the 64-bit seed with the counter (chain_base +
+// chain, sweep, word group, 0): the counterpart of the TPU's hardware PRNG,
+// reproducible and independent of the launch shape. A rank that runs the
+// chains [chain_base, chain_base + C) of a sharded ensemble passes its
+// chain_base (metropolis_chain_sharded), so the shards replay the single
+// launch bit for bit. A word becomes (w & 0x7FFFFF) 2^-23
 // + 1e-12 as on the TPU. The accepted moves are summed by warp shuffles and
 // one 64-bit integer atomic per warp: deterministic.
 //
@@ -94,8 +97,9 @@ template <bool EXT>
 __global__ void __launch_bounds__(THREADS) metropolis_kernel(
     const float* __restrict__ init, const float* __restrict__ offset,
     float bound, const float* __restrict__ u, unsigned long long seed,
-    int n_chains, int n_steps, float* __restrict__ samples,
-    float* __restrict__ final_states, unsigned long long* __restrict__ n_acc) {
+    unsigned chain_base, int n_chains, int n_steps,
+    float* __restrict__ samples, float* __restrict__ final_states,
+    unsigned long long* __restrict__ n_acc) {
   constexpr float INV_DIM = 1.f / DIM;
   const int c = blockIdx.x * THREADS + threadIdx.x;
   unsigned long long acc = 0;
@@ -118,7 +122,8 @@ __global__ void __launch_bounds__(THREADS) metropolis_kernel(
       } else {
 #pragma unroll
         for (int j = 0; j < (ROWS + 3) / 4; ++j) {
-          uint32_t w[4] = {(uint32_t)c, (uint32_t)s, (uint32_t)j, 0u};
+          uint32_t w[4] = {chain_base + (uint32_t)c, (uint32_t)s, (uint32_t)j,
+                           0u};
           philox4x32_10(w, k0, k1);
 #pragma unroll
           for (int q = 0; q < 4; ++q)
@@ -164,24 +169,26 @@ __global__ void __launch_bounds__(THREADS) metropolis_kernel(
 // C entry point: launches on ``stream`` and returns cudaGetLastError() (0 on
 // success; cudaErrorInvalidValue for empty shapes). init (C, 2) f32, offset
 // (2,) f32, u (6, n_steps * C) f32 or NULL for the Philox stream of
-// ``seed``; outputs samples (n_steps * C, 2) sweep-major, final_states
-// (C, 2) and n_acc, one int64 the caller zeroes.
+// ``seed`` (chain c's counter word is chain_base + c); outputs samples
+// (n_steps * C, 2) sweep-major, final_states (C, 2) and n_acc, one int64
+// the caller zeroes.
 extern "C" int metropolis_f32(const float* init, const float* offset,
                               float bound, const float* u,
-                              unsigned long long seed, int n_chains,
-                              int n_steps, float* samples, float* final_states,
-                              void* n_acc, void* stream) {
-  if (n_chains <= 0 || n_steps <= 0) return (int)cudaErrorInvalidValue;
+                              unsigned long long seed, int chain_base,
+                              int n_chains, int n_steps, float* samples,
+                              float* final_states, void* n_acc, void* stream) {
+  if (n_chains <= 0 || n_steps <= 0 || chain_base < 0)
+    return (int)cudaErrorInvalidValue;
   auto* acc = static_cast<unsigned long long*>(n_acc);
   const cudaStream_t s = (cudaStream_t)stream;
   const int blocks = (n_chains + THREADS - 1) / THREADS;
   if (u)
     metropolis_kernel<true><<<blocks, THREADS, 0, s>>>(
-        init, offset, bound, u, seed, n_chains, n_steps, samples,
-        final_states, acc);
+        init, offset, bound, u, seed, (unsigned)chain_base, n_chains, n_steps,
+        samples, final_states, acc);
   else
     metropolis_kernel<false><<<blocks, THREADS, 0, s>>>(
-        init, offset, bound, u, seed, n_chains, n_steps, samples,
-        final_states, acc);
+        init, offset, bound, u, seed, (unsigned)chain_base, n_chains, n_steps,
+        samples, final_states, acc);
   return (int)cudaGetLastError();
 }

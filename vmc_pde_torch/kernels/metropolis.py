@@ -13,8 +13,10 @@ Box-Muller, row 2d the radius, row 2d + 1 the accept test. They come
 either from the caller (``uniforms`` of shape (2d + 2, n_steps * C),
 column s * C + c: the JAX kernel's external-uniform contract, which
 replays bit for bit) or from Philox-4x32-10 keyed by the 64-bit ``seed``
-with the counter (c, s, j, 0) for words 4j..4j+3: the counterpart of the
-TPU's hardware PRNG, reproducible and independent of the launch shape.
+with the counter (chain_base + c, s, j, 0) for words 4j..4j+3: the
+counterpart of the TPU's hardware PRNG, reproducible and independent of
+the launch shape. ``chain_base`` (default 0) is the global index of the
+launch's first chain.
 Each 32-bit word becomes a uniform as the TPU path makes one: its low 23
 bits times 2^-23, plus 1e-12 (so Box-Muller's log stays finite).
 
@@ -22,8 +24,16 @@ bits times 2^-23, plus 1e-12 (so Box-Muller's log stays finite).
 csrc/metropolis.cu; ``metropolis_chain_plain`` is the same sequence of f32
 operations in torch (with ``philox_uniforms`` on the host when no uniforms
 are given); ``metropolis_chain`` takes the plain version only for a tensor
-on the CPU, and for a CUDA tensor launches the kernel or raises. The
-sampler's standalone route uses it (sampling/sampler.py).
+on the CPU, and for a CUDA tensor launches the kernel or raises.
+
+``metropolis_chain_sharded`` replaces the shard_map wrapper
+vmc_pde_tpu/kernels/metropolis.py::metropolis_chain_pallas_sharded: on a
+mesh (parallel/mesh.py) each rank runs its n_chains / W chains (a
+multiple of 128) with the global index of its first chain as the Philox
+``chain_base``, external uniforms split by chain column, and the accept
+count summed over the ranks; ``gather_sweep_major`` assembles the global
+sweep-major block. The sampler's standalone route uses it
+(sampling/sampler.py).
 
 Contract kept from the JAX kernel: n_chains a multiple of 128 (else
 ValueError), sweep counts rounded up to multiples of SWEEPS_PER_BLOCK,
@@ -38,6 +48,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..parallel import mesh
 
 SWEEPS_PER_BLOCK = 8
 
@@ -89,14 +101,17 @@ def philox4x32_10(ctr, key):
     return c0, c1, c2, c3
 
 
-def philox_uniforms(seed: int, n_chains: int, n_steps: int, dim: int):
-    """The uniforms the kernel's Philox variant draws, as a (2 dim + 2,
-    n_steps * n_chains) f32 numpy array in the external-uniform layout."""
+def philox_uniforms(seed: int, n_chains: int, n_steps: int, dim: int,
+                    chain_base: int = 0):
+    """The uniforms the kernel's Philox variant draws for the chains
+    chain_base .. chain_base + n_chains - 1, as a (2 dim + 2, n_steps *
+    n_chains) f32 numpy array in the external-uniform layout."""
     rows = 2 * dim + 2
     seed = int(seed) & 0xFFFFFFFFFFFFFFFF
     key = (seed & _MASK32, seed >> 32)
     s, c = np.meshgrid(np.arange(n_steps, dtype=np.uint64),
-                       np.arange(n_chains, dtype=np.uint64), indexing="ij")
+                       np.arange(chain_base, chain_base + n_chains,
+                                 dtype=np.uint64), indexing="ij")
     out = np.empty((rows, n_steps, n_chains), dtype=np.float32)
     for j in range(-(-rows // 4)):
         words = philox4x32_10((c, s, np.full_like(c, j), np.zeros_like(c)),
@@ -137,15 +152,18 @@ def _ball_proposal(u, bound, offset):
 
 
 def metropolis_chain_plain(seed: int, init_states, n_steps: int,
-                           bound: float, offset, uniforms=None):
+                           bound: float, offset, uniforms=None,
+                           chain_base: int = 0):
     """(samples (n_steps * C, d) f32, final states (C, d), accepted moves
     as a 0-d int64 tensor), the kernel's arithmetic in torch on the
-    inputs' device. Without ``uniforms`` the Philox stream of ``seed``."""
+    inputs' device. Without ``uniforms`` the Philox stream of ``seed``
+    for the chains from ``chain_base`` on."""
     n_steps = _check(init_states, n_steps, uniforms)
     C, d = init_states.shape
     dev = init_states.device
     if uniforms is None:
-        uniforms = torch.from_numpy(philox_uniforms(seed, C, n_steps, d))
+        uniforms = torch.from_numpy(philox_uniforms(seed, C, n_steps, d,
+                                                    chain_base))
     u = uniforms.to(device=dev, dtype=torch.float32).reshape(2 * d + 2,
                                                              n_steps, C)
     off = torch.as_tensor(np.asarray(offset, dtype=np.float32).reshape(d),
@@ -169,7 +187,8 @@ def metropolis_chain_plain(seed: int, init_states, n_steps: int,
 
 
 def metropolis_chain_cuda(seed: int, init_states, n_steps: int,
-                          bound: float, offset, uniforms=None):
+                          bound: float, offset, uniforms=None,
+                          chain_base: int = 0):
     """Same outputs as ``metropolis_chain_plain``, from one launch of the
     CUDA kernel: init_states (C, d) and the optional uniforms f32 on one
     CUDA device."""
@@ -197,7 +216,8 @@ def metropolis_chain_cuda(seed: int, init_states, n_steps: int,
     code = lib.metropolis_f32(
         init.data_ptr(), off.data_ptr(), ctypes.c_float(float(bound)),
         None if u is None else u.data_ptr(),
-        ctypes.c_ulonglong(int(seed) & 0xFFFFFFFFFFFFFFFF), C, n_steps,
+        ctypes.c_ulonglong(int(seed) & 0xFFFFFFFFFFFFFFFF), int(chain_base),
+        C, n_steps,
         samples.data_ptr(), final.data_ptr(), n_acc.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "metropolis_f32")
@@ -209,11 +229,64 @@ metropolis_chain_cuda.launches = 0
 
 
 def metropolis_chain(seed: int, init_states, n_steps: int, bound: float,
-                     offset, uniforms=None):
+                     offset, uniforms=None, chain_base: int = 0):
     """The plain version for a CPU tensor; the CUDA kernel otherwise (or
     an error: there is no fallback on the card)."""
     if init_states.device.type == "cpu":
         return metropolis_chain_plain(seed, init_states, n_steps, bound,
-                                      offset, uniforms)
+                                      offset, uniforms, chain_base)
     return metropolis_chain_cuda(seed, init_states, n_steps, bound, offset,
-                                 uniforms)
+                                 uniforms, chain_base)
+
+
+def metropolis_chain_sharded(ctx, seed: int, init_states, n_steps: int,
+                             bound: float, offset, uniforms=None):
+    """Rank ``ctx.rank``'s shard of a chain ensemble of n_chains = W * C
+    chains: ``init_states`` are its C chains, the global chains
+    [rank C, (rank + 1) C); C must be a multiple of 128 (ValueError).
+    ``uniforms``: the GLOBAL (2d + 2, n_steps * n_chains) block, split here
+    by chain column; without it the Philox stream of ``seed`` at the
+    global chain index. Returns (the rank's sweep-major samples
+    (n_steps * C, d), its final states (C, d), the accepted moves of ALL
+    ranks as a 0-d int64 tensor): the single launch's rows of these
+    chains, bit for bit (``gather_sweep_major`` assembles them). One rank
+    passes through to ``metropolis_chain``. ``.launches`` counts this
+    rank's kernel launches."""
+    if ctx.world == 1:
+        return metropolis_chain(seed, init_states, n_steps, bound, offset,
+                                uniforms)
+    C, d = init_states.shape
+    if C % 128 or C == 0:
+        raise ValueError(f"n_chains = {C * ctx.world} must be a multiple of "
+                         f"128 * world (= {128 * ctx.world}) for the "
+                         "sharded kernel")
+    base = ctx.rank * C
+    if uniforms is not None:
+        n_steps = rounded_sweeps(n_steps)
+        expected = (2 * d + 2, n_steps * C * ctx.world)
+        if tuple(uniforms.shape) != expected:
+            raise ValueError(f"uniforms must have shape {expected}, got "
+                             f"{tuple(uniforms.shape)}")
+        uniforms = uniforms.reshape(2 * d + 2, n_steps, C * ctx.world)[
+            :, :, base:base + C].reshape(2 * d + 2, n_steps * C)
+    samples, final, n_acc = metropolis_chain(seed, init_states, n_steps,
+                                             bound, offset, uniforms, base)
+    if init_states.device.type != "cpu":
+        metropolis_chain_sharded.launches += 1
+    (n_acc,) = mesh.all_reduce_sum(ctx, [n_acc])
+    return samples, final, n_acc
+
+
+metropolis_chain_sharded.launches = 0
+
+
+def gather_sweep_major(ctx, samples, n_steps: int):
+    """The global sweep-major (n_steps * n_chains, d) block from every
+    rank's ``metropolis_chain_sharded`` samples (n_steps * C, d), on every
+    rank; ``n_steps`` is the rounded sweep count."""
+    if ctx.world == 1:
+        return samples
+    d = samples.shape[1]
+    per_chain = samples.reshape(n_steps, -1, d).transpose(0, 1).contiguous()
+    full = mesh.all_gather_rows(ctx, per_chain)
+    return full.transpose(0, 1).reshape(-1, d)

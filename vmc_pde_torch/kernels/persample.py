@@ -25,6 +25,13 @@ plain pipeline followed by parallel/stats._split_bf16, and
 ``per_sample_split`` dispatches as ``per_sample`` does. Each CUDA wrapper
 counts its launches (``.launches``).
 
+``per_sample_sharded`` replaces the shard_map wrapper
+vmc_pde_tpu/kernels/persample.py::make_per_sample_sharded: on a mesh
+(parallel/mesh.py) it is the rank's launch of the plain-mode kernel on its
+N/W rows, and the plain version for a CPU shard. The TPU wrapper needs N
+to divide dp * tile; the CUDA kernel masks ragged tiles, so the world
+alone is the rule.
+
 What bounds the kernel on the card: the (P, N) f32 O store. At the
 fokkerPlanck32 shape (P = 9264, N = 16384) that is 607 MB per right-hand
 side, about 0.2 ms at the H100's 3.35 TB/s, against roughly 5 GFLOP of
@@ -354,3 +361,26 @@ def per_sample_split(flow, theta, x, dirs, shift):
     if x.device.type == "cpu":
         return per_sample_split_plain(flow, theta, x, dirs, shift)
     return per_sample_split_cuda(flow, theta, x, dirs, shift)
+
+
+def per_sample_sharded(ctx, flow, theta, x_local, dirs=None,
+                       n_global: Optional[int] = None):
+    """``per_sample`` on rank ``ctx.rank``'s shard x_local of a global batch
+    of ``n_global`` samples (default: the shard times the world): the
+    plain-mode kernel on the rank's N/W rows for a CUDA tensor, the plain
+    version for a CPU one. Outputs are the shard's rows. ValueError unless
+    the global count divides by the world into shards of x_local's size.
+    ``.launches`` counts this rank's kernel launches."""
+    n_loc = x_local.shape[0]
+    n = n_loc * ctx.world if n_global is None else int(n_global)
+    if n % ctx.world or n // ctx.world != n_loc:
+        raise ValueError(f"a global batch of {n} samples does not shard "
+                         f"over {ctx.world} ranks into shards of {n_loc}")
+    if x_local.device.type == "cpu":
+        return per_sample_plain(flow, theta, x_local, dirs)
+    out = per_sample_cuda(flow, theta, x_local, dirs)
+    per_sample_sharded.launches += 1
+    return out
+
+
+per_sample_sharded.launches = 0

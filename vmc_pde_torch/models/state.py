@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import ParallelCtx
 from ..utils.dtypes import Precision
 
 
@@ -87,19 +88,23 @@ class Layout:
 
 
 class VarState:
-    """A flow, its flat parameters and its sampler on one device.
+    """A flow, its flat parameters and its sampler on one rank's device.
 
-    ``theta`` is the compute-dtype flat vector; ``get_parameters`` returns
-    the master-dtype copy the time integrator advances."""
+    ``theta`` is the compute-dtype flat vector, the same on every rank;
+    ``get_parameters`` returns the master-dtype copy the time integrator
+    advances. ``ctx``: the rank's place on the mesh (parallel/mesh.py;
+    one device if None)."""
 
     def __init__(self, flow, theta: torch.Tensor, sampler=None,
-                 precision: Optional[Precision] = None):
+                 precision: Optional[Precision] = None,
+                 ctx: Optional[ParallelCtx] = None):
         self.flow = flow
         self.layout = flow.layout
         self.precision = precision or Precision.f32_only()
         self.sampler = sampler
         self.dim = flow.dim
         self.device = theta.device
+        self.ctx = ctx or ParallelCtx.single_device(theta.device)
         self.numParameters = self.layout.size
         self.set_parameters(theta)
 
@@ -122,8 +127,8 @@ class VarState:
     def sample(self, numSamples: int, key: int):
         """Draw from the model density: latent draws (exact, or Metropolis
         chains carried across calls) pushed through the inverse flow.
-        Returns (x (n, d), logp (n,)) with n the sampler's rounded
-        budget."""
+        Returns this rank's shard (x (n, d), logp (n,)), n the sampler's
+        rounded budget over the world (Sampler.sample)."""
         if self.sampler is None:
             raise ValueError("VarState has no sampler")
         gen = torch.Generator(device=self.device)

@@ -1,7 +1,10 @@
 """Sample statistics, the counterpart of vmc_pde_tpu/parallel/stats.py.
 
-Single device for now: every statistic is a plain torch reduction over the
-leading sample axis. The f32 Gram is one ``torch.matmul``; on the card it
+Every statistic is a plain torch reduction over the leading sample axis.
+On a mesh (parallel/mesh.py) a rank holds its shard of the rows: its sums
+cross ranks through ``mesh.all_reduce_sum`` and divide by the GLOBAL
+count (``global_means``; ``second_moment_matrix`` takes the count), never
+by the shard's. The f32 Gram is one ``torch.matmul``; on the card it
 runs in full f32 because utils/dtypes.full_f32_matmuls turns TF32 off,
 which is what the JAX package's ``gram_backend="auto"`` resolves to off
 the TPU.
@@ -36,6 +39,8 @@ from __future__ import annotations
 
 import torch
 
+from . import mesh
+
 # Exact int32 accumulation bound of the int8 cross term: |q| <= 127, so a
 # sum over N samples stays below 2^31 - 1 for N <= 133152; rounded down to
 # 131072 (131072 * 127^2 = 2.114e9). Longer contractions take the bf16
@@ -43,16 +48,23 @@ import torch
 _INT8_CROSS_N_MAX = 131072
 
 
-def mean(data, axis: int = 0):
-    """E[X] over the sample axis (where a multi-device port will reduce
-    across ranks)."""
-    return data.mean(dim=axis)
+def global_means(ctx, tensors, n: int):
+    """E over the global sample axis of each rank-local (N/W, ...) tensor:
+    the local sums cross ranks in one all-reduce and divide by the global
+    count ``n`` (the JAX package's psum(sum) / n_global). On one rank, the
+    plain means."""
+    if ctx.world == 1:
+        return [t.mean(dim=0) for t in tensors]
+    sums = mesh.all_reduce_sum(ctx, [t.sum(dim=0) for t in tensors])
+    return [s / n for s in sums]
 
 
-def second_moment_matrix(data, w=None):
+def second_moment_matrix(data, w=None, n=None):
     """E[w_i X_i^T X_i] for data of shape (N, P), with optional per-sample
-    weights w (N,): the Gram contraction of the TDVP step."""
-    n = data.shape[0]
+    weights w (N,): the Gram contraction of the TDVP step. ``n``: the
+    count to normalize by (default the rows given; a shard's caller passes
+    the global count and sums the ranks' results)."""
+    n = data.shape[0] if n is None else n
     rhs = data if w is None else data * w[:, None]
     return torch.matmul(data.T, rhs) / n
 

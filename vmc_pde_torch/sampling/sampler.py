@@ -18,6 +18,15 @@ Metropolis kernel (kernels/metropolis.py) instead of the torch chain.
 Random numbers come from explicit ``torch.Generator``s. They differ from
 JAX's threefry streams for the same seed, so tests that compare the two
 packages hand both the same draws, or compare statistics.
+
+On a mesh (``ctx``, parallel/mesh.py) the chain count rounds up to a
+multiple of the world and each rank runs its n_chains / W chains; every
+random number is drawn for the whole ensemble from the one generator and
+the rank keeps its chains' columns (exact draws: its rows), so a W-rank
+run replays the one-rank run. Accept counts are summed over the ranks
+before anything reads them, the random-walk adaptation included, so every
+rank adapts to the same scale. The kernel route needs n_chains % (128 W)
+== 0 and runs ``metropolis_chain_sharded``.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ import torch
 
 from ..kernels import metropolis as mkernel
 from ..models import latent as latent_mod
+from ..parallel import mesh
+from ..parallel.mesh import ParallelCtx
 
 
 # The ML-fluid paper's compactly supported cosine bump for x of shape
@@ -68,7 +79,8 @@ class MCSampleInfo:
 
 def metropolis_chain(gen: torch.Generator, init_states, log_prob: Callable,
                      proposer: Callable, n_steps: int, mcmc_info,
-                     rw_scale=None, chain_major: bool = False):
+                     rw_scale=None, chain_major: bool = False,
+                     chain_block=None):
     """Run all chains for n_steps Metropolis updates. Returns (samples
     (n_steps * n_chains, dim), final states, accepted moves as a 0-d int64
     tensor).
@@ -79,17 +91,23 @@ def metropolis_chain(gen: torch.Generator, init_states, log_prob: Callable,
     independence proposals the target is evaluated on all proposals in
     one batch, so the sweep loop only accepts or rejects. Samples are
     sweep-major (row s * C + c is chain c after sweep s), or grouped by
-    chain with ``chain_major``."""
+    chain with ``chain_major``. ``chain_block``: (first, total), the
+    chains being [first, first + C) of an ensemble of ``total`` whose
+    random numbers are drawn whole, each chain keeping its own column (a
+    rank's shard); default (0, C)."""
     C, dim = init_states.shape
     dtype, dev = init_states.dtype, init_states.device
+    first, total = chain_block or (0, C)
+    cols = slice(first, first + C)
     if rw_scale is None:
-        props = proposer(gen, n_steps * C, dim, mcmc_info, dtype=dtype)
-        props = props.reshape(n_steps, C, dim)
+        props = proposer(gen, n_steps * total, dim, mcmc_info, dtype=dtype)
+        props = props.reshape(n_steps, total, dim)[:, cols]
         lp_props = log_prob(props)
     else:
-        noise = torch.randn((n_steps, C, dim), generator=gen, dtype=dtype,
-                            device=dev)
-    u = torch.rand((n_steps, C), generator=gen, dtype=dtype, device=dev)
+        noise = torch.randn((n_steps, total, dim), generator=gen,
+                            dtype=dtype, device=dev)[:, cols]
+    u = torch.rand((n_steps, total), generator=gen, dtype=dtype,
+                   device=dev)[:, cols]
     states = init_states
     lp = log_prob(states)
     out, accepted = [], []
@@ -130,10 +148,18 @@ class Sampler:
     rw_scale: object = 0.5
     rw_adapt: bool = True
     rw_target_accept: float = 0.234
+    # the rank's place on the mesh (parallel/mesh.py); one device if None
+    ctx: Optional[ParallelCtx] = None
 
     def __post_init__(self):
         latent_mod.check_name(self.name)
         self.exact = self.name in latent_mod.EXACT_NAMES
+        if self.ctx is None:
+            self.ctx = ParallelCtx.single_device()
+        w = self.ctx.world
+        if not self.exact and self.n_chains % w:
+            # every rank runs the same number of chains (budgets only grow)
+            self.n_chains = -(-self.n_chains // w) * w
         if self.mcmc_info is None:
             self.mcmc_info = {"offset": np.zeros(self.dim), "bound": 0.25}
         if self.proposal_mode not in ("independence", "rw"):
@@ -164,7 +190,7 @@ class Sampler:
 
     def _kernel_target(self) -> bool:
         return (not self.exact and self.name == "cos_dist"
-                and self.n_chains % 128 == 0
+                and self.n_chains % (128 * self.ctx.world) == 0
                 and self.proposal_mode == "independence")
 
     def uses_kernel(self, device) -> bool:
@@ -173,29 +199,46 @@ class Sampler:
         in place of "on TPU"."""
         return torch.device(device).type == "cuda" and self._kernel_target()
 
+    @property
+    def local_chains(self) -> int:
+        """The chains this rank runs."""
+        return self.n_chains // self.ctx.world
+
+    def _chain_block(self):
+        """(first, total): this rank's chains in the ensemble."""
+        return self.ctx.rank * self.local_chains, self.n_chains
+
     # ------------------------------------------------------------------
     def rounded_budget(self, n: int) -> int:
-        """Sample budget as drawn: a multiple of n_chains for MCMC."""
+        """Global sample budget as drawn: a multiple of the dp axis and,
+        for MCMC, of n_chains."""
         mult = 1 if self.exact else self.n_chains
-        return -(-int(n) // mult) * mult
+        return self.ctx.shard_samples(n, multiple_of=mult)
 
     def sample(self, gen: torch.Generator, flow, params, n: int):
-        """(z (n_total, dim), n_total) latent draws, offset applied;
-        n_total = rounded_budget(n)."""
+        """(z, n_total) with n_total = rounded_budget(n) and z this rank's
+        latent draws, offset applied: its rows of the global exact draw,
+        or its chains' sweeps for MCMC (n_total / W rows either way)."""
         n_total = self.rounded_budget(n)
         if self.exact:
-            return flow.latent_sample(gen, params, n_total, self.dtype), \
-                n_total
+            return self.ctx.local_rows(flow.latent_sample(
+                gen, params, n_total, self.dtype)), n_total
         return self._sample_mcmc(gen, n_total), n_total
 
     # -- the chain carried across TDVP right-hand sides -----------------
     def make_chain_fn(self):
-        """(gen, states, rw_scale, n_steps) -> (chain-major samples, final
-        states, accepted moves)."""
+        """(gen, states, rw_scale, n_steps) -> (chain-major samples of this
+        rank's chains, their final states, the accepted moves of all
+        ranks)."""
+        block = self._chain_block()
+
         def chain_fn(gen, states, rw_scale, n_steps: int):
-            return metropolis_chain(gen, states, self.latent_log_prob,
-                                    self.proposer, n_steps, self.mcmc_info,
-                                    rw_scale=rw_scale, chain_major=True)
+            z, states, acc = metropolis_chain(
+                gen, states, self.latent_log_prob, self.proposer, n_steps,
+                self.mcmc_info, rw_scale=rw_scale, chain_major=True,
+                chain_block=block)
+            (acc,) = mesh.all_reduce_sum(self.ctx, [acc])
+            return z, states, acc
 
         return chain_fn
 
@@ -204,8 +247,9 @@ class Sampler:
         return self.rw_scale if self.proposal_mode == "rw" else None
 
     def ensure_chain_state(self, key: int, device):
-        """Initialize the (n_chains, dim) chain state (plus burn-in sweeps)
-        on first use, from a generator seeded by ``key``; returns it."""
+        """Initialize this rank's (local_chains, dim) chain state (plus
+        burn-in sweeps) on first use, from a generator seeded by ``key``;
+        returns it."""
         if self._states is None:
             gen = torch.Generator(device=device)
             gen.manual_seed(key)
@@ -217,7 +261,8 @@ class Sampler:
 
     def note_fused_acceptance(self, new_states, n_accepted, n_proposed):
         """Absorb a right-hand side's chain: store the carried state and
-        the counts (device tensors stay on the device) and, in rw mode,
+        the counts of all ranks (device tensors stay on the device) and,
+        in rw mode,
         take the Robbins-Monro step on the scale, on the counts' device,
         so nothing waits for the host."""
         self._states = new_states
@@ -240,8 +285,8 @@ class Sampler:
 
     # ------------------------------------------------------------------
     def _init_states(self, gen):
-        return self.proposer(gen, self.n_chains, self.dim, self.mcmc_info,
-                             dtype=self.dtype)
+        return self.ctx.local_rows(self.proposer(
+            gen, self.n_chains, self.dim, self.mcmc_info, dtype=self.dtype))
 
     def _sample_mcmc(self, gen, n_total: int):
         if self._states is None:
@@ -252,9 +297,10 @@ class Sampler:
         rw = self.chain_rw_scale()
         samples, self._states, n_acc = metropolis_chain(
             gen, self._states, self.latent_log_prob, self.proposer, n_steps,
-            self.mcmc_info, rw_scale=rw)
+            self.mcmc_info, rw_scale=rw, chain_block=self._chain_block())
+        (n_acc,) = mesh.all_reduce_sum(self.ctx, [n_acc])
         if self.burn_in:
-            samples = samples[self.burn_in * self.n_chains:]
+            samples = samples[self.burn_in * self.local_chains:]
         self.last_info = MCSampleInfo(num_proposed=n_steps * self.n_chains,
                                       num_accepted=int(n_acc))
         if rw is not None and self.rw_adapt:
@@ -262,21 +308,22 @@ class Sampler:
         return samples
 
     def _sample_mcmc_kernel(self, gen, n_total: int, n_steps: int):
-        """The whole chain ensemble in one launch of the Metropolis kernel
-        with its Philox stream (the plain version for CPU tensors). The
+        """This rank's chains in one launch of the Metropolis kernel with
+        its Philox stream at the global chain index (the plain version for
+        CPU tensors; one launch for the whole ensemble on one rank). The
         kernel rounds the sweep count up to whole blocks: the samples are
         trimmed to the budget and the proposals counted on the rounded
         sweeps, so acceptance_rate stays in [0, 1]."""
         seed = int(torch.randint(0, 2**31 - 1, (1,), generator=gen,
                                  device=gen.device))
-        samples, final, n_acc = mkernel.metropolis_chain(
-            seed, self._states.float(), n_steps,
+        samples, final, n_acc = mkernel.metropolis_chain_sharded(
+            self.ctx, seed, self._states.float(), n_steps,
             float(self.mcmc_info["bound"]),
             np.asarray(self.mcmc_info["offset"]))
         self._states = final.to(self.dtype)
         if self.burn_in:
-            samples = samples[self.burn_in * self.n_chains:]
-        samples = samples[:n_total]
+            samples = samples[self.burn_in * self.local_chains:]
+        samples = samples[:n_total // self.ctx.world]
         self.last_info = MCSampleInfo(
             num_proposed=mkernel.rounded_sweeps(n_steps) * self.n_chains,
             num_accepted=int(n_acc))

@@ -19,14 +19,37 @@ as the reference does; the update u is dtheta/dt.
 theta is held in the master dtype (f64) by the integrator and cast to the
 compute dtype per stage. Random numbers come from ``torch.Generator``s
 seeded from an integer key; ``fold_in`` derives independent keys per step
-and stage. The f64 Gram precisions, cg/minSR, the host solve,
-multi-device statistics and the adaptive steppers' S metric are not
-ported yet (ROADMAP.md).
+and stage. The f64 Gram precisions, cg/minSR, the host solve and the
+adaptive steppers' S metric are not ported yet (ROADMAP.md).
+
+On a mesh (``state.ctx``, parallel/mesh.py) every rank runs this class on
+its shard of the samples: the draws are global and sliced, the per-sample
+kernels run on the rank's rows, means and maxima are global, and the
+moments cross ranks in one all-reduce per statistics evaluation; the solve
+and the Heun update then run on every rank from the same reduced moments.
+``stats_partitioning`` selects, as in the JAX package:
+
+- "shard_map" (what "auto" takes where it may): the per-rank direct or
+  chunked statistics with the plain-mode and split kernels and quant8 on
+  each rank's rows, the chunked pilot shift averaged over ranks, and the
+  assembled (P, P) moments summed once (the JAX package's _stats_sharded,
+  tdvp.py:1549-1598). It needs no eloc_clip, no is_gamma and budgets and
+  chunks divisible by the world (the JAX package's ValueError otherwise);
+  a dp x tp mesh flattens into W sample shards.
+- "gspmd" (and "auto" where shard_map may not run): the direct statistics
+  on a dp-only mesh with the per-sample kernel through
+  ``persample.per_sample_sharded``, the clip's global median and MAD, the
+  IS weights' global max and mean, and the Gram summed once. Its tp
+  row-sharded Gram layout and its chunked statistics are not ported
+  (NotImplementedError naming ROADMAP.md). Its int8 cross term, where
+  asked for, quantizes each rank's rows with their own column scales (the
+  JAX package's takes global scales there).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional
 
@@ -35,7 +58,7 @@ import torch
 from ..kernels import persample, quant8, syrk
 from ..models.state import VarState
 from ..ops.evolution import Equation
-from ..parallel import stats
+from ..parallel import mesh, stats
 from ..utils.dtypes import Precision, full_f32_matmuls
 
 _MASK63 = (1 << 63) - 1
@@ -85,6 +108,8 @@ class TDVPConfig:
     # floor svd_tol / eig_cutoff at 64 / 8 eps of the compute dtype
     auto_tol_floor: bool = True
     hessian_mode: str = "auto"
+    # "auto" | "shard_map" | "gspmd": the statistics on a mesh (module
+    # docstring); one rank runs the single-device statistics whatever it is
     stats_partitioning: str = "auto"
     # "cuda": the hand-written per-sample kernel (kernels/persample.py);
     # "torch": the torch.func pipeline; "auto": the kernel on a CUDA device
@@ -126,8 +151,9 @@ def _check_ported(cfg: TDVPConfig) -> None:
         raise _not_ported("hessian_mode='block'")
     if cfg.hessian_mode not in ("auto", "trace"):
         raise ValueError(f"unknown hessian_mode {cfg.hessian_mode!r}")
-    if cfg.stats_partitioning != "auto":
-        raise _not_ported("multi-device statistics")
+    if cfg.stats_partitioning not in ("auto", "gspmd", "shard_map"):
+        raise ValueError(
+            f"unknown stats_partitioning {cfg.stats_partitioning!r}")
     if cfg.compute_sexp or cfg.sexp_mode != "none":
         raise _not_ported("the adaptive steppers' S metric")
     if not cfg.solve_on_device:
@@ -211,7 +237,7 @@ def _solve_cholesky(S, F, cfg: TDVPConfig, lam_max=None):
 
 
 class TDVP:
-    """Fused TDVP right-hand side on one device.
+    """Fused TDVP right-hand side on one device, or on one rank of a mesh.
 
     ``rhs(theta_master, t, key)`` returns (dtheta_master, aux);
     ``heun_pair`` a whole fixed-Heun step. After each call the reference's
@@ -230,6 +256,11 @@ class TDVP:
         self.precision = precision or state.precision
         self.sampler = state.sampler
         self.device = state.device
+        self.ctx = ctx = state.ctx
+        if (self.sampler.ctx.world, self.sampler.ctx.rank) != (ctx.world,
+                                                              ctx.rank):
+            raise ValueError("the sampler and the state sit on different "
+                             "meshes")
         self.n_samples = self.sampler.rounded_budget(n_samples)
         self.n_samples_obs = (self.sampler.rounded_budget(n_samples_obs)
                               if n_samples_obs is not None
@@ -280,6 +311,42 @@ class TDVP:
             cfg = dataclasses.replace(cfg, compute_snr=keep_snr)
         self.cfg = cfg
 
+        # The statistics on a mesh, gated as in the JAX package
+        # (tdvp.py:634-686): shard_map where it may run (and auto takes it,
+        # except at tp > 1 with P > 16384, where the JAX package keeps its
+        # memory-scaling GSPMD layout), else the GSPMD counterpart
+        W = ctx.world
+        smap_ok = (
+            W > 1
+            and method in ("eigh", "cholesky")
+            and cfg.eloc_clip == 0.0
+            and cfg.is_gamma == 1.0
+            and (cfg.chunk_size == 0 or cfg.chunk_size % W == 0)
+            and self.n_samples % W == 0
+        )
+        if cfg.stats_partitioning == "shard_map" and not smap_ok:
+            raise ValueError(
+                "stats_partitioning='shard_map' needs a multi-device "
+                "mesh, solver_method eigh/cholesky, no "
+                "eloc_clip/is_gamma, and n_samples/chunk_size divisible "
+                "by the mesh size "
+                f"(mesh dp={ctx.dp} tp={ctx.tp}, "
+                f"method={method!r}, n_samples={self.n_samples}, "
+                f"chunk_size={cfg.chunk_size})"
+            )
+        self._stats_shardmap = smap_ok and (
+            cfg.stats_partitioning == "shard_map"
+            or (cfg.stats_partitioning == "auto"
+                and (ctx.tp == 1 or state.numParameters <= 16384)))
+        self._gspmd = W > 1 and not self._stats_shardmap
+        if self._gspmd and ctx.tp > 1:
+            raise _not_ported(
+                "the GSPMD statistics on a mesh with tp > 1 (the JAX "
+                "package's tp-row-sharded Gram)")
+        if self._gspmd and 0 < cfg.chunk_size < self.n_samples:
+            raise _not_ported(
+                "chunked statistics under stats_partitioning='gspmd'")
+
         # Gram backend: "auto" resolves as the JAX package resolves it off
         # a TPU, to the plain f32 product; only an explicit syrk/sym2/tri2
         # engages the bf16 split (syrk: the triangle kernel,
@@ -293,6 +360,11 @@ class TDVP:
                 "statistics at gram_precision='high' numerics; use "
                 "'auto'/'xla' with this precision configuration")
         self._use_syrk = cfg.gram_backend == "syrk"
+        if self._use_syrk and W > 1:
+            raise ValueError(
+                "gram_backend='syrk' is a single-device kernel; use "
+                "gram_backend='auto'/'xla' on multi-device meshes"
+            )
         self._use_sym2 = cfg.gram_backend == "sym2"
         self._use_tri2 = cfg.gram_backend == "tri2"
         self._cross_int8 = cfg.gram_cross == "int8"
@@ -325,9 +397,15 @@ class TDVP:
             and 2048 <= self.n_params <= 32768
             and kernel_ok)
         # the wrapper launches the kernel for CUDA tensors and takes the
-        # plain pipeline for CPU tensors
-        self._per_sample = (persample.per_sample if use_kernel
-                            else persample.per_sample_plain)
+        # plain pipeline for CPU tensors; the GSPMD counterpart goes
+        # through the sharded wrapper, as the JAX package's GSPMD path
+        # takes make_per_sample_sharded
+        if use_kernel and self._gspmd:
+            self._per_sample = functools.partial(
+                persample.per_sample_sharded, ctx)
+        else:
+            self._per_sample = (persample.per_sample if use_kernel
+                                else persample.per_sample_plain)
         self.uses_kernel = use_kernel
         # the split-emitting variant serves the chunked sym2/tri2 path
         # wherever the kernel does (it too takes the plain version for CPU
@@ -369,12 +447,14 @@ class TDVP:
         (1.4826 MAD) around its median (cfg.eloc_clip > 0): heavy-tailed
         workloads (Student-t at nu = 2 has infinite E_loc variance) trade
         a small controlled bias for that variance. Medians as jnp.median
-        takes them (the midpoint of the two middle values)."""
+        takes them (the midpoint of the two middle values); on a mesh the
+        median and the MAD are those of all N values."""
         c = self.cfg.eloc_clip
         if not c:
             return eloc
-        med = torch.quantile(eloc, 0.5, interpolation="midpoint")
-        scale = 1.4826 * torch.quantile((eloc - med).abs(), 0.5,
+        e = mesh.all_gather_rows(self.ctx, eloc)
+        med = torch.quantile(e, 0.5, interpolation="midpoint")
+        scale = 1.4826 * torch.quantile((e - med).abs(), 0.5,
                                         interpolation="midpoint")
         return med + torch.clamp(eloc - med, -c * scale, c * scale)
 
@@ -384,41 +464,51 @@ class TDVP:
         from the is_gamma proposal): every statistic becomes its
         self-normalized estimator, with the weights normalized to mean 1
         so that the /n forms hold -- weighted means and centering, the
-        weight in the force and in every Gram."""
-        n = x.shape[0]
+        weight in the force and in every Gram.
+
+        On a mesh x (and log_w) is this rank's shard: the weights'
+        normalizers and every mean are global, each rank contracts its
+        rows against the global means, and F0, S0, A and the E_loc
+        variance cross ranks in ONE all-reduce of the assembled moments
+        (the JAX package's _direct_stats with axis / n_global)."""
+        ctx = self.ctx
+        n = x.shape[0] * ctx.world
         logp, eloc, O = self._per_sample_batch(theta_c, x, t)
         eloc = self._maybe_clip_eloc(eloc)
         w = None
         if log_w is not None:
-            w = torch.exp(log_w - log_w.max())
-            w = w / stats.mean(w)
-
-        def wmean(a):
-            if w is None:
-                return stats.mean(a)
-            return stats.mean((w if a.ndim == 1 else w[:, None]) * a)
+            w = torch.exp(log_w - mesh.all_reduce_max(ctx, log_w.max()))
+            w = w / stats.global_means(ctx, [w], n)[0]
 
         def wtimes(a):
-            return a if w is None else w * a
+            if w is None:
+                return a
+            return (w if a.ndim == 1 else w[:, None]) * a
 
-        eloc_mean = wmean(eloc)
+        eloc_mean, eloc_abs_mean, eloc_sq_mean, o_mean = stats.global_means(
+            ctx, [wtimes(eloc), wtimes(eloc.abs()), wtimes(eloc**2),
+                  wtimes(O)], n)
         e_c = eloc - eloc_mean
-        O_c = O - wmean(O)
+        O_c = O - o_mean
         gram_sum, _, gram_fin = self._gram_backend()
         A = None
         if self.cfg.compute_snr or self.cfg.use_snr:
             A = gram_fin(gram_sum(O_c, wtimes(e_c**2))) / n
+        F0, S0, A, eloc_var = mesh.all_reduce_sum(ctx, [
+            (wtimes(e_c) @ O_c) / n, gram_fin(gram_sum(O_c, w)) / n, A,
+            wtimes(e_c**2).sum() / n])
         return dict(
             logp=logp,
             eloc=eloc,
             eloc_mean=eloc_mean,
-            eloc_abs_mean=wmean(eloc.abs()),
-            eloc_var=wmean(e_c**2),
-            eloc_sq_mean=wmean(eloc**2),
-            F0=(wtimes(e_c) @ O_c) / n,
-            S0=gram_fin(gram_sum(O_c, w)) / n,
+            eloc_abs_mean=eloc_abs_mean,
+            eloc_var=eloc_var,
+            eloc_sq_mean=eloc_sq_mean,
+            F0=F0,
+            S0=S0,
             A=A,
-            is_ess_share=None if w is None else 1.0 / stats.mean(w**2),
+            is_ess_share=(None if w is None else
+                          1.0 / stats.global_means(ctx, [w**2], n)[0]),
         )
 
     def _gram_backend(self):
@@ -472,13 +562,25 @@ class TDVP:
         pass. The pilot then runs on the first min(c, 8 * tile) samples
         through the plain-mode kernel, as in the JAX package, so that both
         shift by the same constants. Without it, chunk 0 is the pilot and
-        the split, if any, happens in the Gram (stats.py)."""
+        the split, if any, happens in the Gram (stats.py).
+
+        On a mesh x is this rank's shard, scanned in local chunks of
+        chunk_size / W rows (the same per-rank work as one device's scan at
+        the global chunk); the pilot shift is averaged over the ranks, so
+        that every rank un-shifts by the same constants; each rank
+        assembles its tri2 strips, quantizes its int8 cross terms with its
+        own column scales and de-scales them before the reduce; and every
+        accumulated moment crosses ranks in ONE all-reduce after the scan,
+        per statistics evaluation, not per chunk (the JAX package's
+        _chunked_stats with axis / n_global)."""
         cfg = self.cfg
-        n, d = x.shape
-        c = cfg.chunk_size
-        if n % c:
-            raise ValueError(f"sample budget {n} is not a multiple of chunk "
-                             f"size {c} (TDVP.__init__ rounds its own "
+        ctx = self.ctx
+        n_loc, d = x.shape
+        n = n_loc * ctx.world
+        c = cfg.chunk_size // ctx.world
+        if n_loc % c:
+            raise ValueError(f"sample budget {n_loc} is not a multiple of "
+                             f"chunk size {c} (TDVP.__init__ rounds its own "
                              "budgets; a hand-built call must do the same)")
         P = self.n_params
         use_pair = self._ps_split is not None
@@ -491,6 +593,11 @@ class TDVP:
         pilot = self._per_sample_batch(theta_c, x[:c_pilot], t)
         c_O = pilot[2].mean(0)
         c_E = pilot[1].mean()
+        if ctx.world > 1:
+            # every rank must shift by the SAME constants, or the summed
+            # raw moments could not be un-shifted: one small (P,) mean
+            c_O, c_E = (v / ctx.world
+                        for v in mesh.all_reduce_sum(ctx, [c_O, c_E]))
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=theta_c.dtype, device=x.device)
@@ -572,16 +679,27 @@ class TDVP:
             return logp, eloc
 
         if use_pair:
-            out = [chunk_pair(x[i:i + c]) for i in range(0, n, c)]
+            out = [chunk_pair(x[i:i + c]) for i in range(0, n_loc, c)]
         else:
             chunk_plain(*pilot)
             out = [pilot[:2]]
-            for i in range(c, n, c):
+            for i in range(c, n_loc, c):
                 batch = self._per_sample_batch(theta_c, x[i:i + c], t)
                 chunk_plain(*batch)
                 out.append(batch[:2])
         logp = torch.cat([o[0] for o in out])
         eloc = torch.cat([o[1] for o in out])
+
+        if ctx.world > 1:
+            # assemble the tri2 strips per rank (the finish commutes with
+            # the sum), then ONE all-reduce of every accumulated moment
+            for key in ("sum_OO", "sum_E2OO", "sum_EOO"):
+                if key in acc:
+                    acc[key] = gram_fin(acc[key])
+            keys = sorted(acc)
+            acc = dict(zip(keys, mesh.all_reduce_sum(
+                ctx, [acc[k] for k in keys])))
+            gram_fin = lambda m: m  # noqa: E731
 
         # Un-shift. With y = O - c_O and f = E - c_E: m_y = E[y],
         # S0 = E[y^T y] - m_y^T m_y, F0 = E[f y] - m_f m_y
@@ -616,26 +734,35 @@ class TDVP:
         )
 
     def _observables(self, x, logp, aux):
-        mean = stats.mean(x)
+        """Moments of the observables' batch (this rank's shard of it on a
+        mesh: global means, the covariance around the global mean)."""
+        ctx = self.ctx
+        n = x.shape[0] * ctx.world
+        mean, mean_logp = stats.global_means(ctx, [x, logp], n)
         xc = x - mean
         aux["x1"] = mean
-        aux["covar"] = stats.second_moment_matrix(xc)
-        aux["entropy"] = -stats.mean(logp)
-        for m in (3, 4, 5, 6):
-            aux[f"x{m}"] = stats.mean(xc**m)
+        (aux["covar"],) = mesh.all_reduce_sum(
+            ctx, [stats.second_moment_matrix(xc, n=n)])
+        aux["entropy"] = -mean_logp
+        moments = stats.global_means(ctx, [xc**m for m in (3, 4, 5, 6)], n)
+        for m, v in zip((3, 4, 5, 6), moments):
+            aux[f"x{m}"] = v
         return aux
 
     # ------------------------------------------------------------------
     def _rhs_impl(self, theta_c, t, key: int, z_ext=None,
                   with_obs: bool = True, chain_state=None):
         """One RHS. ``z_ext``: latent draws to use instead of sampling
-        (tests hand both packages the same draws). Only the first stage of
-        an integrator step records observables. ``chain_state`` (Metropolis
-        latents): the (n_chains, dim) chains, advanced n / n_chains sweeps
-        (chain-major samples) in place of the exact draw; the advanced
-        state comes back in aux["_chain_state"] and the counts in
-        aux["mcmc_accepted"] (a device tensor) and aux["mcmc_proposed"]."""
+        (tests hand both packages the same draws; the global block on a
+        mesh). Only the first stage of an integrator step records
+        observables. ``chain_state`` (Metropolis latents): this rank's
+        chains, advanced n / n_chains sweeps (chain-major samples) in place
+        of the exact draw; the advanced state comes back in
+        aux["_chain_state"] and the counts of all ranks in
+        aux["mcmc_accepted"] (a device tensor) and aux["mcmc_proposed"].
+        ``n`` below is the global sample count; x is this rank's rows."""
         cfg = self.cfg
+        ctx = self.ctx
         params = self._unravel(theta_c)
         k_sample, k_obs, _, k_spec = (fold_in(key, i) for i in range(4))
         z = z_ext
@@ -646,18 +773,21 @@ class TDVP:
             z, cs, acc = self._chain_fn(self._gen(k_sample), chain_state,
                                         self.sampler.chain_rw_scale(),
                                         sweeps)
-            mcmc = dict(state=cs, acc=acc,
-                        prop=sweeps * self.sampler.n_chains)
+            n = sweeps * self.sampler.n_chains
+            mcmc = dict(state=cs, acc=acc, prop=n)
             z = z.to(theta_c.dtype)
-        elif z is None and cfg.is_gamma != 1.0:
-            # the tail-tempered importance proposal (TDVPConfig.is_gamma)
-            z, log_w = self.flow.latent_sample_tempered(
-                self._gen(k_sample), params, self.n_samples, cfg.is_gamma,
-                theta_c.dtype)
-        elif z is None:
-            z = self.flow.latent_sample(self._gen(k_sample), params,
-                                        self.n_samples, theta_c.dtype)
-        n = z.shape[0]
+        else:
+            if z is None and cfg.is_gamma != 1.0:
+                # the tail-tempered importance proposal (TDVPConfig.is_gamma)
+                z, log_w = self.flow.latent_sample_tempered(
+                    self._gen(k_sample), params, self.n_samples,
+                    cfg.is_gamma, theta_c.dtype)
+                log_w = ctx.local_rows(log_w)
+            elif z is None:
+                z = self.flow.latent_sample(self._gen(k_sample), params,
+                                            self.n_samples, theta_c.dtype)
+            n = z.shape[0]
+            z = ctx.local_rows(z)
         x, _ = self.flow.push(params, z)
 
         if cfg.chunk_size and cfg.chunk_size < n:
@@ -709,7 +839,7 @@ class TDVP:
         aux["eloc_mean"] = st["eloc_mean"]
         aux["eloc_abs_mean"] = st["eloc_abs_mean"]
         aux["eloc_var"] = st["eloc_var"]
-        aux["max_grad"] = st["eloc"].max()
+        aux["max_grad"] = mesh.all_reduce_max(ctx, st["eloc"].max())
         if st.get("is_ess_share") is not None:
             # effective sample share 1 / E[w^2] of the mean-1 IS weights
             aux["is_ess_share"] = st["is_ess_share"]
@@ -727,9 +857,9 @@ class TDVP:
                     mcmc["prop"] += sweeps * self.sampler.n_chains
                     z_o = z_o.to(theta_c.dtype)
                 else:
-                    z_o = self.flow.latent_sample(self._gen(k_obs), params,
-                                                  self.n_samples_obs,
-                                                  theta_c.dtype)
+                    z_o = ctx.local_rows(self.flow.latent_sample(
+                        self._gen(k_obs), params, self.n_samples_obs,
+                        theta_c.dtype))
                 x_o, logp_o = self.flow.push(params, z_o)
             else:
                 x_o, logp_o = x, st["logp"]
