@@ -9,11 +9,13 @@
    fokkerPlanck32 shape (d=32, P=9264): N=1024, a ragged N=1000 and the
    main path's N=16384 on a perturbed theta (there within twice plain
    f32's own error), then the preset's initial theta at N=16384, where
-   both are also timed with CUDA events;
+   both are also timed with CUDA events, and the kernel on the chunked
+   path's pilot shape (its first 2048 rows); each time's share of its
+   bound is printed;
 3. the same kernel in split mode (bf16 hi/lo of O - shift, column sums,
    column max) against the plain pipeline and split: N=1024 and a ragged
    N=1000 on the perturbed theta, the chunked path's N=65536 on the
-   initial theta, where both are timed;
+   initial theta, where both are timed (and the share of the bound);
 4. the fused quantize+force kernel against its plain passes at P=9264,
    n=65536 on the split pair of phase 3: q8 bit-identical, f against f64;
 5. the port's main path, ``vmc_pde_torch.driver.main`` on fokkerPlanck32
@@ -64,7 +66,8 @@
    N=1024, a ragged 1000 and 16384, split mode at 1024, 1000 and 65536,
    to TOL (on the perturbed theta's heavy-tailed draws, to plain f32's own
    error sample by sample: GRADE_Q and GRADE_MAX below), the nu and
-   g_scale rows reported on their own; both modes timed; then
+   g_scale rows reported on their own; both modes timed, plain mode also
+   at the pilot's 2048 rows, with the shares of the bounds; then
    diffusion_anisotropic's flow (d=12, P=762) with its dense Cholesky
    trace directions at N=16384;
 16. (B) ``driver.run(preset("fokkerPlanck32", latent_name="Student_t",
@@ -94,7 +97,7 @@
    one batch within 1e-4 of the one-rank f32 statistics on the same global
    draws; step times and the all-reduce's share and bytes printed; (c)
    ``per_sample_sharded`` against its plain version on a rank's 4096 rows
-   (timed), then the GSPMD counterpart (``eloc_clip=2``) for 2 steps with
+   (timed, with its share of the bound), then the GSPMD counterpart (``eloc_clip=2``) for 2 steps with
    exactly 4 of its launches per rank;
 20. (F) ``metropolis_chain_sharded`` on the 4 ranks, 8192 chains x 128
    sweeps: each rank's launch against the plain version with its
@@ -169,6 +172,8 @@ WRAPPERS = {"persample": persample.per_sample_cuda,
             "metropolis_sharded": metropolis.metropolis_chain_sharded}
 # rank processes of phases 19 and 20, all on the one card
 MESH_WORLD = 4
+# the chunked path's pilot batch (solver/tdvp.py): its per-sample shape
+PILOT_N = 2048
 
 
 def fail(msg):
@@ -357,7 +362,9 @@ def phase_kernel(dev, prob):
             flow, theta, x, dirs, label,
             loose=label == "perturbed" and n == 16384))
 
-    # time both on the main path's theta and batch, the last case above
+    # time both on the main path's theta and batch, the last case above;
+    # then the kernel alone on the chunked path's pilot shape (its first
+    # 2048 rows)
     ms = _time_ms(lambda: persample.per_sample_cuda(flow, theta, x, dirs), 20)
     plain_ms = _time_ms(
         lambda: persample.per_sample_plain(flow, theta, x, dirs), 3)
@@ -365,9 +372,21 @@ def phase_kernel(dev, prob):
     bound = bounds.persample(bounds.flow_layers(flow), d, P, n, k)
     print(f"per-sample at N={n}, P={P}: CUDA kernel {ms:.3f} ms, plain "
           f"torch.func {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
-          f"({bound[1]})")
+          f"({bound[1]}), the bound's share of the kernel "
+          f"{bound[0] / ms:.4f}")
+    xp = x[:PILOT_N].contiguous()
+    pilot_ms = _time_ms(
+        lambda: persample.per_sample_cuda(flow, theta, xp, dirs), 20)
+    pilot_bound = bounds.persample(bounds.flow_layers(flow), d, P, PILOT_N,
+                                   k)[0]
+    print(f"per-sample at the pilot's N={PILOT_N}: CUDA kernel "
+          f"{pilot_ms:.4f} ms, bound {pilot_bound:.4f} ms, share "
+          f"{pilot_bound / pilot_ms:.4f}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1])
+                bound_ms=bound[0], bound_by=bound[1],
+                share_of_bound=bound[0] / ms, pilot_N=PILOT_N,
+                pilot_ms=pilot_ms, pilot_bound_ms=pilot_bound,
+                pilot_share_of_bound=pilot_bound / pilot_ms)
 
 
 def _split_vs_plain(flow, theta, x, dirs, label, grade=False):
@@ -444,10 +463,11 @@ def phase_split(dev, prob):
                              split=True)
     print(f"split per-sample at N={n}, P={P}: CUDA kernel {ms:.3f} ms, "
           f"plain torch.func + split {plain_ms:.3f} ms, bound "
-          f"{bound[0]:.3f} ms ({bound[1]})")
+          f"{bound[0]:.3f} ms ({bound[1]}), share {bound[0] / ms:.4f}")
     eloc = eq.eloc(x, got[1], got[2], 0.0)
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1],
+                share_of_bound=bound[0] / ms,
                 pair=got[3], omax=got[5], es=eloc - eloc.mean())
 
 
@@ -953,9 +973,19 @@ def phase_student_kernel(dev):
     bound = bounds.persample(bounds.flow_layers(flow), d, P, n, k, n_ga=n_ga)
     print(f"per-sample, Student-t + global affine, at N={n}, P={P}: CUDA "
           f"kernel {ms:.3f} ms, plain torch.func {plain_ms:.3f} ms, bound "
-          f"{bound[0]:.4f} ms ({bound[1]})")
+          f"{bound[0]:.4f} ms ({bound[1]}), share {bound[0] / ms:.4f}")
+    xp = x[:PILOT_N].contiguous()
+    pilot_ms = _time_ms(
+        lambda: persample.per_sample_cuda(flow, theta, xp, dirs), 20)
+    pilot_bound = bounds.persample(bounds.flow_layers(flow), d, P, PILOT_N,
+                                   k, n_ga=n_ga)[0]
+    print(f"per-sample, Student-t + global affine, at the pilot's "
+          f"N={PILOT_N}: CUDA kernel {pilot_ms:.4f} ms, bound "
+          f"{pilot_bound:.4f} ms, share {pilot_bound / pilot_ms:.4f}")
     out["persample"] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound[0], bound_by=bound[1], P=P, N=n)
+                            bound_ms=bound[0], bound_by=bound[1], P=P, N=n,
+                            share_of_bound=bound[0] / ms,
+                            pilot_ms=pilot_ms, pilot_bound_ms=pilot_bound)
 
     max_abs = 0.0
     for label, theta, n in (("Student-t perturbed", perturbed, 1024),
@@ -975,10 +1005,12 @@ def phase_student_kernel(dev):
                              split=True, n_ga=n_ga)
     print(f"split per-sample, Student-t + global affine, at N={n}, P={P}: "
           f"CUDA kernel {ms:.3f} ms, plain torch.func + split "
-          f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]})")
+          f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}), share "
+          f"{bound[0] / ms:.4f}")
     out["persample_split"] = dict(max_abs_err=max_abs, ms=ms,
                                   plain_ms=plain_ms, bound_ms=bound[0],
-                                  bound_by=bound[1], P=P, N=n)
+                                  bound_by=bound[1], P=P, N=n,
+                                  share_of_bound=bound[0] / ms)
     del x
 
     acfg = preset("diffusion_anisotropic")
@@ -1312,11 +1344,13 @@ def phase_mesh_stats(ctx, log):
                   launches=gspmd["counts"]["persample_sharded"],
                   rows_per_rank=16384 // W, **ms)
     if ctx.rank == 0:
+        kernel["share_of_bound"] = bound[0] / ms["ms"]
         print(f"[mesh] per_sample_sharded on a rank's {16384 // W} rows, "
               f"P={P}: max abs err of O {max_abs:.3e}; CUDA kernel "
               f"{ms['ms']:.3f} ms, plain torch.func {ms['plain_ms']:.3f} "
-              f"ms, bound {bound[0]:.4f} ms ({bound[1]}), the other ranks "
-              "idle", flush=True)
+              f"ms, bound {bound[0]:.4f} ms ({bound[1]}), share "
+              f"{bound[0] / ms['ms']:.4f}, the other ranks idle",
+              flush=True)
     return dict(direct=direct, chunked=chunked, gspmd=gspmd), kernel
 
 

@@ -23,7 +23,9 @@ on the 8-device virtual CPU mesh and against the port's own one rank.
   same order statistic) and against the port's one rank on the same draws
   (statistics to 1e-12; the RHS update to the JAX mesh test's bar, rtol
   1e-3 and atol 2e-5, which allows for the regularized pseudo-inverse
-  amplifying summation-order ulps on near-null modes).
+  amplifying summation-order ulps on near-null modes); its sym2 + int8
+  Gram in f32 against one rank (1e-6: global int8 scales) and the JAX
+  package's GSPMD result (5e-5).
 - fluidpaper's and doubleWell's chains in the RHS on 2 ranks: the same
   accept counts and random-walk scale as one rank, bit for bit (every
   rank draws the global block and keeps its chains' columns).
@@ -323,6 +325,19 @@ def jax_gspmd(problems):
             th, 0.25, xx, log_w=ww))(theta_c, xs, lw)
         out[label] = {k: _np(st[k]) for k in ("S0", "F0", "A", "eloc_mean",
                                                 "eloc_var")}
+    # the sym2 Gram (the split Gram GSPMD takes) with the int8 cross term
+    # in f32: its operand is sharded over the mesh, so the int8 column
+    # scales are global
+    tdvp, theta_c, _ = _jax_tdvp(
+        ctx, problems["jflow"], problems["jparams"], EQ,
+        dict(stats_partitioning="gspmd", gram_backend="sym2",
+             gram_cross="int8", compute_snr=True), "tpu")
+    assert not tdvp._stats_shardmap
+    xs = jax.device_put(jnp.asarray(inp["x"]),
+                        ctx.sharding(ctx.samples_spec))
+    st = jax.jit(lambda th, xx: tdvp._direct_stats(th, 0.25, xx))(theta_c,
+                                                                  xs)
+    out["int8"] = {k: _np(st[k]) for k in ("S0", "A")}
     return out
 
 
@@ -349,6 +364,22 @@ def test_gspmd_matches_one_rank(label, gspmd_run, one_rank):
                    one_rank[f"{label}/entropy"]) < 1e-12
     np.testing.assert_array_equal(gspmd_run[1][f"{label}/update"],
                                   gspmd_run[0][f"{label}/update"])
+
+
+def test_gspmd_int8_cross_term_takes_global_scales(gspmd_run, one_rank,
+                                                   jax_gspmd):
+    """The GSPMD counterpart's sym2 Gram with the int8 cross term (f32) on
+    2 ranks quantizes with the global column scales: its S0 and A equal
+    the port's one rank on the same rows to 1e-6 of their largest value
+    (the int8 products are exact, so only f32 rounding of the de-scaled
+    sums differs; per-rank scales differ at the int8 class), and match
+    the JAX package's GSPMD statistics on its dp=2 mesh to 5e-5 (the
+    shard_map int8 case's bar above: f32 sums in another order)."""
+    for k in ("S0", "A"):
+        got = gspmd_run[0][f"int8/{k}"]
+        np.testing.assert_array_equal(got, gspmd_run[1][f"int8/{k}"])
+        assert rel_err(got, one_rank[f"int8/{k}"]) < 1e-6, k
+        assert rel_err(got, jax_gspmd["int8"][k]) < 5e-5, k
 
 
 @pytest.mark.parametrize("label", ["fluid", "dw"])

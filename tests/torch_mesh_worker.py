@@ -154,12 +154,16 @@ def scenario_stats(ctx, spec, inp):
 
 
 def gspmd_cases(spec, inp):
-    """(label, spec, theta, x, log_w, TDVPConfig fields) of the GSPMD
-    counterpart's two cases: eloc_clip and is_gamma, in f64."""
-    return (("clip", spec["gauss"], inp["theta"], inp["x64"], None,
+    """(label, spec, theta, x, log_w, precision, TDVPConfig fields) of the
+    GSPMD counterpart's cases: eloc_clip and is_gamma in f64, and the sym2
+    Gram with the int8 cross term in f32 (its global column scales)."""
+    return (("clip", spec["gauss"], inp["theta"], inp["x64"], None, "f64",
              dict(eloc_clip=2.0, compute_snr=True)),
             ("is", spec["student"], inp["theta_t"], inp["x_t"],
-             inp["log_w"], dict(is_gamma=0.6, compute_snr=True)))
+             inp["log_w"], "f64", dict(is_gamma=0.6, compute_snr=True)),
+            ("int8", spec["gauss"], inp["theta"], inp["x"], None, "tpu",
+             dict(stats_partitioning="gspmd", gram_backend="sym2",
+                  gram_cross="int8", compute_snr=True)))
 
 
 def fluid_problems(ctx, spec, inp):
@@ -206,9 +210,10 @@ def scenario_gspmd(ctx, spec, inp):
     gspmd_cases; then chain_outputs. On one rank (the parent's reference)
     the same calls run the single-device path."""
     out = {}
-    for label, sp, theta, x, log_w, cfg in gspmd_cases(spec, inp):
+    for label, sp, theta, x, log_w, precision, cfg in gspmd_cases(spec,
+                                                                  inp):
         n = x.shape[0]
-        tdvp = tdvp_on(ctx, sp, theta, "f64", n, cfg)
+        tdvp = tdvp_on(ctx, sp, theta, precision, n, cfg)
         assert tdvp._gspmd == (ctx.world > 1)
         x = ctx.local_rows(torch.as_tensor(x))
         if log_w is not None:
@@ -264,6 +269,21 @@ def scenario_cuda(ctx, spec, inp):
     for name, a, r in zip(("logp", "g", "quad", "O"), got, ref):
         out[f"ps/{name}"] = float((a.double() - r).abs().max()
                                   / r.abs().max().clamp_min(1.0))
+    if "x_pushed" in inp:
+        # per-sample errors on the pushed draws, kernel and plain f32,
+        # each sample's largest relative to the largest f64 value
+        x = ctx.local_rows(torch.as_tensor(inp["x_pushed"],
+                                           dtype=torch.float32, device=dev))
+        got = persample.per_sample_sharded(ctx, flow, theta, x, dirs)
+        p32 = persample.per_sample_plain(flow, theta, x, dirs)
+        ref = persample.per_sample_plain(flow, theta.double(), x.double(),
+                                         dirs.double())
+        for name, a, p, r in zip(("logp", "g", "quad", "O"), got, p32, ref):
+            scale = r.abs().max().clamp_min(1.0)
+            for label, v in (("kernel", a), ("plain", p)):
+                e = (v.double() - r).abs()
+                e = e if e.ndim == 1 else e.amax(1)
+                out[f"psp/{name}/{label}"] = (e / scale).cpu().numpy()
 
     sweeps = int(inp["sweeps"])
     init_all = torch.as_tensor(inp["init"], device=dev)

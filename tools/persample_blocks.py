@@ -116,7 +116,7 @@ def main(argv=None):
                                                 torch.float32))
 
     meta, n_sv = persample.block_plan(flow, dirs.shape[0])
-    saves = torch.empty((n_sv, persample._padded(args.n)),
+    saves = torch.empty((n_sv, args.n),
                         dtype=torch.float32, device=dev)
     kern = persample.per_sample_cuda(flow, theta, x, dirs, saves=saves)
     ref = persample.per_sample_plain(flow, theta.double(), x.double(),

@@ -51,6 +51,16 @@ def classify(name: str) -> str:
     return "elementwise, reductions, other"
 
 
+def device_rows(prof):
+    """(name, device ms, calls) of every kernel in a finished profile:
+    device-side events only (the CPU ops that launched them carry the same
+    time again)."""
+    return [(e.key, e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+
+
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -69,12 +79,7 @@ def main(argv=None):
 
     driver.main(argv + ["--max-steps", "2", "--device", "cuda"],
                 callbacks=[callback])
-    # device-side events only: the CPU ops that launched them carry the
-    # same time again
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and e.self_device_time_total > 0]
+    rows = device_rows(prof)
     total = sum(ms for _, ms, _ in rows)
     wall = 1e3 * window["wall"]
     by_class = {}

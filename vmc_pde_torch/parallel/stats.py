@@ -167,26 +167,26 @@ def _int8_scales(amax):
     return scale, inv
 
 
-def _cross_sum(a, b, int8=False, amax=None):
+def _cross_sum(a, b, int8=False, amax=None, n_rows=None):
     """The hi/lo cross term a^T @ b -> f32 (P, P) of two (N, P) operands.
 
     Default: one bf16 product. ``int8=True``: per-column scales factor out
     of the contraction exactly, a^T b = diag(s) (a8^T b8) diag(t), with
     the int8 product exact in int32 -- up to N = _INT8_CROSS_N_MAX; longer
     contractions take the bf16 product. ``amax``: optional (colmax|a|,
-    colmax|b|) pair."""
-    if int8 and a.shape[0] <= _INT8_CROSS_N_MAX:
+    colmax|b|) pair. ``n_rows``: the whole contraction's length where a
+    and b hold one rank's rows of it (default a's)."""
+    n = a.shape[0] if n_rows is None else n_rows
+    if int8 and n <= _INT8_CROSS_N_MAX:
         a8, sa = _quant_cols_int8(a, None if amax is None else amax[0])
         b8, sb = _quant_cols_int8(b, None if amax is None else amax[1])
         return cross_from_q8(a8.T, b8.T, sa, sb)
     return _mm_bf16(a.T, b)
 
 
-def sym2_gram_sum(data, w=None, cross_int8=False):
-    """Unnormalized symmetric Gram X^T diag(w) X of (N, P) data in two
-    bf16 products: H^T H + H^T L + (H^T L)^T. Weights of any sign fold in
-    as X <- sqrt(|w|) X with the sign applied to one side's hi split
-    (exact in bf16), so the operand symmetry survives."""
+def _weighted_split(data, w=None):
+    """(hs, hi, lo): the bf16 split of sqrt(|w|) data, and hi with w's sign
+    (exact in bf16)."""
     x = data.float()
     sign = None
     if w is not None:
@@ -195,8 +195,34 @@ def sym2_gram_sum(data, w=None, cross_int8=False):
         sign = wf.sign()[:, None]
     hi, lo = _split_bf16(x)
     hs = hi if sign is None else hi * sign.to(hi.dtype)
+    return hs, hi, lo
+
+
+def _cross_amax(hs, lo, cross_int8, amax_fn):
+    """The int8 cross term's column max pair (colmax|hs|, colmax|lo|) made
+    global by ``amax_fn`` (an all-reduce MAX over the ranks that hold the
+    rows), or None: the quantization then takes the operands' own."""
+    if not (cross_int8 and amax_fn):
+        return None
+    return amax_fn(torch.stack([hs.float().abs().amax(0),
+                                lo.float().abs().amax(0)]))
+
+
+def sym2_gram_sum(data, w=None, cross_int8=False, amax_fn=None,
+                  n_rows=None):
+    """Unnormalized symmetric Gram X^T diag(w) X of (N, P) data in two
+    bf16 products: H^T H + H^T L + (H^T L)^T. Weights of any sign fold in
+    as X <- sqrt(|w|) X with the sign applied to one side's hi split
+    (exact in bf16), so the operand symmetry survives. Where data holds
+    one rank's rows of a sharded operand, ``amax_fn`` makes the int8 cross
+    term's column scales global and ``n_rows`` is the whole length
+    (_cross_sum), as the JAX package's GSPMD statistics quantize the
+    global operand."""
+    hs, hi, lo = _weighted_split(data, w)
     m1 = _mm_bf16(hs.T, hi)
-    m2 = _cross_sum(hs, lo, int8=cross_int8)
+    m2 = _cross_sum(hs, lo, int8=cross_int8,
+                    amax=_cross_amax(hs, lo, cross_int8, amax_fn),
+                    n_rows=n_rows)
     return m1 + m2 + m2.T
 
 
@@ -264,32 +290,28 @@ def tri2_bounds(P, target_block=512):
     return tuple([i * target_block for i in range(K)] + [P])
 
 
-def tri2_gram_sum_raw(data, w=None, bounds=None, cross_int8=False):
+def tri2_gram_sum_raw(data, w=None, bounds=None, cross_int8=False,
+                      amax_fn=None, n_rows=None):
     """Triangle-blocked two-product Gram of (N, P) data: the unnormalized
     X^T diag(w) X as raw parts {"t": strips, "m2": cross term} that a
     chunk loop sums and ``tri2_gram_finalize`` mirrors once. Row panel i
     of H^T H costs one (p_i, N) x (N, b_{i+1}) product, so the triangle
     is (1 + 1/K)/2 of a full product; the cross term stays a full one.
-    Signed weights ride as in sym2_gram_sum."""
-    x = data.float()
-    sign = None
-    if w is not None:
-        wf = w.float()
-        x = x * wf.abs().sqrt()[:, None]
-        sign = wf.sign()[:, None]
-    hi, lo = _split_bf16(x)
-    hs = hi if sign is None else hi * sign.to(hi.dtype)
+    Signed weights, ``amax_fn`` and ``n_rows`` as in sym2_gram_sum."""
+    hs, hi, lo = _weighted_split(data, w)
     if bounds is None:
-        bounds = tri2_bounds(x.shape[1])
-    return _tri2_from_split(hs, hi, lo, bounds, cross_int8=cross_int8)
+        bounds = tri2_bounds(data.shape[1])
+    return _tri2_from_split(hs, hi, lo, bounds, cross_int8=cross_int8,
+                            amax=_cross_amax(hs, lo, cross_int8, amax_fn),
+                            n_rows=n_rows)
 
 
 def _tri2_from_split(hs, hi, lo, bounds, cross_int8=False, amax=None,
-                     m2=None):
+                     m2=None, n_rows=None):
     """tri2 raw parts from a split (hs, hi, lo) triple; the strips stay
     unpadded (a tuple of (p_i, b_{i+1}) blocks)."""
     if m2 is None:
-        m2 = _cross_sum(hs, lo, int8=cross_int8, amax=amax)
+        m2 = _cross_sum(hs, lo, int8=cross_int8, amax=amax, n_rows=n_rows)
     strips = tuple(_mm_bf16(hs[:, lo_b:hi_b].T, hi[:, :hi_b])
                    for lo_b, hi_b in zip(bounds[:-1], bounds[1:]))
     return {"t": strips, "m2": m2}

@@ -39,11 +39,12 @@ and the Heun update then run on every rank from the same reduced moments.
 - "gspmd" (and "auto" where shard_map may not run): the direct statistics
   on a dp-only mesh with the per-sample kernel through
   ``persample.per_sample_sharded``, the clip's global median and MAD, the
-  IS weights' global max and mean, and the Gram summed once. Its tp
-  row-sharded Gram layout and its chunked statistics are not ported
-  (NotImplementedError naming ROADMAP.md). Its int8 cross term, where
-  asked for, quantizes each rank's rows with their own column scales (the
-  JAX package's takes global scales there).
+  IS weights' global max and mean, and the Gram summed once. Its int8
+  cross term, where asked for, quantizes each rank's rows with the global
+  column scales (an all-reduce MAX of the column max), as the JAX
+  package quantizes its globally sharded operand. Its tp row-sharded Gram
+  layout and its chunked statistics are not ported (NotImplementedError
+  naming ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -520,6 +521,14 @@ class TDVP:
         one kernel launch per moment, mirrored inside)."""
         P, cdt = self.n_params, self.precision.compute
         dev, cross = self.device, self._cross_int8
+        # GSPMD: the rank's rows of a globally sharded operand, so the int8
+        # cross term takes the global column scales and row count (the
+        # shard_map path keeps per-shard scales, as the JAX package does)
+        glob = {}
+        if self._gspmd and cross:
+            glob = dict(amax_fn=functools.partial(mesh.all_reduce_max,
+                                                  self.ctx),
+                        n_rows=self.n_samples)
         if self._use_tri2:
             bounds = self._tri2_bounds
 
@@ -531,14 +540,14 @@ class TDVP:
                         "m2": torch.zeros((P, P), dtype=cdt, device=dev)}
 
             return (lambda Os, w=None: stats.tri2_gram_sum_raw(
-                        Os, w, bounds, cross_int8=cross),
+                        Os, w, bounds, cross_int8=cross, **glob),
                     gram_zero,
                     lambda acc: stats.tri2_gram_finalize(acc, bounds))
         if self._use_syrk:
             gram_sum = syrk.syrk
         elif self._use_sym2:
             gram_sum = lambda Os, w=None: stats.sym2_gram_sum(  # noqa: E731
-                Os, w, cross_int8=cross)
+                Os, w, cross_int8=cross, **glob)
         else:
             gram_sum = lambda Os, w=None: torch.matmul(  # noqa: E731
                 Os.T, Os if w is None else Os * w[:, None])
