@@ -18,6 +18,8 @@
    initial theta, where both are timed (and the share of the bound);
 4. the fused quantize+force kernel against its plain passes at P=9264,
    n=65536 on the split pair of phase 3: q8 bit-identical, f against f64;
+   both calls timed (the hi half with kv=2, the lo half with kv=1), each
+   with its share of the bound;
 5. the port's main path, ``vmc_pde_torch.driver.main`` on fokkerPlanck32
    at the preset's N=16384 for 5 fixed-Heun steps: the per-sample kernel's
    launch counter must rise, nothing may be NaN, the solver residual must
@@ -52,7 +54,9 @@
    per-sample kernel that makes the chunk is held against its plain
    version at N=65536; then the direct path's centered O at N=16384,
    unweighted and with the signed weight E_loc - mean, where it is timed
-   against the plain version and against torch.mm(O^T, O) in f32;
+   against the plain version and against torch.mm(O^T, O) in f32; the
+   weighted call and the chunk (N=65536) are timed too, each with its
+   share of the bound;
 14. ``fokkerPlanck32 --gram-backend syrk``: 5 steps at N=16384 with
    exactly 20 syrk launches, S0 and A within 1e-4 of the f32 Gram's on one
    batch, then the chunked statistics at N=131072 in chunks of 65536 for
@@ -497,19 +501,23 @@ def phase_quant8(split):
         if mismatches or not rel < 1e-5:
             fail(f"quant8 kernel disagrees on the {half} half")
         max_abs = max(max_abs, float((f.double() - f64).abs().max()))
-    # time the hi call, the larger of the two
-    _, x_pn, am, V = calls[0]
-    inv = stats._int8_scales(am)[1]
-    ms = _time_ms(lambda: quant8.quant_force_cuda(x_pn, inv, V), 20)
-    plain_ms = _time_ms(lambda: quant8.quant_force_plain(x_pn, inv, V), 20)
-    P, n = x_pn.shape
-    kv = V.shape[1]
-    bound = bounds.quant8(P, n, kv)
-    print(f"quant8 at P={P}, n={n}, kv={kv}: CUDA kernel {ms:.3f} ms, "
-          f"plain passes {plain_ms:.3f} ms, bound {bound[0]:.3f} ms "
-          f"({bound[1]})")
-    return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1])
+    # time both calls; the hi call (kv=2) is the kernel's record
+    timed = {}
+    for half, x_pn, am, V in calls:
+        inv = stats._int8_scales(am)[1]
+        ms = _time_ms(lambda: quant8.quant_force_cuda(x_pn, inv, V), 20)
+        plain_ms = _time_ms(lambda: quant8.quant_force_plain(x_pn, inv, V),
+                            20)
+        P, n = x_pn.shape
+        kv = V.shape[1]
+        bound = bounds.quant8(P, n, kv)
+        print(f"quant8 {half} at P={P}, n={n}, kv={kv}: CUDA kernel "
+              f"{ms:.3f} ms, plain passes {plain_ms:.3f} ms, bound "
+              f"{bound[0]:.3f} ms ({bound[1]}), share {bound[0] / ms:.3f}")
+        timed[half] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                           bound_by=bound[1], share_of_bound=bound[0] / ms)
+    return dict(max_abs_err=max_abs, **timed["hi"],
+                shapes={"lo, kv=1": timed["lo"]})
 
 
 def _zero_counts():
@@ -856,6 +864,9 @@ def phase_syrk(dev, theta):
     max_abs = _syrk_vs_plain(O_c, (("chunk, unweighted", None, 2e-5),
                                    ("chunk, signed weight es", e_c, 3e-5),
                                    ("chunk, weight es^2", e_c**2, 3e-5)))
+    shapes = {"chunk N=65536": _syrk_timed(lambda: syrk.syrk_cuda(O_c), 3,
+                                           bounds.syrk(*O_c.shape),
+                                           "the chunk, N=65536")}
     del O_c, e_c
     n = 16384
     O_c, e_c = _syrk_operands(flow, theta, eq, dirs, gen, n)
@@ -863,15 +874,29 @@ def phase_syrk(dev, theta):
         O_c, (("unweighted", None, 2e-5),
               ("signed weight E_loc - mean", e_c, 3e-5))))
     P = O_c.shape[1]
+    shapes["weighted N=16384"] = _syrk_timed(
+        lambda: syrk.syrk_cuda(O_c, e_c), 10, bounds.syrk(n, P, True),
+        f"N={n} with the signed weight")
     ms = _time_ms(lambda: syrk.syrk_cuda(O_c), 10)
     plain_ms = _time_ms(lambda: syrk.syrk_plain(O_c), 5)
     lib_ms = _time_ms(lambda: torch.mm(O_c.T, O_c), 5)
     bound = bounds.syrk(n, P)
     print(f"syrk at N={n}, P={P}: CUDA kernel {ms:.3f} ms, plain split "
           f"products {plain_ms:.3f} ms, torch.mm f32 (TF32 off) "
-          f"{lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]})")
+          f"{lib_ms:.3f} ms, bound {bound[0]:.3f} ms ({bound[1]}), share "
+          f"{bound[0] / ms:.3f}")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms)
+                bound_ms=bound[0], bound_by=bound[1], library_ms=lib_ms,
+                share_of_bound=bound[0] / ms, shapes=shapes)
+
+
+def _syrk_timed(fn, reps, bound, label):
+    """syrk's time at one more shape, with its bound and share."""
+    ms = _time_ms(fn, reps)
+    print(f"syrk at {label}: CUDA kernel {ms:.3f} ms, bound {bound[0]:.3f} "
+          f"ms ({bound[1]}), share {bound[0] / ms:.3f}")
+    return dict(ms=ms, bound_ms=bound[0], bound_by=bound[1],
+                share_of_bound=bound[0] / ms)
 
 
 def phase_syrk_paths(theta):

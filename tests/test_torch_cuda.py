@@ -411,6 +411,32 @@ def test_quant8_kernel_matches_plain(dev, kv):
         quant8.quant_force(x[:, :12], inv, V[:12])
 
 
+@pytest.mark.parametrize("kv", [1, 2])
+@pytest.mark.parametrize("n", [8, 4104])
+@pytest.mark.parametrize("P", [1, 7, 300])
+def test_quant8_kernel_ragged_rows(dev, P, n, kv):
+    """Row counts around the kernel's rows per block (quant8.ROWS: one
+    row, a ragged last block, many blocks), one iteration of 8 samples and
+    a ragged one past the block's stride: q8 bit-identical to the plain
+    version, f within 1e-5
+    of the f64 product of the same bf16 values, and f bit for bit the same
+    from two launches (a fixed-order reduction)."""
+    gen = torch.Generator(device=dev).manual_seed(P * n + kv)
+    x = torch.randn((P, n), generator=gen, device=dev).to(torch.bfloat16)
+    amax = x.float().abs().amax(1)
+    inv = torch.where(amax > 0, 127.0 / amax, torch.zeros_like(amax))
+    V = torch.randn((n, kv), generator=gen, device=dev).to(torch.bfloat16)
+    q8, f = quant8.quant_force(x, inv, V)
+    q_ref, _ = quant8.quant_force_plain(x, inv, V)
+    f64 = x.double() @ V.double()
+    _, f2 = quant8.quant_force(x, inv, V)
+    torch.cuda.synchronize()
+    assert torch.equal(q8, q_ref)
+    assert float((f.double() - f64).abs().max()) <= 1e-5 * float(
+        f64.abs().max())
+    assert torch.equal(f, f2)
+
+
 def test_bf16_product_accumulates_at_f32_grade(dev):
     """On the card a bf16 product's f32 accumulation truncates on the
     tensor cores: X^T X of 65536 rows in one product comes out ~6e-5 low.
@@ -475,10 +501,10 @@ def test_metropolis_kernel_matches_plain(dev):
                                         (512, 200, "offset view")])
 def test_syrk_kernel_matches_plain(dev, N, P, weight):
     """The triangle kernel against the plain split products and the f64
-    product: padded tiles, a ragged N (copied to a multiple of 4), a
-    signed weight, and a weight that is a view one float into its storage
-    (not 16-byte aligned, as the kernel's float4 loads need: the wrapper
-    copies it); the result is symmetric."""
+    product: padded tiles, a ragged N (a sample-major O, copied once for
+    the split pass, which pads it), a signed weight, and a weight that is
+    a view one float into its storage (not 16-byte aligned: the split pass
+    reads it element by element); the result is symmetric."""
     from vmc_pde_torch.kernels import syrk
 
     gen = torch.Generator(device=dev).manual_seed(P)
@@ -501,6 +527,100 @@ def test_syrk_kernel_matches_plain(dev, N, P, weight):
     assert float((S.double() - ref).abs().max()) <= tol
     assert float((S - plain).abs().max()) <= tol
     assert torch.equal(S, S.T) or float((S - S.T).abs().max()) <= tol
+
+
+def _syrk_ref(O, w=None):
+    return O.double().T @ (O.double() if w is None
+                           else O.double() * w.double()[:, None])
+
+
+def _assert_mirrored(S, tile):
+    """Every upper tile is exactly the transpose of its lower tile."""
+    P = S.shape[0]
+    for i in range(0, P, tile):
+        for j in range(0, i, tile):
+            assert torch.equal(S[j:j + tile, i:i + tile],
+                               S[i:i + tile, j:j + tile].T), (i, j)
+
+
+@pytest.mark.parametrize("N", [100, 4100])
+@pytest.mark.parametrize("P", [1, 100, 129, 937])
+def test_syrk_kernel_ragged_shapes(dev, N, P):
+    """Ragged P (one row, a part tile, one past a tile, many tiles) and N
+    (not multiples of the 64-sample stage; O feature-major, as the
+    per-sample kernel hands it over, so the split pass pads it): within
+    2e-5 of the largest entry of the f64 product and of the plain
+    version, and each upper tile exactly the mirror of its lower tile."""
+    from vmc_pde_torch.kernels import syrk
+
+    gen = torch.Generator(device=dev).manual_seed(N + P)
+    O = torch.randn((P, N), generator=gen, device=dev).T
+    S = syrk.syrk(O)
+    plain = syrk.syrk_plain(O)
+    ref = _syrk_ref(O)
+    torch.cuda.synchronize()
+    tol = 2e-5 * float(ref.abs().max())
+    assert S.shape == (P, P) and S.dtype == torch.float32
+    assert float((S.double() - ref).abs().max()) <= tol
+    assert float((S - plain).abs().max()) <= tol
+    _assert_mirrored(S, syrk.TILE)
+
+
+def test_syrk_kernel_flushes_long_accumulations(dev):
+    """N=65536 unweighted (128 accumulations of 512 samples): within 2e-5
+    of the largest entry of the f64 product. One tensor-core accumulation
+    over all samples comes out ~6e-5 low (the card truncates as it
+    accumulates), so this guards the flush."""
+    from vmc_pde_torch.kernels import syrk
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    O = torch.randn((300, 65536), generator=gen, device=dev).T
+    S = syrk.syrk(O)
+    ref = _syrk_ref(O)
+    torch.cuda.synchronize()
+    assert float((S.double() - ref).abs().max()) <= 2e-5 * float(
+        ref.abs().max())
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_syrk_kernel_launches_are_deterministic(dev, weighted):
+    """Two launches on the same operand give the same bits (no atomics;
+    each tile's sums in a fixed order)."""
+    from vmc_pde_torch.kernels import syrk
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    O = torch.randn((300, 4100), generator=gen, device=dev).T
+    w = torch.randn((4100,), generator=gen, device=dev) if weighted else None
+    a, b = syrk.syrk(O, w), syrk.syrk(O, w)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["feature-major", "ragged",
+                                    "wide rows", "sample-major",
+                                    "offset weight"])
+def test_syrk_split_pass_matches_plain(dev, layout):
+    """The split pass bit for bit against split_plain (stats._split_bf16
+    of O w and O), zero padding included, on the layouts the wrapper
+    hands it: feature-major storage with N a multiple of 8, ragged, with
+    a row stride wider than N, a copied sample-major O, and a weight view
+    that is not 16-byte aligned."""
+    from vmc_pde_torch.kernels import syrk
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    P, N = 77, 1000
+    if layout == "ragged":
+        N = 1003
+    base = torch.randn((P, N + 5), generator=gen, device=dev)
+    X = base[:, 1:N + 1] if layout == "wide rows" else base[:, :N].clone()
+    O = X.T.contiguous() if layout == "sample-major" else X.T
+    w = torch.randn((N + 1,), generator=gen, device=dev)
+    w = w[1:] if layout == "offset weight" else w[:N]
+    for weight in (None, w):
+        got = syrk.split_cuda(O, weight)
+        ref = syrk.split_plain(O.T, weight)
+        torch.cuda.synchronize()
+        assert got.shape == ref.shape and torch.equal(got, ref)
 
 
 @pytest.fixture(scope="module")

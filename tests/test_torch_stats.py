@@ -161,6 +161,14 @@ def test_quant_force_plain_matches_pallas_interpret(kv):
     assert (q8[7] == 0).all()
 
 
+def test_quant8_constants_match_the_kernel_source():
+    """quant8's rows per block here equal csrc/quant8.cu's (parsed from
+    the source)."""
+    from test_torch_syrk import kernel_constants
+
+    assert kernel_constants("quant8.cu")["ROWS"] == quant8.ROWS
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The kernels' wrappers launch or raise: given CPU tensors they do
     not fall back to the plain versions, and count no launch."""

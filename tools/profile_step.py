@@ -23,11 +23,12 @@ from torch.profiler import ProfilerActivity, profile
 from vmc_pde_torch import driver
 
 CLASSES = (
-    ("per-sample kernel, split mode", ("persample_kernel<true>",
+    ("per-sample kernel, split mode", ("persample_kernel<true",
                                        "split_finish")),
-    ("per-sample kernel, plain mode", ("persample_kernel<false>",)),
+    ("per-sample kernel, plain mode", ("persample_kernel<false",)),
     ("quant8 kernel", ("quant_force_kernel",)),
-    ("syrk kernel", ("syrk_kernel",)),
+    ("syrk kernels (split pass, product)", ("syrk_kernel", "split_kernel",
+                                            "tiles_kernel")),
     ("Metropolis kernel", ("metropolis_kernel",)),
     ("GEMM int8", ("s8", "i8", "imma", "int8")),
     ("GEMM bf16", ("bf16",)),

@@ -44,7 +44,9 @@ SIGNATURES = {
         + [_ci] * 3 + [_vp] * 4,
     },
     "syrk": {
-        "syrk_f32": [_vp] * 2 + [_ci] * 3 + [_vp] * 2,
+        "syrk_split_bf16": [_vp] * 2 + [_ci] * 2 + [ctypes.c_longlong, _ci]
+        + [_vp] * 2,
+        "syrk_tiles_bf16": [_vp] + [_ci] * 3 + [_vp, _ci] + [_vp] * 2,
     },
 }
 
@@ -126,6 +128,11 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def check(code: int, what: str) -> None:
-    """Raise on a nonzero CUDA error code returned by a C entry point."""
+    """Raise on a nonzero code returned by a C entry point: a CUDA runtime
+    error, or -1000 - the CUresult of a TMA tensor map the driver refused
+    (-1000 alone: no cuTensorMapEncodeTiled in the driver)."""
+    if code <= -1000:
+        raise RuntimeError(f"{what}: the driver refused a TMA tensor map "
+                           f"(CUresult {-1000 - code})")
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code} at launch")

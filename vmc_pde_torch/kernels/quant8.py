@@ -14,7 +14,8 @@ three hi/lo terms.
 
 ``quant_force_cuda`` launches the hand-written kernel in csrc/quant8.cu
 (bound: one read of x and one int8 write, 1.82 GB per call at P = 9264,
-n = 65536, ~0.54 ms at 3.35 TB/s); ``quant_force_plain`` makes the
+n = 65536, ~0.54 ms at 3.35 TB/s; the ROWS rows of a block share each
+16-byte load of V); ``quant_force_plain`` makes the
 separate passes (the quantization of parallel/stats._quant_cols_int8 with
 the given inverse scales, then the bf16 product); ``quant_force`` takes
 the plain version only for a tensor on the CPU, and for a CUDA tensor
@@ -27,6 +28,8 @@ from __future__ import annotations
 import torch
 
 from ..parallel import stats
+
+ROWS = 2  # rows of x per block of csrc/quant8.cu
 
 
 def quant_force_plain(x_pn, inv, V):
@@ -57,7 +60,9 @@ def quant_force_cuda(x_pn, inv, V):
         raise ValueError(f"quant_force_cuda takes V (n, 1 or 2) and n a "
                          f"multiple of 8; got x {tuple(x_pn.shape)}, V "
                          f"{tuple(V.shape)}")
-    x_pn, inv, V = x_pn.contiguous(), inv.contiguous(), V.contiguous()
+    # the kernel loads x and V as 16-byte vectors: contiguous and aligned
+    x_pn, inv, V = (t.contiguous() for t in (x_pn, inv, V))
+    x_pn, V = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x_pn, V))
     q8 = torch.empty((P, n), dtype=torch.int8, device=dev)
     f = torch.empty((P, kv), dtype=torch.float32, device=dev)
     lib = build.library("quant8")

@@ -8,25 +8,36 @@ the four terms, hi*hi + hi*lo + lo*hi, accumulated in f32; with weights
 the left operand is O * w (rounded in f32) and the right one O, so the
 result is symmetric for any real w.
 
-``syrk_cuda`` launches the hand-written kernel in csrc/syrk.cu, which
-computes only the lower-triangle 128 x 128 output tiles on the tensor
-cores (mma.sync, at most 512 samples per tensor-core accumulation: the
-card truncates as it accumulates) and mirrors them over the upper tiles
-with a select on tile indices. It reads O feature-major -- the
-per-sample kernel's (P, N) storage, handed over as the (N, P) ``.T``
-view -- and copies any other layout once. ``syrk_plain`` is the same
+``syrk_cuda`` launches the two hand-written kernels of csrc/syrk.cu: a
+split pass that reads O feature-major -- the per-sample kernel's (P, N)
+storage, handed over as the (N, P) ``.T`` view; any other layout is copied
+once -- and writes the bf16 halves as (P, Np) arrays (``split_plain`` is
+its plain version), then the product, which computes the lower-triangle
+128 x 128 output tiles on the tensor cores (TMA into an mbarrier ring,
+wgmma, at most 512 samples per tensor-core accumulation: the card
+truncates as it accumulates) in the order of ``tile_list`` and writes each
+off-diagonal tile and its mirror, so S comes out whole. The tensor maps
+come from the driver (cuTensorMapEncodeTiled). ``syrk_plain`` is the same
 split and the three products over the full matrix through
 parallel/stats._mm_bf16. ``syrk`` takes the plain version only for a
-tensor on the CPU, and for a CUDA tensor launches the kernel or raises.
+tensor on the CPU, and for a CUDA tensor launches the kernels or raises.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..parallel import stats
 
-TILE = 128  # output tile edge of csrc/syrk.cu
+TILE = 128   # output tile edge of csrc/syrk.cu
+KBOX = 64    # samples per pipeline stage (one swizzled 128-byte row)
+STAGES = 3   # depth of the kernel's ring of stages
+FLUSH = 8    # stages per tensor-core accumulation: 512 samples
+PAD = 8      # the split arrays' rows are padded to a multiple of PAD
+GROUP = 16   # tile rows per square group of the tile list
 
 
 def syrk_plain(O, w=None):
@@ -39,26 +50,59 @@ def syrk_plain(O, w=None):
             + stats._mm_bf16(alo.T, bhi))
 
 
+def padded(N):
+    """Np: N rounded up to a multiple of PAD (16-byte bf16 rows)."""
+    return -(-N // PAD) * PAD
+
+
+def split_plain(X, w=None):
+    """The split pass's output from X (P, N) and w (N,): (2, P, Np) bf16
+    [A_hi, A_lo] with A = X, or (4, P, Np) [A_hi, A_lo, B_hi, B_lo] with
+    A = X * w (rounded in f32) and B = X; samples N .. Np - 1 are zero."""
+    P, N = X.shape
+    X = X.float()
+    halves = stats._split_bf16(X if w is None else X * w.float()[None, :])
+    if w is not None:
+        halves += stats._split_bf16(X)
+    ops = torch.zeros((len(halves), P, padded(N)), dtype=torch.bfloat16,
+                      device=X.device)
+    for k, h in enumerate(halves):
+        ops[k, :, :N] = h
+    return ops
+
+
+def tile_list(nb):
+    """The (nb (nb + 1) / 2, 2) int32 lower tiles (I, J), I >= J, in the
+    product's order: square groups of GROUP tile rows and columns,
+    the groups row by row, each group's tiles row by row. The card's
+    blocks take consecutive tiles, so the blocks in flight share their
+    operand rows: at P = 9264 a call's waves read 599 row tiles against
+    1063 row by row (tests/test_torch_syrk.py), ~5.0 GB from device memory
+    at N = 16384 against ~8.9 GB."""
+    out = []
+    g = GROUP
+    for a in range(-(-nb // g)):
+        for b in range(a + 1):
+            for i in range(a * g, min(nb, (a + 1) * g)):
+                for j in range(b * g, min(i + 1, (b + 1) * g)):
+                    out.append((i, j))
+    return np.asarray(out, dtype=np.int32).reshape(-1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _tiles_on(nb, dev):
+    return torch.from_numpy(tile_list(nb)).to(dev)
+
+
 def _feature_major(O):
-    """(X (P, Np) f32 with 16-byte aligned rows, Np = N rounded up to 4) for
-    the kernel: the storage behind a feature-major O when it qualifies, a
-    zero-padded copy otherwise."""
-    N, P = O.shape
+    """X (P, N) with unit sample stride for the split pass: the storage
+    behind a feature-major O (any row stride or alignment), a contiguous
+    copy otherwise."""
     X = O.T
-    if (X.stride(1) == 1 and N % 4 == 0 and X.stride(0) % 4 == 0
-            and X.data_ptr() % 16 == 0):
-        return X, N
-    Np = -(-N // 4) * 4
-    Xp = torch.zeros((P, Np), dtype=torch.float32, device=O.device)
-    Xp[:, :N] = X
-    return Xp, Np
+    return X if X.stride(1) == 1 else X.contiguous()
 
 
-def syrk_cuda(O, w=None):
-    """Same result as ``syrk_plain``, from one launch of the CUDA kernel and
-    the mirror: O (N, P) and w (N,) f32 on one CUDA device."""
-    from . import build
-
+def _check(O, w):
     if O.ndim != 2:
         raise ValueError("expected O (N, P)")
     N, P = O.shape
@@ -70,23 +114,47 @@ def syrk_cuda(O, w=None):
     if w is not None and (w.device != dev or w.dtype != torch.float32
                           or w.shape != (N,)):
         raise ValueError(f"expected f32 weights ({N},) on {dev}")
-    X, Np = _feature_major(O)
-    if w is not None:
-        if Np != N:
-            w = torch.cat([w, w.new_zeros(Np - N)])
-        elif not w.is_contiguous() or w.data_ptr() % 16:
-            # the kernel reads w as float4: a fresh, aligned copy
-            w = w.clone(memory_format=torch.contiguous_format)
-    W = torch.empty((P, P), dtype=torch.float32, device=dev)
-    lib = build.library("syrk")
-    code = lib.syrk_f32(X.data_ptr(), None if w is None else w.data_ptr(),
-                        P, Np, X.stride(0), W.data_ptr(),
-                        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(code, "syrk_f32")
+
+
+def split_cuda(O, w=None):
+    """``split_plain(O.T, w)`` from csrc/syrk.cu's split pass: O (N, P)
+    and w (N,) f32 on one CUDA device."""
+    from . import build
+
+    _check(O, w)
+    N, P = O.shape
+    X = _feature_major(O)
+    ldx = X.stride(0) if P > 1 else N
+    if w is not None and not w.is_contiguous():
+        w = w.contiguous()
+    ops = torch.empty((2 if w is None else 4, P, padded(N)),
+                      dtype=torch.bfloat16, device=O.device)
+    code = build.library("syrk").syrk_split_bf16(
+        X.data_ptr(), None if w is None else w.data_ptr(), P, N, ldx,
+        padded(N), ops.data_ptr(),
+        torch.cuda.current_stream(O.device).cuda_stream)
+    build.check(code, "syrk_split_bf16")
+    return ops
+
+
+def syrk_cuda(O, w=None):
+    """Same result as ``syrk_plain``, from the split pass and the triangle
+    product (a launch per 16384 samples): O (N, P) and w (N,) f32 on one
+    CUDA device."""
+    from . import build
+
+    ops = split_cuda(O, w)
+    P, dev = O.shape[1], O.device
+    nb = -(-P // TILE)
+    tiles = _tiles_on(nb, dev)
+    S = torch.empty((P, P), dtype=torch.float32, device=dev)
+    code = build.library("syrk").syrk_tiles_bf16(
+        ops.data_ptr(), ops.shape[0], P, ops.shape[2], tiles.data_ptr(),
+        tiles.shape[0], S.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(code, "syrk_tiles_bf16")
     syrk_cuda.launches += 1
-    # the upper tiles were never written: select, never add
-    tile = torch.arange(P, device=dev) // TILE
-    return torch.where(tile[:, None] >= tile[None, :], W, W.T)
+    return S
 
 
 syrk_cuda.launches = 0
