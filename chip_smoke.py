@@ -35,11 +35,16 @@
    below 1e-3;
 8. the 2-D Gaussian diffusion ``mwe`` in f64 against its closed forms;
 9. the Metropolis kernel against its plain version on the same external
-   uniforms (128 chains x 24 sweeps, 8192 x 128): the same accept count,
-   samples and final states within 2e-6; its Philox variant at 8192 x 128
-   against the plain version on the same stream, and against the torch
-   chain on statistics (acceptance within 0.03, mean radius within 5% of
-   the analytic value, radial-histogram L1 below 0.15); all three timed;
+   uniforms and on the same Philox stream at the launch shapes (128
+   chains x 24 sweeps; 8192 x 128, the VarState.sample launch; 8192 x
+   136, a last chunk of 8 sweeps; 2048 x 128 from chain 2048, also
+   against those chains' rows of the plain version over 4096), every
+   fourth chain started outside the bump's support: the same accept
+   count, samples and final states within 2e-6, the rim proposals of
+   the chains outside rejected; a Philox run at 8192 x 128 against the
+   torch chain on statistics (acceptance within 0.03, mean radius within
+   5% of the analytic value, radial-histogram L1 below 0.15); timed, with
+   the shares of the bound and of the bound without Philox's multiplies;
 10. ``VarState.sample`` on fluidpaper's flow with 8192 chains, 2^20
    samples: the kernel's launch counter must rise;
 11. ``fluidpaper`` through the driver at the preset (30 chains, N=10020)
@@ -104,11 +109,12 @@
    (timed, with its share of the bound), then the GSPMD counterpart (``eloc_clip=2``) for 2 steps with
    exactly 4 of its launches per rank;
 20. (F) ``metropolis_chain_sharded`` on the 4 ranks, 8192 chains x 128
-   sweeps: each rank's launch against the plain version with its
-   chain_base, and the gathered shards against the single launch, bit for
-   bit, accept counts equal, with external uniforms and with Philox (the
-   per-rank launch timed); then ``VarState.sample`` of fluidpaper's flow on
-   the mesh with 8192 chains: 2 launches on every rank.
+   and x 136 sweeps (every fourth chain outside the support): each
+   rank's launch against the plain version with its chain_base, and the
+   gathered shards against the single launch, bit for bit, accept counts
+   equal, with external uniforms and with Philox (the per-rank launch
+   timed, with both shares); then ``VarState.sample`` of fluidpaper's
+   flow on the mesh with 8192 chains: 2 launches on every rank.
 
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
@@ -671,37 +677,83 @@ def _bump_mean_radius(bound=0.25):
     return np.trapezoid(s_grid * w, s_grid) / np.trapezoid(w, s_grid)
 
 
+def _metropolis_inputs(dev, n_chains, sweeps, seed=2):
+    """Initial states and external uniforms of n_chains chains, as
+    tests/test_torch_cuda.py makes them: every fourth chain starts outside
+    the bump's support (lp = -inf) and draws its first 8 proposals on the
+    ball's rim (lp = -inf: -inf - -inf is NaN, which must reject); the
+    mask of those chains."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init = torch.tensor(BUMP_OFFSET, device=dev).repeat(n_chains, 1)
+    outside = torch.arange(n_chains, device=dev) % 4 == 3
+    init[outside, 0] += 0.5
+    u = torch.rand((6, sweeps, n_chains), generator=gen, device=dev) \
+        * (1 - 2e-7) + 1e-7
+    u[4, :8, outside] = 1.0
+    return init, u.reshape(6, -1), outside
+
+
+def _metropolis_vs_plain(dev, C, sweeps, base, ext):
+    """One launch on the global chains [base, base + C) against the plain
+    version with the same chain_base (and, for base > 0, against the rows
+    of these chains in the plain version over all base + C chains); the
+    rim proposals of the chains outside the support rejected. Returns the
+    largest difference."""
+    G = base + C
+    init_all, u_all, outside = _metropolis_inputs(dev, G, sweeps)
+    init = init_all[base:].contiguous()
+    u = (u_all.reshape(6, sweeps, G)[:, :, base:].reshape(6, -1) if ext
+         else None)
+    got = metropolis.metropolis_chain_cuda(5, init, sweeps, 0.25,
+                                           BUMP_OFFSET, u, chain_base=base)
+    ref = metropolis.metropolis_chain_plain(5, init, sweeps, 0.25,
+                                            BUMP_OFFSET, u, chain_base=base)
+    torch.cuda.synchronize()
+    err = max(float((a - r).abs().max()) for a, r in zip(got[:2], ref[:2]))
+    rows = got[0].reshape(sweeps, C, 2)
+    if base:
+        full = metropolis.metropolis_chain_plain(
+            5, init_all, sweeps, 0.25, BUMP_OFFSET, u_all if ext else None)
+        err = max(err, float((rows - full[0].reshape(sweeps, G, 2)[:, base:])
+                             .abs().max()))
+    stuck = rows[:8, outside[base:]]
+    rejected = (not ext or torch.equal(
+        stuck, init[outside[base:]].expand_as(stuck)))
+    acc, acc_ref = int(got[2]), int(ref[2])
+    label = "external uniforms" if ext else "Philox"
+    print(f"metropolis kernel vs plain, {C} chains x {sweeps} sweeps from "
+          f"chain {base}, {label}: accepted {acc} vs {acc_ref}, max abs err "
+          f"{err:.3e} (tol 2e-6), rim proposals outside the support "
+          f"rejected: {rejected}")
+    if acc != acc_ref or not err <= 2e-6 or not rejected:
+        fail(f"the Metropolis kernel disagrees with its plain version "
+             f"({label}, {C} chains x {sweeps} sweeps from {base})")
+    return err
+
+
+def _metropolis_bound(n, ext=False):
+    """(bound ms, bound_by, the bound with Philox left out in ms)."""
+    t = bounds.metropolis_terms(n, 2, ext=ext)
+    return (*bounds.metropolis(n, 2, ext=ext), max(t["bytes"], t["f32"]))
+
+
 def phase_metropolis(dev):
     """The Metropolis kernel against its plain version on the same
-    uniforms, exact; the Philox variant against the plain version on its
-    stream and against the torch chain on statistics."""
+    uniforms and on the Philox stream, exact, at the launch shapes;
+    the Philox variant against the torch chain on statistics; timed."""
     max_abs = 0.0
-    gen = torch.Generator(device=dev).manual_seed(2)
-    for C, sweeps, uniforms in ((128, 24, True), (8192, 128, True),
-                                (8192, 128, False)):
-        init = torch.tensor(BUMP_OFFSET, device=dev).repeat(C, 1)
-        u = None
-        if uniforms:
-            u = torch.rand((6, sweeps * C), generator=gen, device=dev) \
-                * (1 - 2e-7) + 1e-7
-        got = metropolis.metropolis_chain_cuda(5, init, sweeps, 0.25,
-                                               BUMP_OFFSET, u)
-        ref = metropolis.metropolis_chain_plain(5, init, sweeps, 0.25,
-                                                BUMP_OFFSET, u)
-        torch.cuda.synchronize()
-        err = max(float((a - r).abs().max()) for a, r in zip(got[:2],
-                                                             ref[:2]))
-        acc, acc_ref = int(got[2]), int(ref[2])
-        label = "external uniforms" if uniforms else "Philox"
-        print(f"metropolis kernel vs plain, {C} chains x {sweeps} sweeps, "
-              f"{label}: accepted {acc} vs {acc_ref}, max abs err {err:.3e} "
-              f"(tol 2e-6)")
-        if acc != acc_ref or not err <= 2e-6:
-            fail(f"the Metropolis kernel disagrees with its plain version "
-                 f"({label}, {C} chains)")
-        max_abs = max(max_abs, err)
+    for C, sweeps, base in ((128, 24, 0), (8192, 128, 0), (8192, 136, 0),
+                            (2048, 128, 2048)):
+        for ext in (True, False):
+            max_abs = max(max_abs, _metropolis_vs_plain(dev, C, sweeps, base,
+                                                        ext))
 
-    # statistics of the Philox run against the torch chain
+    # statistics of a Philox run from the offset against the torch chain
+    C, sweeps = 8192, 128
+    init = torch.tensor(BUMP_OFFSET, device=dev).repeat(C, 1)
+    got = metropolis.metropolis_chain_cuda(5, init, sweeps, 0.25,
+                                           BUMP_OFFSET)
+    acc = int(got[2])
     total, burn = sweeps * C, 32 * C
     info = {"offset": np.asarray(BUMP_OFFSET), "bound": 0.25}
     t_s, _, t_acc = sampling.metropolis_chain(
@@ -724,12 +776,15 @@ def phase_metropolis(dev):
             and abs(rt.mean() / mean_r - 1) < 0.05 and l1 < 0.15):
         fail("the Philox Metropolis kernel does not sample the cosine bump")
 
+    gen = torch.Generator(device=dev).manual_seed(2)
     u_ext = torch.rand((6, sweeps * C), generator=gen, device=dev) \
         * (1 - 2e-7) + 1e-7
     ms = _time_ms(lambda: metropolis.metropolis_chain_cuda(
-        5, init, sweeps, 0.25, BUMP_OFFSET), 20)
+        5, init, sweeps, 0.25, BUMP_OFFSET), 50)
     ext_ms = _time_ms(lambda: metropolis.metropolis_chain_cuda(
-        5, init, sweeps, 0.25, BUMP_OFFSET, u_ext), 20)
+        5, init, sweeps, 0.25, BUMP_OFFSET, u_ext), 50)
+    tail_ms = _time_ms(lambda: metropolis.metropolis_chain_cuda(
+        5, init, sweeps + 8, 0.25, BUMP_OFFSET), 50)
     plain_ms = _time_ms(lambda: metropolis.metropolis_chain_plain(
         5, init, sweeps, 0.25, BUMP_OFFSET, u_ext), 3)
     torch_ms = _time_ms(lambda: sampling.metropolis_chain(
@@ -737,15 +792,18 @@ def phase_metropolis(dev):
         lambda x: sampling.cos_dist_log_prob(
             x, torch.tensor(BUMP_OFFSET, device=dev)),
         sampling.radial_proposal, sweeps, info), 3)
-    bound = bounds.metropolis(total, 2)
-    bound_ext = bounds.metropolis(total, 2, ext=True)
+    bound, by, old = _metropolis_bound(total)
+    bound_ext, _, _ = _metropolis_bound(total, ext=True)
     print(f"metropolis at {C} chains x {sweeps} sweeps: CUDA kernel Philox "
-          f"{ms:.4f} ms (bound {bound[0]:.6f} ms, {bound[1]}), external "
-          f"uniforms {ext_ms:.4f} ms (bound {bound_ext[0]:.6f} ms), plain "
-          f"torch on the same uniforms {plain_ms:.3f} ms, the torch chain "
-          f"{torch_ms:.3f} ms")
+          f"{ms:.4f} ms (bound {bound:.6f} ms, {by}, share "
+          f"{bound / ms:.4f}; without Philox's multiplies {old:.6f} ms, "
+          f"share {old / ms:.4f}), external uniforms {ext_ms:.4f} ms (bound "
+          f"{bound_ext:.6f} ms, share {bound_ext / ext_ms:.4f}), Philox at "
+          f"{sweeps + 8} sweeps {tail_ms:.4f} ms, plain torch on the same "
+          f"uniforms {plain_ms:.3f} ms, the torch chain {torch_ms:.3f} ms")
     return dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[0], bound_by=bound[1])
+                bound_ms=bound, bound_by=by, bound_without_philox_ms=old,
+                ext_ms=ext_ms, ext_bound_ms=bound_ext)
 
 
 def phase_var_state_sample(dev):
@@ -1384,46 +1442,54 @@ def phase_mesh_metropolis(ctx):
     plain version and, gathered, against the single launch; timed; then
     VarState.sample on the mesh."""
     W, dev = ctx.world, ctx.device
-    C, sweeps = 8192, 128
+    C = 8192
     C_loc = C // W
     base = ctx.rank * C_loc
-    gen = torch.Generator(device=dev).manual_seed(2)
-    init_all = torch.tensor(BUMP_OFFSET, device=dev).repeat(C, 1)
-    init = ctx.local_rows(init_all)
-    u = torch.rand((6, sweeps * C), generator=gen, device=dev) \
-        * (1 - 2e-7) + 1e-7
-    u_loc = u.reshape(6, sweeps, C)[:, :, base:base + C_loc].reshape(6, -1)
     max_abs = 0.0
-    for label, uu, uu_loc in (("external uniforms", u, u_loc),
-                              ("Philox", None, None)):
-        s, f, acc = metropolis.metropolis_chain_sharded(
-            ctx, 5, init, sweeps, 0.25, BUMP_OFFSET, uu)
-        ps, pf, pacc = metropolis.metropolis_chain_plain(
-            5, init, sweeps, 0.25, BUMP_OFFSET, uu_loc, chain_base=base)
-        (pacc,) = mesh.all_reduce_sum(ctx, [pacc])
-        err = max(float((s - ps).abs().max()), float((f - pf).abs().max()))
-        if int(acc) != int(pacc) or not err <= 2e-6:
-            fail(f"metropolis_chain_sharded ({label}) on rank {ctx.rank}: "
-                 f"accepted {int(acc)} vs plain {int(pacc)}, max abs err "
-                 f"{err:.3e}")
-        max_abs = max(max_abs, err)
-        gathered = metropolis.gather_sweep_major(ctx, s, sweeps)
-        final = mesh.all_gather_rows(ctx, f)
-        if ctx.rank == 0:
-            single = metropolis.metropolis_chain_cuda(
-                5, init_all, sweeps, 0.25, BUMP_OFFSET, uu)
-            same = (torch.equal(gathered, single[0])
-                    and torch.equal(final, single[1])
-                    and int(acc) == int(single[2]))
-            print(f"[mesh] metropolis_chain_sharded, {W} ranks x {C_loc} "
-                  f"chains x {sweeps} sweeps, {label}: accepted {int(acc)} "
-                  f"(single launch {int(single[2])}), gathered samples and "
-                  f"final states bitwise the single launch's: {same}; each "
-                  f"rank vs its plain version max abs err {err:.3e}",
-                  flush=True)
-            if not same:
-                fail(f"the sharded Metropolis kernel ({label}) does not "
-                     "replay the single launch")
+    # 128 sweeps, the VarState.sample launch; 136, a last chunk of 8
+    for sweeps in (128, 136):
+        init_all, u, outside = _metropolis_inputs(dev, C, sweeps)
+        init = ctx.local_rows(init_all)
+        u_loc = u.reshape(6, sweeps, C)[:, :, base:base + C_loc].reshape(
+            6, -1)
+        for label, uu, uu_loc in (("external uniforms", u, u_loc),
+                                  ("Philox", None, None)):
+            s, f, acc = metropolis.metropolis_chain_sharded(
+                ctx, 5, init, sweeps, 0.25, BUMP_OFFSET, uu)
+            ps, pf, pacc = metropolis.metropolis_chain_plain(
+                5, init, sweeps, 0.25, BUMP_OFFSET, uu_loc, chain_base=base)
+            (pacc,) = mesh.all_reduce_sum(ctx, [pacc])
+            err = max(float((s - ps).abs().max()),
+                      float((f - pf).abs().max()))
+            stuck = s.reshape(sweeps, C_loc, 2)[:8, ctx.local_rows(outside)]
+            rejected = uu is None or torch.equal(
+                stuck, init[ctx.local_rows(outside)].expand_as(stuck))
+            if int(acc) != int(pacc) or not err <= 2e-6 or not rejected:
+                fail(f"metropolis_chain_sharded ({label}, {sweeps} sweeps) "
+                     f"on rank {ctx.rank}: accepted {int(acc)} vs plain "
+                     f"{int(pacc)}, max abs err {err:.3e}, rim proposals "
+                     f"outside the support rejected: {rejected}")
+            max_abs = max(max_abs, err)
+            gathered = metropolis.gather_sweep_major(ctx, s, sweeps)
+            final = mesh.all_gather_rows(ctx, f)
+            if ctx.rank == 0:
+                single = metropolis.metropolis_chain_cuda(
+                    5, init_all, sweeps, 0.25, BUMP_OFFSET, uu)
+                same = (torch.equal(gathered, single[0])
+                        and torch.equal(final, single[1])
+                        and int(acc) == int(single[2]))
+                print(f"[mesh] metropolis_chain_sharded, {W} ranks x "
+                      f"{C_loc} chains x {sweeps} sweeps, {label}: accepted "
+                      f"{int(acc)} (single launch {int(single[2])}), "
+                      f"gathered samples and final states bitwise the "
+                      f"single launch's: {same}; each rank vs its plain "
+                      f"version max abs err {err:.3e}", flush=True)
+                if not same:
+                    fail(f"the sharded Metropolis kernel ({label}) does not "
+                         "replay the single launch")
+    sweeps = 128
+    init = ctx.local_rows(torch.tensor(BUMP_OFFSET, device=dev).repeat(C, 1))
+    u_loc = u_loc[:, :sweeps * C_loc].contiguous()
     ms = _coordinator_times(ctx, [
         ("ms", lambda: metropolis.metropolis_chain_cuda(
             5, init, sweeps, 0.25, BUMP_OFFSET, chain_base=base), 20),
@@ -1431,7 +1497,8 @@ def phase_mesh_metropolis(ctx):
             5, init, sweeps, 0.25, BUMP_OFFSET, u_loc, chain_base=base), 20),
         ("plain_ms", lambda: metropolis.metropolis_chain_plain(
             5, init, sweeps, 0.25, BUMP_OFFSET, u_loc, chain_base=base), 3)])
-    bound = bounds.metropolis(C_loc * sweeps, 2)
+    bound = _metropolis_bound(C_loc * sweeps)
+    bound_ext = _metropolis_bound(C_loc * sweeps, ext=True)
 
     cfg = preset("fluidpaper")
     flow, theta = build_flow(cfg.seed, cfg.dim, depth=cfg.depth,
@@ -1456,16 +1523,22 @@ def phase_mesh_metropolis(ctx):
              f"{counts}, shard {tuple(x.shape)}, acceptance {rate}")
     if ctx.rank == 0:
         print(f"[mesh] per-rank Metropolis launch, {C_loc} chains x "
-              f"{sweeps} sweeps: Philox {ms['ms']:.4f} ms, external "
-              f"uniforms {ms['ext_ms']:.4f} ms, plain torch "
-              f"{ms['plain_ms']:.3f} ms, bound {bound[0]:.6f} ms "
-              f"({bound[1]}), the other ranks idle; VarState.sample on the "
+              f"{sweeps} sweeps: Philox {ms['ms']:.4f} ms (bound "
+              f"{bound[0]:.6f} ms, {bound[1]}, share "
+              f"{bound[0] / ms['ms']:.4f}; without Philox's multiplies "
+              f"{bound[2]:.6f} ms, share {bound[2] / ms['ms']:.4f}), "
+              f"external uniforms {ms['ext_ms']:.4f} ms (bound "
+              f"{bound_ext[0]:.6f} ms, share "
+              f"{bound_ext[0] / ms['ext_ms']:.4f}), plain torch "
+              f"{ms['plain_ms']:.3f} ms, the other ranks idle; "
+              f"VarState.sample on the "
               f"mesh, 8192 chains: 2 x {n} samples, launches per rank "
               f"{counts['metropolis_sharded']}, acceptance {rate:.4f}",
               flush=True)
     return dict(max_abs_err=max_abs, ms=ms["ms"] if ms else None,
                 ext_ms=ms.get("ext_ms"), plain_ms=ms.get("plain_ms"),
                 bound_ms=bound[0], bound_by=bound[1],
+                bound_without_philox_ms=bound[2], ext_bound_ms=bound_ext[0],
                 launches=counts["metropolis_sharded"],
                 chains_per_rank=C_loc)
 

@@ -468,31 +468,93 @@ def test_int8_product_at_sizes_cublaslt_refuses(dev, r, c, k):
     assert torch.equal(got.cpu(), (a.cpu().long() @ b.cpu().long().T).int())
 
 
-def test_metropolis_kernel_matches_plain(dev):
+def _metropolis_inputs(dev, C, sweeps, base, seed=0):
+    """Initial states of the global chains [base, base + C) and external
+    uniforms of all base + C chains: every fourth chain starts outside
+    the bump's support (lp = -inf) and draws its first 8 proposals on the
+    ball's rim (radius uniform 1: lp = -inf as well), which must be
+    rejected (-inf - -inf is NaN)."""
+    G = base + C
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    init = torch.full((G, 2), 0.25, device=dev)
+    outside = torch.arange(G, device=dev) % 4 == 3
+    init[outside, 0] = 0.75
+    u = torch.rand((6, sweeps, G), generator=gen, device=dev) * 0.999 + 1e-4
+    u[4, :8, outside] = 1.0
+    return init, u.reshape(6, sweeps * G), outside
+
+
+@pytest.mark.parametrize("C,n_steps,base", [(128, 24, 0), (256, 24, 0),
+                                            (8192, 128, 0), (8192, 136, 0),
+                                            (2048, 128, 2048)])
+def test_metropolis_kernel_matches_plain(dev, C, n_steps, base):
     """The Metropolis kernel against its plain version on the card, on
     the same external uniforms and on the Philox stream (the plain version
     draws it on the host): the same samples and accept count, bit for bit
-    up to 2e-6."""
+    up to 2e-6. The shapes: small ones, the VarState.sample launch (8192
+    chains x 128 sweeps), a last chunk of 8 sweeps (136), and one rank's
+    2048 chains from chain 2048, also held against the rows of those
+    chains in the plain version over all 4096. States outside the
+    bump's support reject proposals outside it (_metropolis_inputs)."""
     from vmc_pde_torch.kernels import metropolis
 
-    C, n_steps, off = 256, 24, (0.25, 0.25)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    init = torch.full((C, 2), 0.25, device=dev)
-    u = torch.rand((6, n_steps * C), generator=gen, device=dev) * 0.999 \
-        + 1e-4
+    off, G = (0.25, 0.25), base + C
+    init_all, u_all, outside = _metropolis_inputs(dev, C, n_steps, base)
+    init = init_all[base:].contiguous()
+    u = u_all.reshape(6, n_steps, G)[:, :, base:].reshape(6, -1)
     before = metropolis.metropolis_chain_cuda.launches
-    for uniforms in (u, None):
+    for ext in (True, False):
+        uniforms = u if ext else None
         got = metropolis.metropolis_chain(11, init, n_steps, 0.25, off,
-                                          uniforms)
+                                          uniforms, chain_base=base)
         ref = metropolis.metropolis_chain_plain(11, init, n_steps, 0.25, off,
-                                                uniforms)
+                                                uniforms, chain_base=base)
         torch.cuda.synchronize()
         assert int(got[2]) == int(ref[2]) and 0 < int(got[2]) < n_steps * C
         for a, r in zip(got[:2], ref[:2]):
             assert float((a - r).abs().max()) <= 2e-6
+        if base:
+            full = metropolis.metropolis_chain_plain(
+                11, init_all, n_steps, 0.25, off,
+                u_all if ext else None)[0].reshape(n_steps, G, 2)
+            rows = got[0].reshape(n_steps, C, 2)
+            assert float((rows - full[:, base:]).abs().max()) <= 2e-6
+        if ext:
+            stuck = got[0].reshape(n_steps, C, 2)[:8, outside[base:]]
+            assert torch.equal(stuck, init[outside[base:]].expand_as(stuck))
     assert metropolis.metropolis_chain_cuda.launches == before + 2
     with pytest.raises(ValueError, match="uniforms"):
         metropolis.metropolis_chain(0, init, n_steps, 0.25, off, u[:, :C])
+
+
+@pytest.mark.parametrize("C,n_steps,plan", [
+    (128, 24, (8, 32, 64)), (128, 24, (8, 16, 96)), (128, 24, (32, 8, 544)),
+    (2048, 136, (16, 32, 288)), (2048, 136, (32, 16, 544)),
+    (2048, 136, (8, 64, 160))])
+def test_metropolis_kernel_tile_plans_agree(dev, monkeypatch, C, n_steps,
+                                            plan):
+    """Another tile plan than the wrapper's (one chunk or several, a short
+    last chunk, one proposal warp or sixteen) gives the same bits, with
+    external uniforms and with Philox; a plan the kernel does not take is
+    refused at launch."""
+    from vmc_pde_torch.kernels import metropolis
+
+    init, u, _ = _metropolis_inputs(dev, C, n_steps, 0, seed=1)
+    runs = []
+    for p in (None, plan):
+        if p is not None:
+            TC, KS, threads = p
+            monkeypatch.setattr(metropolis, "tile_plan", lambda *a: (
+                TC, KS, threads, 2 * KS * TC * metropolis.PAIR_BYTES))
+        runs.append([metropolis.metropolis_chain_cuda(3, init, n_steps, 0.25,
+                                                      (0.25, 0.25), uu)
+                     for uu in (u, None)])
+    for a, b in zip(*runs):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    monkeypatch.setattr(metropolis, "tile_plan", lambda *a: (8, 12, 288, 0))
+    with pytest.raises(RuntimeError, match="metropolis_f32"):
+        metropolis.metropolis_chain_cuda(3, init, n_steps, 0.25,
+                                         (0.25, 0.25))
 
 
 @pytest.mark.parametrize("N,P,weight", [(1024, 512, None),

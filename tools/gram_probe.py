@@ -77,11 +77,12 @@ EDITS = {
 }
 
 
-def variant_source(name: str, kind: str) -> str:
-    """csrc/<name>.cu with the ``kind`` edit; raises if an anchor is not
-    found as often as expected (the kernel changed under the tool)."""
+def variant_source(name: str, kind: str, table=None) -> str:
+    """csrc/<name>.cu with the ``kind`` edit of ``table`` (EDITS by
+    default); raises if an anchor is not found as often as expected (the
+    kernel changed under the tool)."""
     src = (build.CSRC / f"{name}.cu").read_text()
-    prelude, edits = EDITS[(name, kind)]
+    prelude, edits = (table or EDITS)[(name, kind)]
     if src.count(INCLUDE) != 1:
         raise RuntimeError(f"{INCLUDE.strip()!r} not found once")
     src = src.replace(INCLUDE, INCLUDE + prelude)
@@ -93,10 +94,10 @@ def variant_source(name: str, kind: str) -> str:
     return src
 
 
-def start_build(name: str, kind: str):
+def start_build(name: str, kind: str, table=None):
     """Starts nvcc on the edited source (the port's flags) in the ignored
     build directory; returns (library path, process or None if built)."""
-    src = variant_source(name, kind)
+    src = variant_source(name, kind, table)
     h = hashlib.sha256((" ".join(build.NVCC_FLAGS) + src).encode())
     out = build.BUILD_ROOT / f"probe-{name}-{kind}-{h.hexdigest()[:16]}"
     so = out / f"lib{name}.so"

@@ -3,8 +3,10 @@ larger of the bytes it must move (each input read once, each output
 written once) over the memory rate, and its operations over the peak rate
 of their type. Peaks from NVIDIA's H100 SXM data sheet, dense, at the full
 700 W: 3.35 TB/s HBM, 67 TFLOP/s f32 outside the tensor cores, 989
-TFLOP/s bf16 on them. chip_smoke.py reports these bounds beside the
-measured times;
+TFLOP/s bf16 on them; 32-bit integer multiplies at 64 per clock per SM
+(the CUDA C++ Programming Guide's arithmetic-instruction throughput table,
+compute capability 9.0) on 132 SMs at the card's maximum SM clock.
+chip_smoke.py reports these bounds beside the measured times;
 
     python -m vmc_pde_torch.kernels.bounds
 
@@ -17,6 +19,13 @@ from __future__ import annotations
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
 BF16_FLOP_S = 989e12
+# the maximum SM clock of an H100 80GB HBM3, as
+# `nvidia-smi --query-gpu=clocks.max.sm` reports it: 1980 MHz
+H100_MAX_SM_HZ = 1980e6
+INT32_MUL_S = 64 * 132 * H100_MAX_SM_HZ
+# 32-bit multiply results per Philox-4x32-10 call: 10 rounds of two
+# multiplies, each taken hi and lo
+PHILOX_MULS = 10 * 2 * 2
 
 
 def bound_ms(n_bytes, n_ops, ops_rate=F32_FLOP_S):
@@ -79,14 +88,29 @@ def syrk(N, P, weighted=False):
                     3 * N * P * P, BF16_FLOP_S)
 
 
+def metropolis_terms(n, dim, ext=False):
+    """The least times in ms of independence Metropolis on n proposals, by
+    term: "bytes", n recorded (dim,) f32 states out (and, with external
+    uniforms, 2 dim + 2 f32 uniforms in per proposal); "f32", ~(8 dim +
+    24) f32 operations per proposal (Box-Muller, ball radius, the latent's
+    log-density, the accept test); "int_mul", without external uniforms,
+    the 32-bit multiplies of the Philox calls that draw a proposal's 2 dim
+    + 2 words (four per call). chip_smoke.py also reports the larger of
+    the first two, the bound with Philox left out."""
+    n_philox = -(-(2 * dim + 2) // 4)
+    return {"bytes": 1e3 * (4 * n * dim + 4 * (2 * dim + 2) * n * ext)
+            / HBM_BYTES_S,
+            "f32": 1e3 * n * (8 * dim + 24) / F32_FLOP_S,
+            "int_mul": 0.0 if ext else
+            1e3 * n * n_philox * PHILOX_MULS / INT32_MUL_S}
+
+
 def metropolis(n, dim, ext=False):
-    """Independence Metropolis: n recorded (dim,) f32 states out (and, with
-    external uniforms, 2 dim + 2 f32 uniforms in per proposal); ~(8 dim
-    + 24) f32 operations per proposal (Box-Muller, ball radius, the
-    latent's log-density, the accept test; Philox's integer rounds not
-    counted)."""
-    return bound_ms(4 * n * dim + 4 * (2 * dim + 2) * n * ext,
-                    n * (8 * dim + 24))
+    """(least time in ms, "bytes" or "operations") of independence
+    Metropolis on n proposals: the largest of metropolis_terms."""
+    t = metropolis_terms(n, dim, ext)
+    ms = max(t.values())
+    return ms, "bytes" if t["bytes"] >= ms else "operations"
 
 
 def fokker_planck32():
@@ -127,7 +151,7 @@ def main():
          metropolis(8192 * 128, 2)),
         ("metropolis_chain_pallas, external uniforms (same)",
          metropolis(8192 * 128, 2, ext=True)),
-        ("metropolis_chain_pallas_sharded, per device of 4 (same)",
+        ("metropolis_chain_pallas_sharded, per device of 4 (2048 chains)",
          metropolis(8192 * 128 // 4, 2)),
     ]
     for name, (ms, by) in rows:

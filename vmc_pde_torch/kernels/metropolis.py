@@ -21,10 +21,14 @@ Each 32-bit word becomes a uniform as the TPU path makes one: its low 23
 bits times 2^-23, plus 1e-12 (so Box-Muller's log stays finite).
 
 ``metropolis_chain_cuda`` launches the hand-written kernel in
-csrc/metropolis.cu; ``metropolis_chain_plain`` is the same sequence of f32
-operations in torch (with ``philox_uniforms`` on the host when no uniforms
-are given); ``metropolis_chain`` takes the plain version only for a tensor
-on the CPU, and for a CUDA tensor launches the kernel or raises.
+csrc/metropolis.cu: a block per tile of chains, proposal warps that fill
+a chunk of sweeps for every (sweep, chain) pair of the tile while the
+scan warp runs the accept tests of the chunk before, in order
+(``tile_plan`` picks the tile, the chunk and the threads);
+``metropolis_chain_plain`` is the same sequence of f32 operations in
+torch (with ``philox_uniforms`` on the host when no uniforms are given);
+``metropolis_chain`` takes the plain version only for a tensor on the
+CPU, and for a CUDA tensor launches the kernel or raises.
 
 ``metropolis_chain_sharded`` replaces the shard_map wrapper
 vmc_pde_tpu/kernels/metropolis.py::metropolis_chain_pallas_sharded: on a
@@ -44,6 +48,7 @@ a uniforms block of another shape a ValueError. The cosine bump is 2-D
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -52,6 +57,17 @@ import torch
 from ..parallel import mesh
 
 SWEEPS_PER_BLOCK = 8
+
+# The CUDA kernel's constants (csrc/metropolis.cu, same names there;
+# tests/test_torch_mcmc.py checks them): the most threads of a block (the
+# scan warp and 16 proposal warps), the shared bytes of one (sweep, chain)
+# pair and of a block. Its scan unroll is SWEEPS_PER_BLOCK.
+MAX_THREADS = 544
+PAIR_BYTES = 16
+SMEM_LIMIT = 49152
+TILE_CHAINS = (32, 16, 8)  # chains per block, largest first
+PROPOSAL_WARPS = 8
+H100_SMS = 132
 
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
@@ -186,6 +202,31 @@ def metropolis_chain_plain(seed: int, init_states, n_steps: int,
             accepted.sum())
 
 
+@functools.lru_cache(maxsize=256)
+def tile_plan(n_chains: int, n_steps: int, n_sm: int = H100_SMS):
+    """(chains per block TC, sweeps per chunk KS, threads, shared bytes) of
+    a launch on n_chains (a multiple of 128) x n_steps (a multiple of
+    SWEEPS_PER_BLOCK) sweeps. TC: the largest of TILE_CHAINS that still
+    gives two blocks per SM, else the smallest. Threads: the scan warp and
+    PROPOSAL_WARPS proposal warps. KS: enough sweeps that every proposal
+    thread has a pair in each chunk (at least 16), at most n_steps; the
+    two buffers of KS x TC pairs take the shared memory."""
+    TC = next((t for t in TILE_CHAINS if n_chains // t >= 2 * n_sm),
+              TILE_CHAINS[-1])
+    threads = 32 * (1 + PROPOSAL_WARPS)
+    KS = min(max(16, 32 * PROPOSAL_WARPS // TC), n_steps)
+    return TC, KS, threads, 2 * KS * TC * PAIR_BYTES
+
+
+@functools.lru_cache(maxsize=16)
+def _device_consts(offset: tuple, dev: torch.device):
+    """The offset as an f32 tensor on the device and the device's SM
+    count, made once per (offset, device): a launch copies nothing from
+    the host (a copy from pageable host memory waits for the stream)."""
+    return (torch.tensor(offset, dtype=torch.float32, device=dev),
+            torch.cuda.get_device_properties(dev).multi_processor_count)
+
+
 def metropolis_chain_cuda(seed: int, init_states, n_steps: int,
                           bound: float, offset, uniforms=None,
                           chain_base: int = 0):
@@ -206,18 +247,19 @@ def metropolis_chain_cuda(seed: int, init_states, n_steps: int,
                                  or uniforms.dtype != torch.float32):
         raise ValueError("uniforms must be f32 on the chains' device")
     init = init_states.contiguous()
-    off = torch.as_tensor(np.asarray(offset, dtype=np.float32).reshape(d),
-                          device=dev)
+    off, n_sm = _device_consts(
+        tuple(np.asarray(offset, dtype=np.float32).reshape(d).tolist()), dev)
+    TC, KS, threads, _ = tile_plan(C, n_steps, n_sm)
     u = None if uniforms is None else uniforms.contiguous()
     samples = torch.empty((n_steps * C, d), dtype=torch.float32, device=dev)
     final = torch.empty((C, d), dtype=torch.float32, device=dev)
-    n_acc = torch.zeros((), dtype=torch.int64, device=dev)
+    n_acc = torch.empty((), dtype=torch.int64, device=dev)  # zeroed there
     lib = build.library("metropolis")
     code = lib.metropolis_f32(
         init.data_ptr(), off.data_ptr(), ctypes.c_float(float(bound)),
         None if u is None else u.data_ptr(),
         ctypes.c_ulonglong(int(seed) & 0xFFFFFFFFFFFFFFFF), int(chain_base),
-        C, n_steps,
+        C, n_steps, TC, KS, threads,
         samples.data_ptr(), final.data_ptr(), n_acc.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(code, "metropolis_f32")
