@@ -115,12 +115,40 @@
    equal, with external uniforms and with Philox (the per-rank launch
    timed, with both shares); then ``VarState.sample`` of fluidpaper's
    flow on the mesh with 8192 chains: 2 launches on every rank.
+21. (G) the steppers at full width, before phases 19-20:
+   ``fokkerPlanck32`` at N=16384 with ``--stepper`` fixed_euler,
+   fixed_rk3, adaptive_heun and adaptive_rk23 for 3 steps each (cholesky,
+   so the adaptive error is the matrix-free S metric on the last stage's
+   kept O): exactly stages x attempts plain-mode launches, each step's t,
+   dt, attempts, error and residual; the matrix-free pass timed with CUDA
+   events beside one per-sample launch;
+22. (G) ``--exact-t-end`` landing on t_end = 5e-3 (dt 2e-3, 2e-3, 1e-3),
+   and ``--steps-per-dispatch 3`` against 1 for fixed_heun and
+   adaptive_heun (3 steps, no callbacks, so the batch runs): theta and the
+   recorded rows bit for bit; then the host waits (torch's sync debug
+   mode) inside one fused Heun pair, one adaptive-Heun attempt and one
+   chunked Heun pair, printed with where each comes from;
+23. (G) one batch with the dense SExp at the theta phase 5 ends on: the
+   direct statistics at N=16384 through syrk (3 launches: S0, A and SExp
+   weighted with logp^2) and the chunked ones at N=131072 through tri2 +
+   int8, each SExp within 1e-4 of the f32 Gram's; the matrix-free
+   v^T SExp v on the direct f32 path within 1e-4 relative of the dense;
+   the syrk SExp again on phase 16's Student-t + global-affine flow
+   (heavy tails, large logp^2);
+24. (G) one adaptive_heun step at the production point (N=524288 in
+   chunks of 65536, tri2 + int8): per attempt 40 split, 80 quant8 and 13
+   plain-mode launches (5 pilots, 8 for the matrix-free metric, which
+   re-makes O per chunk); that metric timed;
+25. (G) ``fluidpaper`` with adaptive_heun (the dense SExp, the torch
+   chain) for 3 steps: the recorded proposals are the budget x 5 x
+   attempts.
 
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import dataclasses
 import json
 import math
 import multiprocessing
@@ -147,6 +175,7 @@ from vmc_pde_torch.ops.evolution import make_equation
 from vmc_pde_torch.parallel import mesh, stats
 from vmc_pde_torch.parallel.mesh import ParallelCtx
 from vmc_pde_torch.sampling import sampler as sampling
+from vmc_pde_torch.solver.tdvp import TDVP
 from vmc_pde_torch.utils.dtypes import full_f32_matmuls
 from vmc_pde_torch.utils.grid import Grid
 
@@ -561,9 +590,11 @@ def _drive(args, label, n_steps, dim=32, cfg=None, callbacks=()):
         state, rec = driver.run(cfg, max_steps=n_steps, callbacks=[record])
     counts = _counts()
     steps = np.array(stamps) - np.array([t0] + starts[:-1])
-    print(f"{label}: {len(steps)} Heun steps, wall s/step "
-          f"{' '.join(f'{s:.3f}' for s in steps)} (first includes set-up), "
-          f"mean of steps 2-{len(steps)} {steps[1:].mean():.3f} s")
+    mean = (f", mean of steps 2-{len(steps)} {steps[1:].mean():.3f} s"
+            if len(steps) > 1 else "")
+    print(f"{label}: {len(steps)} steps, wall s/step "
+          f"{' '.join(f'{s:.3f}' for s in steps)} (first includes "
+          f"set-up){mean}")
     print(f"{label}: kernel launches {counts}")
     arrays = rec.as_arrays()
     spectrum = "ev_topk" if "ev_topk" in arrays else "ev"
@@ -1605,6 +1636,288 @@ def phase_mesh():
     return [out[r] for r in range(MESH_WORLD)]
 
 
+# The steppers' stages per step (or per attempt of the adaptive ones)
+STAGES = {"fixed_euler": 1, "fixed_heun": 2, "fixed_rk3": 3,
+          "adaptive_heun": 5, "adaptive_rk23": 4}
+
+
+def _step_table(label, arrays):
+    """Print each step's t, dt, attempts, error and residual."""
+    att = arrays.get("attempts", np.ones(len(arrays["times"]), int))
+    err = arrays.get("step_error", np.full(len(arrays["times"]), np.nan))
+    for i, t in enumerate(arrays["times"]):
+        print(f"{label} step {i}: t {t:.6e} dt {arrays['dt'][i]:.6e} "
+              f"attempts {int(att[i])} error {err[i]:.4e} solver_res "
+              f"{arrays['solver_res'][i]:.3e}")
+    return [int(a) for a in att]
+
+
+def _matfree_pass_ms(args, reps=10):
+    """(matrix-free pass ms, one per-sample launch ms) on a path: one rhs()
+    at the preset's initial theta stashes the last stage's samples (and O
+    on the direct path), then v^T SExp v for a random v is timed with CUDA
+    events, beside the plain-mode kernel at the path's (chunk) batch."""
+    cfg = preset(args["preset"], device="cuda", **args["over"])
+    state, tdvp = driver.build_problem(cfg)[:2]
+    theta = state.get_parameters()
+    tdvp.rhs(theta, 0.0, 11)
+    v = torch.randn(tdvp.n_params, device=state.device,
+                    generator=torch.Generator(
+                        device=state.device).manual_seed(12))
+    ms = _time_ms(lambda: tdvp.sexp_norm(v), 5 * reps)
+    x = tdvp._sexp_ctx[1]
+    c = tdvp.cfg.chunk_size or x.shape[0]
+    ps_ms = _time_ms(lambda: persample.per_sample_cuda(
+        state.flow, state.theta, x[:c], tdvp._hess_dirs), reps)
+    return ms, ps_ms
+
+
+def phase_steppers():
+    """G: fokkerPlanck32 at N=16384 (cholesky, so the adaptive S metric is
+    the matrix-free one on the kept O) with every stepper but the fixed
+    Heun of phase 5, 3 steps each: exactly stages x attempts plain-mode
+    launches, each step's attempts, dt, error and residual; the matrix-free
+    pass timed beside one per-sample launch."""
+    out = {}
+    for name in ("fixed_euler", "fixed_rk3", "adaptive_heun",
+                 "adaptive_rk23"):
+        label = f"fokkerPlanck32 N=16384 {name}"
+        t0 = time.perf_counter()
+        _, arrays, counts = _drive(["fokkerPlanck32", "--stepper", name],
+                                   label, 3)
+        wall = time.perf_counter() - t0
+        att = _step_table(label, arrays)
+        want = STAGES[name] * sum(att)
+        if counts["persample"] != want:
+            fail(f"{label}: {counts['persample']} per-sample launches, "
+                 f"expected {STAGES[name]} x {sum(att)} attempts")
+        if name.startswith("adaptive") and not np.isfinite(
+                arrays["step_error"]).all():
+            fail(f"{label}: non-finite step error")
+        out[name] = dict(launches=counts["persample"], attempts=att,
+                         rhs_per_step=[STAGES[name] * a for a in att],
+                         dt=arrays["dt"].tolist(),
+                         step_error=arrays.get("step_error",
+                                               np.array([])).tolist(),
+                         wall_s=wall)
+    ms, ps_ms = _matfree_pass_ms(dict(preset="fokkerPlanck32", over=dict(
+        stepper="adaptive_heun")))
+    print(f"fokkerPlanck32 N=16384 matrix-free S metric (one product with "
+          f"the kept O): {ms:.3f} ms, one per-sample launch {ps_ms:.3f} ms "
+          f"(CUDA events)")
+    out["matfree_ms"] = {"direct N=16384": ms}
+    out["persample_ms"] = {"N=16384": ps_ms}
+    return out
+
+
+def phase_exact_t_end_and_dispatch(out):
+    """G: --exact-t-end lands fokkerPlanck32 on t_end = 5e-3 (dt 2e-3,
+    2e-3, then 1e-3); --steps-per-dispatch 3 against 1 on fixed_heun and
+    adaptive_heun, 3 steps: theta bit for bit (else the largest
+    difference is printed and the phase fails)."""
+    _, arrays, _ = _drive(["fokkerPlanck32", "--t-end", "5e-3",
+                           "--exact-t-end"], "fokkerPlanck32 exact_t_end",
+                          3)
+    end = float(arrays["times"][-1] + arrays["dt"][-1])
+    print(f"fokkerPlanck32 --t-end 5e-3 --exact-t-end: {len(arrays['dt'])} "
+          f"steps, dt {arrays['dt'].tolist()}, ends at {end!r}")
+    if abs(end - 5e-3) > 1e-15 or (arrays["times"] >= 5e-3).any():
+        fail(f"--exact-t-end ended at {end!r}, not on t_end 5e-3")
+    out["exact_t_end"] = dict(dt=arrays["dt"].tolist(), end=end)
+    for name in ("fixed_heun", "adaptive_heun"):
+        thetas = {}
+        for k in ("1", "3"):
+            # no callbacks: a callback would turn the batches off
+            _zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, rec = driver.main(
+                ["fokkerPlanck32", "--stepper", name, "--device", "cuda",
+                 "--steps-per-dispatch", k, "--max-steps", "3"])
+            torch.cuda.synchronize()
+            arrays = rec.as_arrays()
+            print(f"fokkerPlanck32 {name} --steps-per-dispatch {k}: 3 "
+                  f"steps in {time.perf_counter() - t0:.3f} s, launches "
+                  f"{_counts()['persample']}, solver_res "
+                  f"{arrays['solver_res'].tolist()}")
+            if arrays["nan"].any() or not (arrays["solver_res"]
+                                           < 1e-3).all():
+                fail(f"{name} --steps-per-dispatch {k}: NaN or residual")
+            thetas[k] = (state.get_parameters(), arrays)
+        (t1, a1), (t3, a3) = thetas["1"], thetas["3"]
+        diff = float((t1 - t3).abs().max())
+        same_rows = all(np.array_equal(a1[k], a3[k]) for k in a1)
+        print(f"fokkerPlanck32 {name} --steps-per-dispatch 3 vs 1: theta "
+              f"bitwise equal {torch.equal(t1, t3)} (largest difference "
+              f"{diff:.3e}), recorded rows equal {same_rows}")
+        if not (torch.equal(t1, t3) and same_rows):
+            fail(f"{name}: --steps-per-dispatch 3 is not the K=1 run "
+                 f"(theta differs by up to {diff})")
+        out[f"dispatch_{name}"] = dict(theta_bitwise=True)
+    out["host_waits"] = _host_waits()
+
+
+def _host_waits():
+    """The synchronizing CUDA operations inside one fused Heun pair and one
+    fused adaptive-Heun attempt of fokkerPlanck32 at N=16384, and one Heun
+    pair of the chunked tri2 + int8 statistics at N=131072, as torch's sync
+    debug mode reports them (the attempt's error read by the stepper is
+    outside); printed with where they come from."""
+    import warnings
+
+    state, tdvp = driver.build_problem(preset(
+        "fokkerPlanck32", device="cuda", stepper="adaptive_heun"))[:2]
+    chunked = driver.build_problem(preset(
+        "fokkerPlanck32", device="cuda", n_samples_tdvp=131072,
+        n_samples_obs=131072, chunk_size=65536, gram_backend="tri2",
+        gram_cross="int8"))[1]
+    theta = state.get_parameters()
+    found = {}
+    for label, call in (
+            ("heun_pair", lambda: tdvp.heun_pair(theta, 0.0, 2e-3, 5)),
+            ("heun_attempt", lambda: tdvp.heun_attempt(theta, 0.0, 2e-3, 5)),
+            ("chunked heun_pair", lambda: chunked.heun_pair(
+                theta, 0.0, 2e-3, 5))):
+        call()  # warm-up
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        waits = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+        found[label] = waits
+        print(f"host waits inside one fused {label}: "
+              f"{len(waits)} {sorted(set(waits))}")
+    return found
+
+
+def phase_sexp_batch(theta, theta_student, out):
+    """G: one batch at the theta phase 5 ends on, with the dense SExp: the
+    direct statistics at N=16384 through syrk (weighted with logp^2) and
+    the chunked ones at N=131072 in chunks of 65536 through tri2 + int8
+    (the SExp moments from the split pair), each within 1e-4 of the f32
+    Gram's on the same draws; the matrix-free v^T SExp v on the direct f32
+    path against the dense one, within 1e-4 relative. Then the syrk SExp
+    once more on the Student-t + global-affine flow at the theta phase 16
+    ends on, where logp^2 is largest on the heavy tails."""
+    res = {}
+    student = dict(latent_name="Student_t", global_affine=True)
+    for n, c, backends, theta, flow_over in (
+            (16384, 0, ("syrk", "auto"), theta, {}),
+            (131072, 65536, ("tri2", "auto"), theta, {}),
+            (16384, 0, ("syrk", "auto"), theta_student, student)):
+        sts = {}
+        for backend in backends:
+            over = dict(gram_cross="int8") if backend == "tri2" else {}
+            cfg = preset("fokkerPlanck32", device="cuda", n_samples_tdvp=n,
+                         n_samples_obs=n, chunk_size=c, gram_backend=backend,
+                         **over, **flow_over)
+            state, tdvp = driver.build_problem(cfg)[:2]
+            tdvp = TDVP(state, tdvp.equation, dataclasses.replace(
+                tdvp.cfg, compute_sexp=True, sexp_mode="matfree"),
+                n_samples=n, n_samples_obs=n)
+            theta_c = theta.to(device=state.device, dtype=torch.float32)
+            params = state.flow.layout.unravel(theta_c)
+            gen = torch.Generator(device=state.device).manual_seed(9)
+            x, _ = state.flow.push(params, state.flow.latent_sample(
+                gen, params, n, torch.float32))
+            _zero_counts()
+            fn = tdvp._chunked_stats if c else tdvp._direct_stats
+            st = fn(theta_c, 0.0, x)
+            torch.cuda.synchronize()
+            sts[backend] = (st, _counts())
+            if backend == "auto" and not c and not flow_over:
+                v = torch.randn(tdvp.n_params, device=state.device,
+                                generator=torch.Generator(
+                                    device=state.device).manual_seed(10))
+                quad = float(tdvp._sexp_quad(theta_c, x, st["logp"], None,
+                                             st["O"], v))
+                vd = v.double()
+                dense = float(vd @ (st["SExp"].double() @ vd))
+                rel = abs(quad - dense) / abs(dense)
+                print(f"matrix-free v^T SExp v {quad:.9e} vs dense "
+                      f"{dense:.9e} at N={n}: relative {rel:.3e} (tol 1e-4)")
+                if not rel <= 1e-4:
+                    fail(f"matrix-free S metric off the dense one by {rel}")
+                res["matfree_vs_dense"] = rel
+            del x
+        full = sts["auto"][0]["SExp"]
+        name = ("chunked tri2+int8" if c else
+                "syrk Student-t + global affine" if flow_over else "syrk")
+        got, counts = sts[backends[0]]
+        rel = _rel(got["SExp"], full, full.abs().max())
+        print(f"{name} SExp vs f32 Gram at N={n}: max abs diff / max "
+              f"{rel:.3e} (tol 1e-4); launches {counts}")
+        if not rel <= 1e-4:
+            fail(f"{name} SExp differs from the f32 Gram's: {rel}")
+        want = ({"syrk": 3} if not c else
+                {"persample_split": n // c, "quant8": 2 * (n // c)})
+        if any(counts[k] != v for k, v in want.items()):
+            fail(f"{name} SExp batch launches {counts}, expected {want}")
+        res[f"{name}_vs_f32"] = rel
+        if not c and not flow_over:
+            out.setdefault("launches", {})["syrk"] = counts["syrk"]
+        del sts
+    out["sexp_batch"] = res
+
+
+def phase_steppers_production(out):
+    """G: one adaptive_heun step at the production point (N=524288 in
+    chunks of 65536, tri2 + int8; cholesky, so the matrix-free S metric
+    re-makes O chunk by chunk with the plain-mode kernel): per attempt 5 x
+    8 split and 5 x 16 quant8 launches, 5 pilots and 8 plain-mode launches
+    for the metric; the matrix-free pass timed there."""
+    n, c = 524288, 65536
+    args = ["fokkerPlanck32", "--samples", str(n), "--chunk-size", str(c),
+            "--gram-backend", "tri2", "--gram-cross", "int8", "--stepper",
+            "adaptive_heun"]
+    label = f"fokkerPlanck32 N={n} chunked tri2+int8 adaptive_heun"
+    t0 = time.perf_counter()
+    _, arrays, counts = _drive(args, label, 1)
+    wall = time.perf_counter() - t0
+    att = sum(_step_table(label, arrays))
+    chunks = n // c
+    want = {"persample_split": 5 * chunks * att,
+            "quant8": 10 * chunks * att, "persample": (5 + chunks) * att}
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"{label}: launches {counts}, expected {want}")
+    ms, ps_ms = _matfree_pass_ms(dict(preset="fokkerPlanck32", over=dict(
+        n_samples_tdvp=n, n_samples_obs=n, chunk_size=c, gram_backend="tri2",
+        gram_cross="int8", stepper="adaptive_heun")), reps=3)
+    print(f"{label}: matrix-free S metric ({chunks} plain-mode launches of "
+          f"{c} and their products) {ms:.3f} ms, one per-sample launch at "
+          f"{c} {ps_ms:.3f} ms (CUDA events)")
+    out["production_adaptive_heun"] = dict(
+        attempts=att, launches={k: counts[k] for k in want}, wall_s=wall)
+    out["matfree_ms"][f"chunked N={n}"] = ms
+    out["persample_ms"][f"N={c}"] = ps_ms
+    return counts
+
+
+def phase_fluidpaper_adaptive(out):
+    """G: fluidpaper with adaptive_heun (eigh: the dense SExp; the torch
+    chain in every stage) for 3 steps: the recorded proposals are the
+    budget x 5 stages x attempts, acceptance in (0.05, 0.95)."""
+    _, arrays, _ = _drive(["fluidpaper", "--stepper", "adaptive_heun"],
+                          "fluidpaper adaptive_heun", 3, dim=2)
+    att = np.asarray(_step_table("fluidpaper adaptive_heun", arrays))
+    n = driver.build_problem(preset("fluidpaper",
+                                    device="cuda"))[1].n_samples
+    rate = _acceptance(arrays)
+    print(f"fluidpaper adaptive_heun: acceptance {rate:.4f}, proposals per "
+          f"step {arrays['mcmc_proposed'].tolist()} for attempts "
+          f"{att.tolist()}")
+    if not (np.array_equal(arrays["mcmc_proposed"], 5 * n * att)
+            and 0.05 < rate < 0.95):
+        fail("fluidpaper adaptive_heun: acceptance counts off")
+    out["fluidpaper_adaptive_heun"] = dict(attempts=att.tolist(),
+                                           acceptance=rate)
+
+
 def main():
     phase_device()
     full_f32_matmuls()
@@ -1619,6 +1932,7 @@ def main():
                               "bound_by")}
     del split, prob
     state, counts = phase_main_path()
+    theta5 = state.get_parameters()
     launches = {"persample": counts["persample"]}
     phase_chunked_vs_f32(state.get_parameters())
     counts = phase_chunked_path()
@@ -1633,12 +1947,23 @@ def main():
     launches["syrk"] = phase_syrk_paths(state.get_parameters())
     student = phase_student_kernel(dev)
     state, counts = phase_student_path()
+    theta_student = state.get_parameters()
     paths = {"fokkerPlanck32": launches["persample"],
              "fokkerPlanck32 Student-t + global affine": counts["persample"]}
     phase_chunked_vs_f32(state.get_parameters(), syrk_too=False,
                          latent_name="Student_t", global_affine=True)
     paths["diffusion"] = phase_diffusion()
     phase_anisotropic_and_oscillators()
+    steppers = phase_steppers()
+    for name in ("fixed_euler", "fixed_rk3", "adaptive_heun",
+                 "adaptive_rk23"):
+        paths[f"fokkerPlanck32 {name}"] = steppers[name]["launches"]
+    phase_exact_t_end_and_dispatch(steppers)
+    phase_sexp_batch(theta5, theta_student, steppers)
+    prod = phase_steppers_production(steppers)
+    paths["fokkerPlanck32 N=524288 chunked adaptive_heun"] = \
+        prod["persample"]
+    phase_fluidpaper_adaptive(steppers)
     ranks = phase_mesh()
     for name in ("persample_sharded", "metropolis_sharded"):
         results[name] = dict(ranks[0][name])
@@ -1661,6 +1986,17 @@ def main():
         results[name] = dict(results[name], scope=scope[name],
                              student_t_global_affine=student[name])
     results["persample"]["launches_by_path"] = paths
+    for name in ("persample_split", "quant8"):
+        results[name]["launches_by_path"] = {
+            "fokkerPlanck32 N=524288 chunked tri2+int8 fixed_heun":
+                launches[name],
+            "fokkerPlanck32 N=524288 chunked tri2+int8 adaptive_heun":
+                prod[name]}
+    results["syrk"]["launches_by_path"] = {
+        "fokkerPlanck32 N=16384 syrk fixed_heun": launches["syrk"],
+        "one direct batch with the dense SExp (S0, A, SExp)":
+            steppers["launches"]["syrk"]}
+    print(json.dumps({"steppers": steppers}))
     print(json.dumps({"mesh_paths": mesh_paths}))
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

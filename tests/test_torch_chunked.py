@@ -162,8 +162,9 @@ def test_chunked_heun_pair_matches_jax():
 def test_driver_chunk_and_gram_flags():
     """--chunk-size, --gram-backend and --gram-cross reach the solver; on
     the CPU the run takes the plain versions and launches no kernel; the
-    budget rounds up to whole chunks; the syrk Gram runs chunked; an
-    unported stepper is refused."""
+    budget rounds up to whole chunks; the syrk Gram runs chunked; the
+    adaptive stepper, refused before it was ported, runs chunked with the
+    dense SExp (eigh at mwe's P) and a finite error."""
     launches = (persample.per_sample_cuda.launches,
                 persample.per_sample_split_cuda.launches,
                 quant8.quant_force_cuda.launches)
@@ -185,7 +186,10 @@ def test_driver_chunk_and_gram_flags():
     _, rec = driver.main(args[:7] + ["--gram-backend", "syrk",
                                      "--max-steps", "1"])
     assert (rec.as_arrays()["solver_res"] < 1e-4).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        driver.run(dataclasses.replace(cfg, stepper="adaptive_heun"))
+    _, rec = driver.run(dataclasses.replace(cfg, stepper="adaptive_heun",
+                                            verbose=False), max_steps=1)
+    a = rec.as_arrays()
+    assert a["attempts"][0] >= 1 and np.isfinite(a["step_error"]).all()
+    assert not a["nan"].any()
     with pytest.raises(ValueError, match="cross term"):
         driver.main(args[:7] + ["--gram-cross", "int8"])

@@ -756,3 +756,75 @@ def test_metropolis_sharded_kernel_matches_plain_and_single(sharded_run,
         acc, acc_single = out[f"mcmc/{label}/acc"]
         assert acc == acc_single > 0
         assert int(out["mcmc/launches"]) == 2
+
+
+def _fp32_tdvp(dev, **over):
+    """fokkerPlanck32's TDVP on the card (P=9264, f32, cholesky, so the
+    adaptive stepper's S metric is the matrix-free one), its perturbed
+    theta and 1000 pushed draws."""
+    from vmc_pde_torch import driver
+    from vmc_pde_torch.config import preset
+
+    cfg = preset("fokkerPlanck32", device="cuda", n_samples_tdvp=1024,
+                 n_samples_obs=1024, stepper="adaptive_heun", **over)
+    state, tdvp = driver.build_problem(cfg)[:2]
+    theta = perturb_theta(state.flow, state.get_parameters(),
+                          np.random.default_rng(3), out_scale=0.03)
+    theta_c = theta.float()
+    params = state.flow.layout.unravel(theta_c)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    x = state.flow.push(params, state.flow.latent_sample(
+        gen, params, 1000, torch.float32))[0]
+    return tdvp, theta, theta_c, x
+
+
+def test_sexp_matfree_through_the_kernels_o_rows(dev):
+    """The matrix-free S metric on the card takes a = O v from the
+    per-sample kernel's O rows (the kept O of the direct statistics: no
+    launch; re-made per chunk: one plain-mode launch per chunk) and holds
+    against the forward-mode plain version in f64: a within 1e-4 of its
+    largest value, v^T SExp v within 1e-4 relative."""
+    from vmc_pde_torch.ops import score
+
+    tdvp, theta, theta_c, x = _fp32_tdvp(dev)
+    assert tdvp._sexp_matfree and tdvp.uses_kernel
+    before = persample.per_sample_cuda.launches
+    st = tdvp._direct_stats(theta_c, 0.0, x)
+    assert persample.per_sample_cuda.launches == before + 1
+    v = torch.randn(tdvp.n_params, generator=torch.Generator(
+        device=dev).manual_seed(5), device=dev)
+    f = score.make_flat_log_prob(tdvp.flow, tdvp.flow.layout.unravel)
+    a_ref = score.batched_param_jvp(f, theta, x.double(), v.double())
+    logp_ref = persample.per_sample_plain(tdvp.flow, theta, x.double())[0]
+    l2 = logp_ref**2
+    quad_ref = float((l2 * (a_ref - a_ref.mean())**2).mean())
+    chunked = _fp32_tdvp(dev, chunk_size=512)[0]
+    for t, O, launches in ((tdvp, st["O"], 0), (chunked, None, 2)):
+        before = persample.per_sample_cuda.launches
+        a = t._sexp_a(theta_c, x, v, O)
+        quad = float(t._sexp_quad(theta_c, x, st["logp"], None, O, v))
+        torch.cuda.synchronize()
+        assert persample.per_sample_cuda.launches == before + 2 * launches
+        scale = float(a_ref.abs().max())
+        assert float((a.double() - a_ref).abs().max()) < 1e-4 * scale
+        assert abs(quad - quad_ref) < 1e-4 * quad_ref
+
+
+def test_syrk_kernel_with_the_sexp_weight(dev):
+    """The weighted syrk with the dense SExp's weight logp^2 (non-negative,
+    large far out) on the fokkerPlanck32 flow's centered O rows from the
+    kernel: against its plain version and the f64 product, within the
+    weighted syrk bar (3e-5 of the largest entry)."""
+    from vmc_pde_torch.kernels import syrk
+
+    tdvp, _, theta_c, x = _fp32_tdvp(dev)
+    logp, _, _, O = persample.per_sample_cuda(tdvp.flow, theta_c, x)
+    O_c = O - O.mean(0)
+    w = logp**2
+    S = syrk.syrk(O_c, w)
+    plain = syrk.syrk_plain(O_c, w)
+    ref = _syrk_ref(O_c, w)
+    torch.cuda.synchronize()
+    tol = 3e-5 * float(ref.abs().max())
+    assert float((S.double() - ref).abs().max()) <= tol
+    assert float((S - plain).abs().max()) <= tol

@@ -96,7 +96,8 @@ def problems():
             "student": worker.spec_of(flow_t, "diffusion")}
     inputs = dict(theta=theta.numpy(), x=x64.float().numpy(),
                   x64=x64.numpy(), theta_t=theta_t.numpy(),
-                  x_t=x_t.numpy(), log_w=log_w.numpy())
+                  x_t=x_t.numpy(), log_w=log_w.numpy(),
+                  v=normal(4096, 53))
     for label in ("fluid", "dw"):
         cfg = preset("fluidpaper" if label == "fluid" else "doubleWell")
         f, th = build_flow(cfg.seed, cfg.dim, depth=cfg.depth,
@@ -380,6 +381,24 @@ def test_gspmd_int8_cross_term_takes_global_scales(gspmd_run, one_rank,
         np.testing.assert_array_equal(got, gspmd_run[1][f"int8/{k}"])
         assert rel_err(got, one_rank[f"int8/{k}"]) < 1e-6, k
         assert rel_err(got, jax_gspmd["int8"][k]) < 5e-5, k
+
+
+@pytest.mark.parametrize("label", ["direct", "chunked", "is"])
+def test_s_metric_on_two_ranks_matches_one_rank(label, gspmd_run, one_rank):
+    """The adaptive steppers' S metric in f64 on 2 ranks (the dense SExp in
+    the moments' one all-reduce; the matrix-free quadratic's sums in one
+    all-reduce) equals one rank's on the same rows to 1e-12 of the largest
+    value (f64 sums in another order), on the direct shard_map statistics
+    with the kept O rows, the chunked ones with O re-made per chunk, and
+    the IS-weighted GSPMD counterpart; and on each, v^T SExp v equals the
+    matrix-free quadratic to 1e-12."""
+    for out in gspmd_run:
+        for k in ("dense", "quad"):
+            key = f"sexp/{label}/{k}"
+            assert rel_err(out[key], one_rank[key]) < 1e-12, k
+    dense = one_rank[f"sexp/{label}/dense"]
+    v = one_rank["sexp/v"][:dense.shape[0]]
+    assert rel_err(v @ dense @ v, one_rank[f"sexp/{label}/quad"]) < 1e-12
 
 
 @pytest.mark.parametrize("label", ["fluid", "dw"])

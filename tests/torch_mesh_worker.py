@@ -226,7 +226,38 @@ def scenario_gspmd(ctx, spec, inp):
         upd, aux = tdvp.rhs(tdvp.state.get_parameters(), 0.25, 21)
         out[f"{label}/update"] = upd.numpy()
         out[f"{label}/entropy"] = aux["entropy"].numpy()
+    out.update(s_metric_outputs(ctx, spec, inp))
     out.update(chain_outputs(ctx, fluid_problems(ctx, spec, inp)))
+    return out
+
+
+def s_metric_outputs(ctx, spec, inp):
+    """The adaptive steppers' S metric in f64: the dense SExp and the
+    matrix-free v^T SExp v, on the direct statistics (shard_map on a
+    mesh; the kept O rows), the chunked ones (O re-made chunk by chunk)
+    and the IS-weighted direct ones (the GSPMD counterpart)."""
+    v = torch.as_tensor(inp["v"])
+    out = {"sexp/v": v.numpy()}
+    cases = (("direct", spec["gauss"], inp["theta"], inp["x64"], None, {}),
+             ("chunked", spec["gauss"], inp["theta"], inp["x64"], None,
+              dict(chunk_size=512)),
+             ("is", spec["student"], inp["theta_t"], inp["x_t"],
+              inp["log_w"], dict(is_gamma=0.6)))
+    for label, sp, theta, x, log_w, cfg in cases:
+        tdvp = tdvp_on(ctx, sp, theta, "f64", x.shape[0],
+                       dict(cfg, compute_sexp=True, sexp_mode="matfree"))
+        x = ctx.local_rows(torch.as_tensor(x))
+        if log_w is not None:
+            log_w = ctx.local_rows(torch.as_tensor(log_w))
+        theta_c = tdvp.state.theta
+        stats_fn = (tdvp._chunked_stats if "chunk_size" in cfg
+                    else tdvp._direct_stats)
+        st = stats_fn(theta_c, 0.25, x, **({} if log_w is None
+                                          else dict(log_w=log_w)))
+        vv = v[:tdvp.n_params]
+        out[f"sexp/{label}/dense"] = st["SExp"].numpy()
+        out[f"sexp/{label}/quad"] = np.float64(tdvp._sexp_quad(
+            theta_c, x, st["logp"], log_w, st["O"], vv))
     return out
 
 

@@ -1,8 +1,9 @@
-"""Device-time profile of one fixed-Heun step of the port's driver, on a
-CUDA card:
+"""Device-time profile of one step of the port's driver (any --stepper;
+fixed Heun by default), on a CUDA card:
 
     python -m tools.profile_step fokkerPlanck32 --samples 524288 \\
         --chunk-size 65536 --gram-backend tri2 --gram-cross int8
+    python -m tools.profile_step fokkerPlanck32 --stepper adaptive_heun
 
 Runs the driver (any of its arguments; --max-steps and --device are set
 here) for one warm-up step, then one step under torch.profiler, and prints
@@ -86,7 +87,7 @@ def main(argv=None):
     by_class = {}
     for name, ms, _ in rows:
         by_class[classify(name)] = by_class.get(classify(name), 0.0) + ms
-    print(f"one Heun step, {' '.join(argv)}: wall {wall:.1f} ms, device "
+    print(f"one step, {' '.join(argv)}: wall {wall:.1f} ms, device "
           f"{total:.1f} ms, busy {100 * total / wall:.1f}%")
     for label, ms in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print(f"  {label:<34s} {ms:10.2f} ms  {100 * ms / total:5.1f}%")

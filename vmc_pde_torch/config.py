@@ -64,12 +64,20 @@ class RunConfig:
     # > 0: stream the statistics in chunks of this many samples
     chunk_size: int = 0
 
-    # time integration
+    # time integration: fixed_heun | fixed_euler | fixed_rk3 |
+    # adaptive_heun | adaptive_rk23 (solver/steppers.py)
     stepper: str = "fixed_heun"
     dt0: float = 1e-7
     max_step: float = 1e-2
     increase_fac: float = 1.3
+    tol: float = 1e-2               # adaptive stepper tolerance
     t_end: float = 5.0
+    # clamp the last dt to land on t_end (the reference's loop overshoots
+    # by up to one dt)
+    exact_t_end: bool = False
+    # > 1: issue that many steps back to back, recording them and checking
+    # NaN once per batch (driver.run)
+    steps_per_dispatch: int = 1
 
     # statistics on a mesh: auto | shard_map | gspmd (TDVPConfig)
     stats_partitioning: str = "auto"

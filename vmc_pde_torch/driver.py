@@ -9,6 +9,10 @@ the reference-compatible infos schema.
     python -m vmc_pde_torch.driver fluidpaper --max-steps 20
     python -m vmc_pde_torch.driver diffusion --is-gamma 0.5
     python -m vmc_pde_torch.driver mwe --precision f64 --device cpu
+    python -m vmc_pde_torch.driver mwe --precision f64 --device cpu \
+        --stepper adaptive_heun --t-end 0.1 --exact-t-end
+    python -m vmc_pde_torch.driver fokkerPlanck32 --stepper fixed_rk3 \
+        --steps-per-dispatch 4 --max-steps 8
 
 One process per rank on a mesh (parallel/mesh.py), each started with
 its --process-id, e.g. two ranks on the CPU:
@@ -25,6 +29,13 @@ global_affine=True))``.
 
 ``--device`` defaults to cuda and raises when no CUDA device is present;
 pass ``--device cpu`` to run on the CPU.
+
+``--steps-per-dispatch K`` issues K steps back to back and records them,
+and checks their NaN flags, once per batch; the trajectory and the
+recorded rows are those of K=1. Eager torch has no device-side loop: an
+adaptive step waits for each attempt's error on the host (one
+synchronization per attempt), where the JAX package keeps its retry loop
+on the device.
 """
 
 from __future__ import annotations
@@ -41,7 +52,7 @@ from .models.state import VarState
 from .ops.evolution import make_equation
 from .parallel import mesh
 from .sampling.sampler import Sampler
-from .solver.steppers import FixedStepper
+from .solver.steppers import AdaptiveHeun, AdaptiveRK23, FixedStepper
 from .solver.tdvp import TDVP, TDVPConfig, fold_in
 from .utils import dtypes
 from .utils.grid import Grid
@@ -90,15 +101,27 @@ def build_problem(cfg: RunConfig, ctx=None):
         chunk_size=cfg.chunk_size,
         stats_partitioning=cfg.stats_partitioning,
         per_sample_backend=cfg.per_sample_backend,
-        hessian_mode=cfg.hessian_mode, auto_tol_floor=cfg.auto_tol_floor)
+        hessian_mode=cfg.hessian_mode, auto_tol_floor=cfg.auto_tol_floor,
+        # adaptive steppers need an S metric: the dense SExp on the eigh
+        # solve, the matrix-free quadratic on cholesky (TDVPConfig)
+        sexp_mode="auto" if cfg.stepper.startswith("adaptive") else "none")
     tdvp = TDVP(state, equation, tdvp_cfg, n_samples=cfg.n_samples_tdvp,
                 n_samples_obs=cfg.n_samples_obs, precision=precision)
-    if cfg.stepper != "fixed_heun":
-        raise NotImplementedError(
-            f"stepper {cfg.stepper!r} is not ported yet (ROADMAP.md)")
-    stepper = FixedStepper(timeStep=cfg.dt0, maxStep=cfg.max_step,
-                           increase_fac=cfg.increase_fac,
-                           pair_fn=tdvp.heun_pair)
+    ramp = dict(timeStep=cfg.dt0, maxStep=cfg.max_step,
+                increase_fac=cfg.increase_fac)
+    adaptive = dict(timeStep=cfg.dt0, tol=cfg.tol, maxStep=cfg.max_step)
+    if cfg.stepper == "adaptive_heun":
+        stepper = AdaptiveHeun(attempt_fn=tdvp.heun_attempt, **adaptive)
+    elif cfg.stepper == "adaptive_rk23":
+        stepper = AdaptiveRK23(attempt_fn=tdvp.rk23_attempt, **adaptive)
+    elif cfg.stepper == "fixed_euler":
+        stepper = FixedStepper(mode="Euler", **ramp)
+    elif cfg.stepper == "fixed_rk3":
+        stepper = FixedStepper(mode="RK3", pair_fn=tdvp.rk3_triple, **ramp)
+    elif cfg.stepper == "fixed_heun":
+        stepper = FixedStepper(mode="Heun", pair_fn=tdvp.heun_pair, **ramp)
+    else:
+        raise ValueError(f"unknown stepper {cfg.stepper!r}")
     grid = None
     if cfg.dim == 2:
         grid = Grid(np.ones(2) * cfg.grid_bound, cfg.grid_points,
@@ -111,6 +134,8 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
     callback is called as cb(n_step, t, state, info) after every step.
     On a mesh every rank runs this loop; only the coordinator prints and
     writes."""
+    if cfg.steps_per_dispatch < 1:
+        raise ValueError("steps_per_dispatch must be >= 1")
     state, tdvp, stepper, _, grid = build_problem(cfg)
     rec = InfoRecorder()
     talk = cfg.verbose and mesh.is_coordinator()
@@ -134,25 +159,72 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
                     f"NaN encountered in TDVP update at t={t_at}")
         pending_nan.clear()
 
+    def f(theta, t, key, intStep=0):
+        out = tdvp.rhs(theta, t, key, intStep=intStep)
+        f.SExp = tdvp.SExp  # read by a per-stage adaptive stepper
+        return out
+
+    # exact_t_end: stop at t_end, clamping the last dt, instead of the
+    # reference's `while t < t_end + dt` overshoot
+    t_eps = 1e-12 * max(1.0, abs(cfg.t_end))
+
+    def more_steps(t, dt):
+        if cfg.exact_t_end:
+            return t < cfg.t_end - t_eps
+        return t < cfg.t_end + dt
+
+    def step(t, n_step):
+        """One step from (t, theta); returns (dt_used, info, the row's
+        dist_params) and leaves theta in the state."""
+        nonlocal theta
+        res = stepper.step(t, f, theta, fold_in(key, n_step),
+                           normFunction=tdvp.stepper_norm,
+                           dt_cap=cfg.t_end - t if cfg.exact_t_end else None)
+        theta = res.y
+        state.set_parameters(theta)
+        return res.dt_used, res.info, state.params["latent"]["dist_params"]
+
+    def record(t, dt, info, dist_params):
+        pending_nan.append((info["nan"], t))
+        rec.append("times", t)
+        rec.append("dt", dt)
+        rec.append_dict(info)
+        rec.append("dist_params", dist_params)
+
     theta = state.get_parameters()
     t = 0.0
     dt = stepper.dt
     n_step = 0
+    steps_done = 0
     key = cfg.sample_seed + 7
     plotted = set()
     if grid is not None and talk:
         print("Initial grid integral:", float(state.integrate(grid)))
+    # steps_per_dispatch: batches of K steps with no per-step host action
+    # (printing, callbacks, the grid), within the step budget; a batch
+    # ends early where the loop would (t_end), so K changes nothing but
+    # when rows are recorded and NaN flags read
+    batch_ok = (cfg.steps_per_dispatch > 1 and not cfg.verbose
+                and not callbacks and grid is None)
 
-    while t < cfg.t_end + dt and n_step < max_steps:
+    while more_steps(t, dt) and steps_done < max_steps:
+        K = cfg.steps_per_dispatch
+        if batch_ok and steps_done + K <= max_steps:
+            rows = []
+            while len(rows) < K and more_steps(t, dt):
+                dt, info, dp = step(t, n_step + len(rows))
+                rows.append((t, dt, info, dp))
+                t += dt
+            for row in rows:
+                record(*row)
+            check_nan()
+            n_step += len(rows)
+            steps_done += len(rows)
+            continue
+
         t0 = time.perf_counter()
-        res = stepper.step(t, tdvp.rhs, theta, fold_in(key, n_step))
-        theta, dt, info = res.y, res.dt_used, res.info
-        pending_nan.append((info["nan"], t))
-        state.set_parameters(theta)
-
-        rec.append("times", t)
-        rec.append_dict(info)
-        rec.append("dist_params", state.params["latent"]["dist_params"])
+        dt, info, dp = step(t, n_step)
+        record(t, dt, info, dp)
 
         if cfg.verbose or n_step % max(cfg.nan_check_every, 1) == 0:
             check_nan()
@@ -160,6 +232,9 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
             res_f = float(info["solver_res"])  # waits for the device
             print(f"t = {t:.4f}, dt = {dt:e}  "
                   f"[{time.perf_counter() - t0:.3f}s]")
+            if "attempts" in info:
+                print(f"\t > Attempts = {info['attempts']}, "
+                      f"Error = {info['step_error']:.3e}")
             print(f"\t > Solver Residual = {res_f:.3e}")
             print(f"\t > TDVP Error = {float(info['tdvp_error']):.3e}")
             print(f"\t > Entropy = {float(info['entropy']):.6f}")
@@ -178,6 +253,7 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
             cb(n_step, t, state, info)
         t += dt
         n_step += 1
+        steps_done += 1
 
     check_nan()
     rec.flush()
@@ -221,6 +297,20 @@ def main(argv=None, callbacks=()):
     p.add_argument("--is-gamma", type=float, default=None,
                    help="<1: tail-tempered importance sampling of the TDVP "
                         "statistics (Student_t latent; TDVPConfig.is_gamma)")
+    p.add_argument("--stepper", type=str, default=None,
+                   choices=["fixed_heun", "fixed_euler", "fixed_rk3",
+                            "adaptive_heun", "adaptive_rk23"],
+                   help="time integrator (solver/steppers.py); the "
+                        "adaptive ones take their error in the S metric")
+    p.add_argument("--exact-t-end", action="store_true",
+                   help="clamp the final dt to land exactly on t_end (the "
+                        "reference's loop overshoots by up to one dt)")
+    p.add_argument("--steps-per-dispatch", type=int, default=None,
+                   help=">1: issue that many steps back to back, recording "
+                        "them and checking NaN once per batch (off with "
+                        "verbose output, callbacks or a 2-D grid); an "
+                        "adaptive step still waits for each attempt's "
+                        "error on the host")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; raises without one); "
                         "on a mesh each rank takes card rank %% count")
@@ -263,8 +353,13 @@ def main(argv=None, callbacks=()):
         overrides["workdir"] = args.workdir
     if args.per_sample_backend is not None:
         overrides["per_sample_backend"] = args.per_sample_backend
+    if args.exact_t_end:
+        overrides["exact_t_end"] = True
+    if (args.steps_per_dispatch or 1) > 1:
+        overrides["verbose"] = False  # per-step printing would unbatch
     for name in ("gram_backend", "gram_cross", "chunk_size", "is_gamma",
-                 "stats_partitioning", "mesh_dp", "mesh_tp"):
+                 "stats_partitioning", "mesh_dp", "mesh_tp", "stepper",
+                 "steps_per_dispatch"):
         if getattr(args, name) is not None:
             overrides[name] = getattr(args, name)
     return run(preset(args.mode, **overrides), max_steps=args.max_steps,

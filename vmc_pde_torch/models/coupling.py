@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.dtypes import device_constant
 from . import mlp
 
 VARIANTS = ("additive", "affine", "scale", "scale_shift")
@@ -119,13 +120,13 @@ def _couple_inv(v, s, t, variant):
 
 
 def _split(spec, x):
-    up = torch.as_tensor(spec.ind_up, device=x.device)
-    down = torch.as_tensor(spec.ind_down, device=x.device)
+    up = device_constant(spec.ind_up, x.device)
+    down = device_constant(spec.ind_down, x.device)
     return x[..., up], x[..., down]
 
 
 def _merge(spec, a, b):
-    perm = torch.as_tensor(spec.inverse_perm, device=a.device)
+    perm = device_constant(spec.inverse_perm, a.device)
     return torch.cat([a, b], dim=-1)[..., perm]
 
 

@@ -21,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.dtypes import device_constant
 from . import coupling, latent
 from .state import Layout
 
@@ -56,8 +57,8 @@ class Flow:
         }
 
     def _offset(self, like):
-        return torch.as_tensor(self.offset, dtype=like.dtype,
-                               device=like.device)
+        return device_constant(tuple(float(o) for o in self.offset),
+                               like.device, like.dtype)
 
     # -- coordinate transform ------------------------------------------
     def forward(self, params, x):

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..utils import threefry
+from ..utils.dtypes import device_constant
 
 
 def velocity_field_mlpaper(coord, t, T=5.0):
@@ -164,7 +165,8 @@ class DiffusionAnisotropic(Equation):
         return np.linalg.cholesky(self.D_matrix).T
 
     def eloc(self, x, g, hess, t):
-        D = torch.as_tensor(self.D_matrix, dtype=g.dtype, device=g.device)
+        D = device_constant(tuple(map(tuple, self.D_matrix.tolist())),
+                            g.device, g.dtype)
         return ((g @ D) * g).sum(-1) + hess
 
 
@@ -233,8 +235,8 @@ class FokkerPlanck(AdvectionHamiltonian):
     def eloc(self, x, g, hess, t):
         adv = -(g * self.velocity(x, t)).sum(-1)
         g_p, x_p = g[..., 1::2], x[..., 1::2]
-        Tv = torch.as_tensor(self._t_vec(x.shape[-1] // 2), dtype=g.dtype,
-                             device=g.device)
+        Tv = device_constant(tuple(self._t_vec(x.shape[-1] // 2).tolist()),
+                             g.device, g.dtype)
         diff = self.m * self.gamma * ((g_p**2 * Tv).sum(-1) + hess)
         damp = self.gamma * (x_p * g_p).sum(-1)
         return adv + diff + damp

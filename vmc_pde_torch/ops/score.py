@@ -55,6 +55,18 @@ def batched_value_score_and_param_grad(log_prob_flat, theta, x):
                                                       xs))(x)
 
 
+def batched_param_jvp(log_prob_flat, theta, x, v):
+    """(N,) directional derivatives d/de log p(theta + e v, x_n), that is
+    O_n . v, by one forward-mode pass over the batch: the plain version of
+    the matrix-free S metric's contraction (solver/tdvp.py _sexp_a)."""
+
+    def batch(th):
+        return vmap(lambda xs: log_prob_flat(th, xs))(x)
+
+    # the same promotion hazard as quad_trace: hand back the sample dtype
+    return jvp(batch, (theta,), (v.to(theta.dtype),))[1].to(x.dtype)
+
+
 def batched_quad_trace(log_prob_flat, theta, x, dirs):
     """(N,) Hessian quadratic traces over a batch."""
     dirs = torch.as_tensor(dirs, dtype=x.dtype, device=x.device)

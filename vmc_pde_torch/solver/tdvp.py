@@ -5,7 +5,11 @@ right-hand sides, direct statistics (self-normalized importance-weighted
 under ``is_gamma``, E_loc winsorized under ``eloc_clip``) or chunked
 statistics, with the f32, syrk, sym2 or tri2 Gram and the bf16 or int8
 cross term (parallel/stats.py, kernels/syrk.py), the spectral eigh or the
-Tikhonov-Cholesky solve, observables and the fixed Heun pair.
+Tikhonov-Cholesky solve, observables, the fused integrator steps (the
+fixed Heun pair, the SSPRK3 triple, the adaptive Heun and Bogacki-Shampine
+attempts) and the adaptive steppers' S metric: the dense SExp =
+E[logp^2 O_c^T O_c] beside the other moments, or the matrix-free
+quadratic v^T SExp v from the per-sample O rows.
 
 One right-hand side (RHS): draw latent z (exact draws, or n / n_chains
 sweeps of the Metropolis chains), push it through the inverse flow to
@@ -19,8 +23,8 @@ as the reference does; the update u is dtheta/dt.
 theta is held in the master dtype (f64) by the integrator and cast to the
 compute dtype per stage. Random numbers come from ``torch.Generator``s
 seeded from an integer key; ``fold_in`` derives independent keys per step
-and stage. The f64 Gram precisions, cg/minSR, the host solve and the
-adaptive steppers' S metric are not ported yet (ROADMAP.md).
+and stage. The f64 Gram precisions, cg/minSR and the host solve are not
+ported yet (ROADMAP.md).
 
 On a mesh (``state.ctx``, parallel/mesh.py) every rank runs this class on
 its shard of the samples: the draws are global and sliced, the per-sample
@@ -155,8 +159,8 @@ def _check_ported(cfg: TDVPConfig) -> None:
     if cfg.stats_partitioning not in ("auto", "gspmd", "shard_map"):
         raise ValueError(
             f"unknown stats_partitioning {cfg.stats_partitioning!r}")
-    if cfg.compute_sexp or cfg.sexp_mode != "none":
-        raise _not_ported("the adaptive steppers' S metric")
+    if cfg.sexp_mode not in ("none", "auto", "dense", "matfree"):
+        raise ValueError(f"unknown sexp_mode {cfg.sexp_mode!r}")
     if not cfg.solve_on_device:
         raise _not_ported("the host solve")
     if cfg.integrals:
@@ -231,19 +235,20 @@ def _solve_cholesky(S, F, cfg: TDVPConfig, lam_max=None):
     A = S + cfg.svd_tol * lam_max * torch.eye(S.shape[0], dtype=S.dtype,
                                               device=S.device)
     L, info = torch.linalg.cholesky_ex(A)
-    if int(info) != 0:
-        raise FloatingPointError(
-            f"Cholesky of the regularized Gram failed (info={int(info)})")
-    return torch.cholesky_solve(F[:, None], L)[:, 0], lam_max
+    u = torch.cholesky_solve(F[:, None], L)[:, 0]
+    # a failed factorization gives NaN, as the JAX package's does, which
+    # the NaN flag carries to the driver's abort (no host wait here)
+    return torch.where(info == 0, u, torch.nan), lam_max
 
 
 class TDVP:
     """Fused TDVP right-hand side on one device, or on one rank of a mesh.
 
     ``rhs(theta_master, t, key)`` returns (dtheta_master, aux);
-    ``heun_pair`` a whole fixed-Heun step. After each call the reference's
-    diagnostics are attributes (``ev``, ``snr``, ``solverResidual``,
-    ``tdvp_error``)."""
+    ``heun_pair`` and ``rk3_triple`` a whole fixed step, ``heun_attempt``
+    and ``rk23_attempt`` a whole adaptive attempt with its error. After
+    each call the reference's diagnostics are attributes (``ev``, ``snr``,
+    ``solverResidual``, ``tdvp_error``, ``SExp``)."""
 
     def __init__(self, state: VarState, equation: Equation,
                  cfg: TDVPConfig = TDVPConfig(), n_samples: int = 10000,
@@ -301,6 +306,13 @@ class TDVP:
                 raise ValueError("is_gamma tempering runs on the direct "
                                  "eigh/cholesky statistics path")
         self.solver_method = method
+        # the adaptive steppers' S metric, as in the JAX package: "auto" is
+        # the dense SExp for eigh and the matrix-free quadratic otherwise
+        self._sexp_matfree = cfg.sexp_mode == "matfree" or (
+            cfg.sexp_mode == "auto" and method != "eigh")
+        if cfg.sexp_mode == "dense" or (cfg.sexp_mode == "auto"
+                                        and method == "eigh"):
+            cfg = dataclasses.replace(cfg, compute_sexp=True)
         if method == "cholesky":
             # per-mode SNR exists only in the top-k Ritz basis
             if cfg.use_snr and cfg.spectrum_topk <= 0:
@@ -430,6 +442,9 @@ class TDVP:
         self.tdvp_error = None
         self.ElocMean = None
         self.ElocVar = None
+        self.SExp = None
+        # the last rhs() stage's (theta, x, logp, log_w, O) for sexp_norm
+        self._sexp_ctx = None
 
     def _gen(self, key: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
@@ -492,13 +507,18 @@ class TDVP:
         e_c = eloc - eloc_mean
         O_c = O - o_mean
         gram_sum, _, gram_fin = self._gram_backend()
-        A = None
+        A = SExp = None
         if self.cfg.compute_snr or self.cfg.use_snr:
             A = gram_fin(gram_sum(O_c, wtimes(e_c**2))) / n
-        F0, S0, A, eloc_var = mesh.all_reduce_sum(ctx, [
+        if self.cfg.compute_sexp:
+            # SExp = E[w logp^2 O_c^T O_c], the adaptive steppers' metric
+            SExp = gram_fin(gram_sum(O_c, wtimes(logp**2))) / n
+        F0, S0, A, SExp, eloc_var = mesh.all_reduce_sum(ctx, [
             (wtimes(e_c) @ O_c) / n, gram_fin(gram_sum(O_c, w)) / n, A,
-            wtimes(e_c**2).sum() / n])
+            SExp, wtimes(e_c**2).sum() / n])
         return dict(
+            O=O if self._sexp_matfree else None,
+            SExp=SExp,
             logp=logp,
             eloc=eloc,
             eloc_mean=eloc_mean,
@@ -596,6 +616,7 @@ class TDVP:
         use_q8 = (use_pair and self._cross_int8 and c % 8 == 0
                   and c <= stats._INT8_CROSS_N_MAX)
         want_A = cfg.compute_snr or cfg.use_snr
+        want_l2 = cfg.compute_sexp
         gram_sum, gram_zero, gram_fin = self._gram_backend()
 
         c_pilot = min(c, 8 * cfg.per_sample_tile) if use_pair else c
@@ -617,6 +638,9 @@ class TDVP:
         if want_A:
             acc.update(sum_E2O=zeros(P), sum_E2OO=gram_zero(),
                        sum_EOO=gram_zero())
+        if want_l2:
+            acc.update(sum_l2=zeros(), sum_l2O=zeros(P),
+                       sum_l2OO=gram_zero())
 
         def add(key, part):
             a = acc[key]
@@ -645,6 +669,11 @@ class TDVP:
                 add("sum_E2O", w @ Os)
                 add("sum_E2OO", gram_sum(Os, w))
                 add("sum_EOO", gram_sum(Os, es))
+            if want_l2:
+                w = logp**2
+                add("sum_l2", w.sum())
+                add("sum_l2O", w @ Os)
+                add("sum_l2OO", gram_sum(Os, w))
 
         def chunk_pair(xc):
             logp, g, quad, pair, colsum, omax = self._ps_split(
@@ -678,13 +707,19 @@ class TDVP:
             else:
                 add("sum_OO", stats.sym2_gram_sum_pair(
                     pair, cross_int8=self._cross_int8, amax=amax, m2=m2))
+            # the weighted moments split sqrt|w| (O - c_O) themselves
+            O_s = (stats.pair_to_f32(pair) if want_A or want_l2
+                   else None)
             if want_A:
-                # the weighted moments split sqrt|w| (O - c_O) themselves
                 w = es**2
                 add("sum_E2O", stats.pair_vecmat(w, pair))
-                O_s = stats.pair_to_f32(pair)
                 add("sum_E2OO", gram_sum(O_s, w))
                 add("sum_EOO", gram_sum(O_s, es))
+            if want_l2:
+                w = logp**2
+                add("sum_l2", w.sum())
+                add("sum_l2O", stats.pair_vecmat(w, pair))
+                add("sum_l2OO", gram_sum(O_s, w))
             return logp, eloc
 
         if use_pair:
@@ -702,7 +737,7 @@ class TDVP:
         if ctx.world > 1:
             # assemble the tri2 strips per rank (the finish commutes with
             # the sum), then ONE all-reduce of every accumulated moment
-            for key in ("sum_OO", "sum_E2OO", "sum_EOO"):
+            for key in ("sum_OO", "sum_E2OO", "sum_EOO", "sum_l2OO"):
                 if key in acc:
                     acc[key] = gram_fin(acc[key])
             keys = sorted(acc)
@@ -730,7 +765,16 @@ class TDVP:
             s2 = acc["sum_E2"] / n - m_f**2
             A = (M2 - torch.outer(v2, m_y) - torch.outer(m_y, v2)
                  + s2 * torch.outer(m_y, m_y))
+        SExp = None
+        if want_l2:
+            # SExp = E[l2 ybar^T ybar], l2 = logp^2, ybar = y - m_y
+            El2y = acc["sum_l2O"] / n
+            SExp = (gram_fin(acc["sum_l2OO"]) / n - torch.outer(El2y, m_y)
+                    - torch.outer(m_y, El2y)
+                    + acc["sum_l2"] / n * torch.outer(m_y, m_y))
         return dict(
+            O=None,
+            SExp=SExp,
             logp=logp,
             eloc=eloc,
             eloc_mean=m_f + c_E,
@@ -760,7 +804,8 @@ class TDVP:
 
     # ------------------------------------------------------------------
     def _rhs_impl(self, theta_c, t, key: int, z_ext=None,
-                  with_obs: bool = True, chain_state=None):
+                  with_obs: bool = True, chain_state=None,
+                  stash_sexp: bool = False):
         """One RHS. ``z_ext``: latent draws to use instead of sampling
         (tests hand both packages the same draws; the global block on a
         mesh). Only the first stage of an integrator step records
@@ -877,6 +922,12 @@ class TDVP:
             aux["_chain_state"] = mcmc["state"]
             aux["mcmc_accepted"] = mcmc["acc"]
             aux["mcmc_proposed"] = mcmc["prop"]
+        if st["SExp"] is not None:
+            aux["SExp"] = st["SExp"]
+        if self._sexp_matfree and stash_sexp:
+            # the matrix-free S metric's inputs (_sexp_quad): this stage's
+            # point, samples, logp, IS weights and, on the direct path, O
+            aux["_sexp"] = (theta_c, x, st["logp"], log_w, st["O"])
         aux["nan"] = torch.isnan(update).any()
         return aux
 
@@ -887,6 +938,8 @@ class TDVP:
         self.tdvp_error = aux["tdvp_error"]
         self.ElocMean = aux["eloc_mean"]
         self.ElocVar = aux["eloc_var"]
+        if "SExp" in aux:
+            self.SExp = aux["SExp"]
 
     def _chain_inputs(self, key: int):
         """The chain state for a call keyed by ``key`` (None for exact
@@ -913,42 +966,215 @@ class TDVP:
         theta_c = theta.to(self.precision.compute)
         aux = self._rhs_impl(theta_c, t, fold_in(key, intStep),
                              with_obs=intStep % 5 == 0,
-                             chain_state=self._chain_inputs(key))
+                             chain_state=self._chain_inputs(key),
+                             stash_sexp=True)
         self._absorb_mcmc(aux)
+        self._sexp_ctx = aux.pop("_sexp", None)
         self._finish(aux)
         return aux["update"].to(self.precision.master), aux
 
     # ------------------------------------------------------------------
-    def _stage(self, th, t, key, i, z, with_obs=True, chain_state=None):
-        aux = self._rhs_impl(th, t, fold_in(key, i), z, with_obs,
-                             chain_state)
-        return aux["update"].to(th.dtype), aux
+    # Fused integrator steps: a whole step (fixed Heun or SSPRK3) or a whole
+    # adaptive attempt in one call, with dt a Python float and the stage
+    # arithmetic in compute dtype; the increment goes back to the
+    # master-precision parameters (steppers.py). Stage i draws with
+    # fold_in(key, off + i), the keys rhs() derives from intStep.
+    # ------------------------------------------------------------------
+    def _stage_runner(self, key: int, off: int, n_stages: int, z_ext=None,
+                      chain_state=None):
+        """(stage, out): stage(i, theta_c, t) -> k_i evaluates stage i on
+        its own latent batch z_ext[i] (or its own draw). Only stage 0
+        records observables; the chain state passes from stage to stage;
+        every stage's NaN flag and Metropolis counts fold into stage 0's
+        aux (out["aux"]); the last stage's aux (out["last"]) keeps its S
+        metric: the dense SExp, or the matrix-free inputs."""
+        zs = tuple(z_ext) if z_ext is not None else (None,) * n_stages
+        out = dict(cs=chain_state, aux=None, last=None)
+
+        def stage(i, theta_c, t):
+            last = i == n_stages - 1
+            aux = self._rhs_impl(theta_c, t, fold_in(key, off + i), zs[i],
+                                 i == 0, out["cs"], stash_sexp=last)
+            cs = aux.pop("_chain_state", None)
+            if i == 0:
+                out["aux"] = a0 = aux
+            else:
+                a0 = out["aux"]
+                a0["nan"] = a0["nan"] | aux["nan"]
+                if cs is not None:
+                    for k in ("mcmc_accepted", "mcmc_proposed"):
+                        a0[k] = a0[k] + aux[k]
+            if cs is not None:
+                out["cs"] = a0["_chain_state"] = cs
+            if last:
+                out["last"] = aux
+            else:
+                aux.pop("SExp", None)
+            return aux["update"].to(theta_c.dtype)
+
+        return stage, out
 
     def _heun_pair_impl(self, theta_c, t, dt, key, z_ext=None,
                         chain_state=None):
-        """Fixed-Heun pair dy = dt/2 (k0 + k1) in compute dtype. The aux
-        is the first stage's (observables at time t); the NaN flag is
-        OR-ed across both stages, the Metropolis counts summed, and the
-        chain state passes from stage 0 to stage 1. ``z_ext``: optional
-        pair of latent batches, one per stage."""
-        z0, z1 = z_ext if z_ext is not None else (None, None)
-        k0, aux = self._stage(theta_c, t, key, 0, z0,
-                              chain_state=chain_state)
-        cs = aux.pop("_chain_state", chain_state)
-        k1, aux1 = self._stage(theta_c + dt * k0, t + dt, key, 1, z1,
-                               with_obs=False, chain_state=cs)
-        if "_chain_state" in aux1:
-            aux["_chain_state"] = aux1["_chain_state"]
-            for k in ("mcmc_accepted", "mcmc_proposed"):
-                aux[k] = aux.get(k, 0) + aux1[k]
-        aux["nan"] = aux["nan"] | aux1["nan"]
-        return 0.5 * dt * (k0 + k1), aux
+        """Fixed-Heun pair dy = dt/2 (k0 + k1) in compute dtype; the aux is
+        the first stage's (observables at time t)."""
+        stage, out = self._stage_runner(key, 0, 2, z_ext, chain_state)
+        k0 = stage(0, theta_c, t)
+        k1 = stage(1, theta_c + dt * k0, t + dt)
+        return 0.5 * dt * (k0 + k1), out["aux"]
 
-    def heun_pair(self, theta, t, dt, key: int, z_ext=None):
-        """(dy master, aux) for a whole fixed-Heun step."""
-        dy, aux = self._heun_pair_impl(theta.to(self.precision.compute), t,
-                                       dt, key, z_ext,
-                                       self._chain_inputs(key))
+    def _rk3_triple_impl(self, theta_c, t, dt, key, z_ext=None,
+                         chain_state=None):
+        """Fixed SSPRK3 (Shu-Osher): y1 = y + dt k0, y2 = y + dt/4 (k0 +
+        k1), dy = dt/6 (k0 + k1 + 4 k2), with k1 = f(y1, t + dt) and k2 =
+        f(y2, t + dt/2)."""
+        stage, out = self._stage_runner(key, 0, 3, z_ext, chain_state)
+        k0 = stage(0, theta_c, t)
+        k1 = stage(1, theta_c + dt * k0, t + dt)
+        k2 = stage(2, theta_c + 0.25 * dt * (k0 + k1), t + 0.5 * dt)
+        return dt / 6.0 * (k0 + k1 + 4.0 * k2), out["aux"]
+
+    def _attempt_error(self, diff, out):
+        """The attempt's error in the LAST stage's S metric at that stage's
+        own point: the dense SExp, else the matrix-free quadratic, else
+        the 2-norm. The stage-0 aux carries the SExp used (self.SExp)."""
+        last = out["last"]
+        sexp = last.pop("SExp", None)
+        sx = last.pop("_sexp", None)
+        if sexp is not None:
+            out["aux"]["SExp"] = sexp
+            return self.s_metric_norm(diff, sexp)
+        if sx is not None:
+            return self._sexp_quad(*sx, diff)
+        return torch.linalg.norm(diff)
+
+    def _heun_attempt_impl(self, theta_c, t, dt, key, off, z_ext=None,
+                           chain_state=None):
+        """One embedded adaptive-Heun attempt: the full step against two
+        half steps, 5 stages, the error from the last one (at y3).
+        ``off`` = 5 * attempt. Returns (dy1, err, aux)."""
+        stage, out = self._stage_runner(key, off, 5, z_ext, chain_state)
+        k0 = stage(0, theta_c, t)
+        k1 = stage(1, theta_c + dt * k0, t + dt)
+        dy0 = 0.5 * dt * (k0 + k1)
+        k10 = stage(2, theta_c + 0.5 * dt * k0, t + 0.5 * dt)
+        dy1 = 0.25 * dt * (k0 + k10)
+        y2 = theta_c + dy1
+        k01 = stage(3, y2, t + 0.5 * dt)
+        y3 = y2 + 0.5 * dt * k01
+        k11 = stage(4, y3, t + dt)
+        dy1 = dy1 + 0.25 * dt * (k01 + k11)
+        return dy1, self._attempt_error(dy1 - dy0, out), out["aux"]
+
+    def _rk23_attempt_impl(self, theta_c, t, dt, key, off, z_ext=None,
+                           chain_state=None):
+        """One embedded Bogacki-Shampine 3(2) attempt: 4 stages, the
+        third-order dy3 accepted, the error against the second-order dy2
+        from the last stage (at theta + dy3). Returns (dy3, err, aux)."""
+        stage, out = self._stage_runner(key, off, 4, z_ext, chain_state)
+        k0 = stage(0, theta_c, t)
+        k1 = stage(1, theta_c + 0.5 * dt * k0, t + 0.5 * dt)
+        k2 = stage(2, theta_c + 0.75 * dt * k1, t + 0.75 * dt)
+        dy3 = dt * (2.0 / 9.0 * k0 + 1.0 / 3.0 * k1 + 4.0 / 9.0 * k2)
+        k3 = stage(3, theta_c + dy3, t + dt)
+        dy2 = dt * (7.0 / 24.0 * k0 + 0.25 * k1 + 1.0 / 3.0 * k2
+                    + 0.125 * k3)
+        return dy3, self._attempt_error(dy3 - dy2, out), out["aux"]
+
+    def _fused(self, impl, theta, key, *args, z_ext=None):
+        """Run a fused step or attempt from master-precision theta; the
+        outputs with dy in the master dtype."""
+        res = impl(theta.to(self.precision.compute), *args, z_ext=z_ext,
+                   chain_state=self._chain_inputs(key))
+        aux = res[-1]
         self._absorb_mcmc(aux)
         self._finish(aux)
-        return dy.to(self.precision.master), aux
+        return (res[0].to(self.precision.master),) + tuple(res[1:])
+
+    def heun_pair(self, theta, t, dt, key: int, z_ext=None):
+        """(dy master, aux) for a whole fixed-Heun step. ``z_ext``: one
+        latent batch per stage."""
+        return self._fused(self._heun_pair_impl, theta, key, t, dt, key,
+                           z_ext=z_ext)
+
+    def rk3_triple(self, theta, t, dt, key: int, z_ext=None):
+        """(dy master, aux) for a whole fixed SSPRK3 step."""
+        return self._fused(self._rk3_triple_impl, theta, key, t, dt, key,
+                           z_ext=z_ext)
+
+    def heun_attempt(self, theta, t, dt, key: int, attempt: int = 0,
+                     z_ext=None):
+        """(dy master, err, aux) for a whole adaptive-Heun attempt; err is
+        a 0-dim device tensor (the caller decides when to wait for it)."""
+        return self._fused(self._heun_attempt_impl, theta, key, t, dt, key,
+                           5 * attempt, z_ext=z_ext)
+
+    def rk23_attempt(self, theta, t, dt, key: int, attempt: int = 0,
+                     z_ext=None):
+        """(dy master, err, aux) for a whole Bogacki-Shampine attempt."""
+        return self._fused(self._rk23_attempt_impl, theta, key, t, dt, key,
+                           5 * attempt, z_ext=z_ext)
+
+    # ------------------------------------------------------------------
+    # The S metric of the adaptive steppers' error norm.
+    # ------------------------------------------------------------------
+    def s_metric_norm(self, v, S):
+        """v^T S v in the solve dtype (the reference's norm_fun)."""
+        v = v.to(self.precision.solve)
+        return v @ (S.to(self.precision.solve) @ v)
+
+    def _sexp_a(self, theta_c, x, v, O=None):
+        """a_n = O_n . v on this rank's rows: one product with the kept O
+        (direct statistics), else the per-sample route (the plain-mode
+        kernel on the card) re-run chunk by chunk on the samples at
+        theta_c, without trace directions, each chunk's O contracted and
+        dropped."""
+        v = v.to(theta_c.dtype)
+        if O is not None:
+            return O @ v
+        n = x.shape[0]
+        c = self.cfg.chunk_size // self.ctx.world or n
+        return torch.cat([
+            self._per_sample(self.flow, theta_c, x[i:i + c], None)[3] @ v
+            for i in range(0, n, c)])
+
+    def _sexp_quad(self, theta_c, x, logp, log_w, O, v):
+        """Matrix-free v^T SExp v = E[w logp^2 (a - E[w a])^2], a = O v,
+        w the self-normalized IS weights (1 without ``log_w``), in the
+        solve dtype. On a mesh x, logp, log_w and O are this rank's rows:
+        the weights' max crosses ranks first, then the five sums in one
+        all-reduce."""
+        ctx, sdt = self.ctx, self.precision.solve
+        a = self._sexp_a(theta_c, x, v, O).to(sdt)
+        l2 = logp.to(sdt) ** 2
+        if log_w is None:
+            w = torch.ones_like(a)
+        else:
+            lw = log_w.to(sdt)
+            w = torch.exp(lw - mesh.all_reduce_max(ctx, lw.max()))
+        wl2 = w * l2
+        s0, s1, s2, s3, s4 = mesh.all_reduce_sum(ctx, [torch.stack([
+            w.sum(), (w * a).sum(), wl2.sum(), (wl2 * a).sum(),
+            (wl2 * a * a).sum()])])[0]
+        m = s1 / s0
+        return (s4 - 2.0 * m * s3 + m * m * s2) / s0
+
+    def stepper_norm(self, v, S=None):
+        """A per-stage adaptive stepper's error norm (its normFunction):
+        v^T S v with the dense SExp S of the last rhs() call, else the
+        matrix-free quadratic at that call's stage, else the 2-norm."""
+        if S is not None:
+            return self.s_metric_norm(v, S)
+        if self._sexp_matfree:
+            return self.sexp_norm(v)
+        return torch.linalg.norm(v)
+
+    def sexp_norm(self, v):
+        """The matrix-free S metric of v at the last rhs() call's stage
+        (its theta, samples and O): the per-call stepper's stand-in for
+        the dense SExp."""
+        if self._sexp_ctx is None:
+            raise RuntimeError("sexp_norm needs a prior rhs() call with the "
+                               "matrix-free S metric (sexp_mode 'matfree' "
+                               "or 'auto' off eigh)")
+        return self._sexp_quad(*self._sexp_ctx, v)

@@ -25,6 +25,7 @@ Gram backends (parallel/stats.py) sum.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -36,6 +37,15 @@ def full_f32_matmuls() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@functools.lru_cache(maxsize=None)
+def device_constant(values: tuple, device: torch.device,
+                    dtype: torch.dtype = None) -> torch.Tensor:
+    """The small constant ``values`` on ``device``, made once: a copy
+    from host memory waits for the device, and the right-hand side needs
+    these constants on every call."""
+    return torch.as_tensor(values, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)

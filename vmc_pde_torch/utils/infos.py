@@ -25,9 +25,10 @@ class InfoRecorder:
     tensors, letting the step loop run ahead of the host) and copied to
     host numpy by ``as_arrays``/``flush``."""
 
-    # The raw parameter update is an internal per-step payload: at P~10^4
-    # recording it would bloat the HDF5 for no diagnostic use.
-    SKIP_KEYS = frozenset({"update"})
+    # The raw parameter update and the adaptive steppers' (P, P) SExp are
+    # internal per-step payloads: at P~10^4 recording them would bloat the
+    # HDF5 for no diagnostic use.
+    SKIP_KEYS = frozenset({"update", "SExp"})
 
     def __init__(self):
         self.infos = {}  # key -> list of per-step rows
