@@ -120,12 +120,15 @@
    fixed_rk3, adaptive_heun and adaptive_rk23 for 3 steps each (cholesky,
    so the adaptive error is the matrix-free S metric on the last stage's
    kept O): exactly stages x attempts plain-mode launches, each step's t,
-   dt, attempts, error and residual; the matrix-free pass timed with CUDA
-   events beside one per-sample launch;
+   dt, attempts, error and residual; adaptive_heun for 2 steps at tol
+   2e-5, below its first attempt's error, so that the first step retries
+   at a smaller dt (5 launches per attempt, the accepted errors within
+   tol); the matrix-free pass timed with CUDA events beside one
+   per-sample launch;
 22. (G) ``--exact-t-end`` landing on t_end = 5e-3 (dt 2e-3, 2e-3, 1e-3),
-   and ``--steps-per-dispatch 3`` against 1 for fixed_heun and
-   adaptive_heun (3 steps, no callbacks, so the batch runs): theta and the
-   recorded rows bit for bit; then the host waits (torch's sync debug
+   and ``steps_per_dispatch`` 3 against 1 for fixed_heun and
+   adaptive_heun (3 steps, verbose output off, so the NaN flags are read
+   once per 3 steps): theta and the recorded rows bit for bit; then the host waits (torch's sync debug
    mode) inside one fused Heun pair, one adaptive-Heun attempt and one
    chunked Heun pair, printed with where each comes from;
 23. (G) one batch with the dense SExp at the theta phase 5 ends on: the
@@ -1676,8 +1679,9 @@ def phase_steppers():
     """G: fokkerPlanck32 at N=16384 (cholesky, so the adaptive S metric is
     the matrix-free one on the kept O) with every stepper but the fixed
     Heun of phase 5, 3 steps each: exactly stages x attempts plain-mode
-    launches, each step's attempts, dt, error and residual; the matrix-free
-    pass timed beside one per-sample launch."""
+    launches, each step's attempts, dt, error and residual; adaptive Heun
+    once more at a tolerance that rejects the first attempt; the
+    matrix-free pass timed beside one per-sample launch."""
     out = {}
     for name in ("fixed_euler", "fixed_rk3", "adaptive_heun",
                  "adaptive_rk23"):
@@ -1700,6 +1704,27 @@ def phase_steppers():
                          step_error=arrays.get("step_error",
                                                np.array([])).tolist(),
                          wall_s=wall)
+    # a tolerance below the ~1.1e-4 error of a first attempt at dt0 = 2e-3:
+    # the first step rejects at least one attempt (the keys 5 * attempt +
+    # stage, the chain state and the kept O of a discarded attempt) and
+    # retries at a smaller dt
+    label = "fokkerPlanck32 N=16384 adaptive_heun tol=2e-5"
+    cfg = preset("fokkerPlanck32", device="cuda", stepper="adaptive_heun",
+                 tol=2e-5)
+    _, arrays, counts = _drive(None, label, 2, cfg=cfg)
+    att = _step_table(label, arrays)
+    if counts["persample"] != 5 * sum(att):
+        fail(f"{label}: {counts['persample']} per-sample launches, "
+             f"expected 5 x {sum(att)} attempts")
+    if att[0] < 2 or not arrays["dt"][0] < cfg.dt0:
+        fail(f"{label}: the first step took {att[0]} attempts and dt "
+             f"{arrays['dt'][0]}; a retry at a dt below {cfg.dt0} expected")
+    if not (np.isfinite(arrays["step_error"]).all()
+            and (arrays["step_error"] <= cfg.tol).all()):
+        fail(f"{label}: accepted errors {arrays['step_error']} above tol")
+    out["adaptive_heun_retry"] = dict(
+        launches=counts["persample"], attempts=att,
+        dt=arrays["dt"].tolist(), step_error=arrays["step_error"].tolist())
     ms, ps_ms = _matfree_pass_ms(dict(preset="fokkerPlanck32", over=dict(
         stepper="adaptive_heun")))
     print(f"fokkerPlanck32 N=16384 matrix-free S metric (one product with "
@@ -1713,8 +1738,9 @@ def phase_steppers():
 def phase_exact_t_end_and_dispatch(out):
     """G: --exact-t-end lands fokkerPlanck32 on t_end = 5e-3 (dt 2e-3,
     2e-3, then 1e-3); --steps-per-dispatch 3 against 1 on fixed_heun and
-    adaptive_heun, 3 steps: theta bit for bit (else the largest
-    difference is printed and the phase fails)."""
+    adaptive_heun, 3 steps without verbose output (with it every step
+    reads its residual and the NaN flag): theta bit for bit (else the
+    largest difference is printed and the phase fails)."""
     _, arrays, _ = _drive(["fokkerPlanck32", "--t-end", "5e-3",
                            "--exact-t-end"], "fokkerPlanck32 exact_t_end",
                           3)
@@ -1727,13 +1753,13 @@ def phase_exact_t_end_and_dispatch(out):
     for name in ("fixed_heun", "adaptive_heun"):
         thetas = {}
         for k in ("1", "3"):
-            # no callbacks: a callback would turn the batches off
+            # no callbacks: _drive's waits for the card after every step
             _zero_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, rec = driver.main(
-                ["fokkerPlanck32", "--stepper", name, "--device", "cuda",
-                 "--steps-per-dispatch", k, "--max-steps", "3"])
+            state, rec = driver.run(preset(
+                "fokkerPlanck32", device="cuda", stepper=name,
+                steps_per_dispatch=int(k), verbose=False), max_steps=3)
             torch.cuda.synchronize()
             arrays = rec.as_arrays()
             print(f"fokkerPlanck32 {name} --steps-per-dispatch {k}: 3 "
@@ -1958,6 +1984,8 @@ def main():
     for name in ("fixed_euler", "fixed_rk3", "adaptive_heun",
                  "adaptive_rk23"):
         paths[f"fokkerPlanck32 {name}"] = steppers[name]["launches"]
+    paths["fokkerPlanck32 adaptive_heun tol=2e-5 (a retry)"] = \
+        steppers["adaptive_heun_retry"]["launches"]
     phase_exact_t_end_and_dispatch(steppers)
     phase_sexp_batch(theta5, theta_student, steppers)
     prod = phase_steppers_production(steppers)

@@ -75,8 +75,8 @@ class RunConfig:
     # clamp the last dt to land on t_end (the reference's loop overshoots
     # by up to one dt)
     exact_t_end: bool = False
-    # > 1: issue that many steps back to back, recording them and checking
-    # NaN once per batch (driver.run)
+    # > 1: check the NaN flags once every that many steps instead of every
+    # nan_check_every (driver.run)
     steps_per_dispatch: int = 1
 
     # statistics on a mesh: auto | shard_map | gspmd (TDVPConfig)

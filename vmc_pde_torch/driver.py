@@ -30,12 +30,13 @@ global_affine=True))``.
 ``--device`` defaults to cuda and raises when no CUDA device is present;
 pass ``--device cpu`` to run on the CPU.
 
-``--steps-per-dispatch K`` issues K steps back to back and records them,
-and checks their NaN flags, once per batch; the trajectory and the
-recorded rows are those of K=1. Eager torch has no device-side loop: an
-adaptive step waits for each attempt's error on the host (one
-synchronization per attempt), where the JAX package keeps its retry loop
-on the device.
+``--steps-per-dispatch K`` (K > 1) checks the NaN flags once every K
+steps instead of every ``nan_check_every``; the steps are issued as with
+K=1 (no host wait between them unless verbose output reads each step's
+residual) and the trajectory and the recorded rows are those of K=1.
+Eager torch has no device-side loop: an adaptive step waits for each
+attempt's error on the host (one synchronization per attempt), where the
+JAX package keeps its retry loop on the device.
 """
 
 from __future__ import annotations
@@ -143,9 +144,12 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
     if wdir:
         os.makedirs(wdir, exist_ok=True)
 
-    # NaN aborts are checked every nan_check_every steps (each check waits
-    # for the device), on flags agreed across the ranks, so that all of
-    # them abort together and none waits alone in a collective
+    # NaN aborts are checked every nan_check_every steps, or once per batch
+    # of steps_per_dispatch steps (each check waits for the device), on
+    # flags agreed across the ranks, so that all of them abort together and
+    # none waits alone in a collective
+    nan_every = (cfg.steps_per_dispatch if cfg.steps_per_dispatch > 1
+                 else max(cfg.nan_check_every, 1))
     pending_nan = []
 
     def check_nan():
@@ -173,60 +177,30 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
             return t < cfg.t_end - t_eps
         return t < cfg.t_end + dt
 
-    def step(t, n_step):
-        """One step from (t, theta); returns (dt_used, info, the row's
-        dist_params) and leaves theta in the state."""
-        nonlocal theta
-        res = stepper.step(t, f, theta, fold_in(key, n_step),
-                           normFunction=tdvp.stepper_norm,
-                           dt_cap=cfg.t_end - t if cfg.exact_t_end else None)
-        theta = res.y
-        state.set_parameters(theta)
-        return res.dt_used, res.info, state.params["latent"]["dist_params"]
-
-    def record(t, dt, info, dist_params):
-        pending_nan.append((info["nan"], t))
-        rec.append("times", t)
-        rec.append("dt", dt)
-        rec.append_dict(info)
-        rec.append("dist_params", dist_params)
-
     theta = state.get_parameters()
     t = 0.0
     dt = stepper.dt
     n_step = 0
-    steps_done = 0
     key = cfg.sample_seed + 7
     plotted = set()
     if grid is not None and talk:
         print("Initial grid integral:", float(state.integrate(grid)))
-    # steps_per_dispatch: batches of K steps with no per-step host action
-    # (printing, callbacks, the grid), within the step budget; a batch
-    # ends early where the loop would (t_end), so K changes nothing but
-    # when rows are recorded and NaN flags read
-    batch_ok = (cfg.steps_per_dispatch > 1 and not cfg.verbose
-                and not callbacks and grid is None)
 
-    while more_steps(t, dt) and steps_done < max_steps:
-        K = cfg.steps_per_dispatch
-        if batch_ok and steps_done + K <= max_steps:
-            rows = []
-            while len(rows) < K and more_steps(t, dt):
-                dt, info, dp = step(t, n_step + len(rows))
-                rows.append((t, dt, info, dp))
-                t += dt
-            for row in rows:
-                record(*row)
-            check_nan()
-            n_step += len(rows)
-            steps_done += len(rows)
-            continue
-
+    while more_steps(t, dt) and n_step < max_steps:
         t0 = time.perf_counter()
-        dt, info, dp = step(t, n_step)
-        record(t, dt, info, dp)
+        res = stepper.step(t, f, theta, fold_in(key, n_step),
+                           normFunction=tdvp.stepper_norm,
+                           dt_cap=cfg.t_end - t if cfg.exact_t_end else None)
+        theta, dt, info = res.y, res.dt_used, res.info
+        pending_nan.append((info["nan"], t))
+        state.set_parameters(theta)
 
-        if cfg.verbose or n_step % max(cfg.nan_check_every, 1) == 0:
+        rec.append("times", t)
+        rec.append("dt", dt)
+        rec.append_dict(info)
+        rec.append("dist_params", state.params["latent"]["dist_params"])
+
+        if cfg.verbose or n_step % nan_every == 0:
             check_nan()
         if talk:
             res_f = float(info["solver_res"])  # waits for the device
@@ -253,7 +227,6 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
             cb(n_step, t, state, info)
         t += dt
         n_step += 1
-        steps_done += 1
 
     check_nan()
     rec.flush()
@@ -306,11 +279,9 @@ def main(argv=None, callbacks=()):
                    help="clamp the final dt to land exactly on t_end (the "
                         "reference's loop overshoots by up to one dt)")
     p.add_argument("--steps-per-dispatch", type=int, default=None,
-                   help=">1: issue that many steps back to back, recording "
-                        "them and checking NaN once per batch (off with "
-                        "verbose output, callbacks or a 2-D grid); an "
-                        "adaptive step still waits for each attempt's "
-                        "error on the host")
+                   help=">1: check the NaN flags once every that many "
+                        "steps (the trajectory is K=1's); an adaptive step "
+                        "still waits for each attempt's error on the host")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; raises without one); "
                         "on a mesh each rank takes card rank %% count")
@@ -355,8 +326,6 @@ def main(argv=None, callbacks=()):
         overrides["per_sample_backend"] = args.per_sample_backend
     if args.exact_t_end:
         overrides["exact_t_end"] = True
-    if (args.steps_per_dispatch or 1) > 1:
-        overrides["verbose"] = False  # per-step printing would unbatch
     for name in ("gram_backend", "gram_cross", "chunk_size", "is_gamma",
                  "stats_partitioning", "mesh_dp", "mesh_tp", "stepper",
                  "steps_per_dispatch"):

@@ -1140,24 +1140,28 @@ class TDVP:
 
     def _sexp_quad(self, theta_c, x, logp, log_w, O, v):
         """Matrix-free v^T SExp v = E[w logp^2 (a - E[w a])^2], a = O v,
-        w the self-normalized IS weights (1 without ``log_w``), in the
-        solve dtype. On a mesh x, logp, log_w and O are this rank's rows:
-        the weights' max crosses ranks first, then the five sums in one
-        all-reduce."""
-        ctx, sdt = self.ctx, self.precision.solve
-        a = self._sexp_a(theta_c, x, v, O).to(sdt)
-        l2 = logp.to(sdt) ** 2
+        w the self-normalized IS weights (1 without ``log_w``), returned in
+        the solve dtype. On a mesh x, logp, log_w and O are this rank's
+        rows: the weights' max crosses ranks first, then the five sums in
+        one all-reduce. The sums are taken in f64 whatever the solve dtype:
+        the one-pass variance s4 - 2 m s3 + m^2 s2 cancels as (m / spread)^2
+        where the JAX package centres a first, and f64 keeps that below
+        a's own f32 rounding without a second all-reduce for m."""
+        ctx, f64 = self.ctx, torch.float64
+        a = self._sexp_a(theta_c, x, v, O).to(f64)
+        l2 = logp.to(f64) ** 2
         if log_w is None:
             w = torch.ones_like(a)
         else:
-            lw = log_w.to(sdt)
+            lw = log_w.to(f64)
             w = torch.exp(lw - mesh.all_reduce_max(ctx, lw.max()))
         wl2 = w * l2
         s0, s1, s2, s3, s4 = mesh.all_reduce_sum(ctx, [torch.stack([
             w.sum(), (w * a).sum(), wl2.sum(), (wl2 * a).sum(),
             (wl2 * a * a).sum()])])[0]
         m = s1 / s0
-        return (s4 - 2.0 * m * s3 + m * m * s2) / s0
+        return ((s4 - 2.0 * m * s3 + m * m * s2) / s0).to(
+            self.precision.solve)
 
     def stepper_norm(self, v, S=None):
         """A per-stage adaptive stepper's error norm (its normFunction):
