@@ -144,7 +144,28 @@
    re-makes O per chunk); that metric timed;
 25. (G) ``fluidpaper`` with adaptive_heun (the dense SExp, the torch
    chain) for 3 steps: the recorded proposals are the budget x 5 x
-   attempts.
+   attempts;
+26. (H1) ``--solver cg`` at fokkerPlanck32's N=16384 for 3 fixed-Heun
+   steps (2 plain-mode launches a step, lambda_max and no spectrum); one
+   RHS at phase 5's theta against the Cholesky solve on the same draws
+   (svd_tol 1e-5, 600 iterations): cosine, lambda_max, residual, and the
+   update against the f64 Cholesky solve; the CG solve timed with its
+   iterations and the host waits of one RHS; one adaptive-Heun step;
+27. (H2) ``--solver minsr`` in its regime, P > N: fokkerPlanck32 at
+   N=2048 and scripts/bench_minsr.py's flow (d=32, depth 8, hidden 32,
+   P=34,864, N=1024, kernel forced), 3 steps each (1 launch a RHS); one
+   batch's kernel-space residual and spectrum against P-space ones on
+   the same O rows; the N x N eigh, a minSR RHS and a Cholesky RHS timed;
+28. (H3) streaming minSR at chunk_size N/4 on both flows, 3 steps (18
+   launches a RHS), one RHS against the direct one on the same draws;
+29. (H4) the Gram precisions: direct N=16384 under tpu_f64stats, f64 and
+   default against high on the same draws, the f64 solve's residuals;
+   then f64acc at the production point (3 steps: 16 split, 32 quant8, 2
+   pilots a step) and one batch's statistics under f64acc, high and
+   chunked f64, f64acc nearer to f64 than high (Frobenius norm);
+30. (H5) the host f64 solve: ``mwe --precision f64 --host-solve`` for 10
+   steps (residual below 1e-10), one fokkerPlanck32 RHS solved on the
+   host (numpy f64) against the device's f64 Cholesky, timed.
 
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
@@ -163,6 +184,7 @@ import sys
 import tempfile
 import time
 import traceback
+import warnings
 
 import numpy as np
 import torch
@@ -178,6 +200,7 @@ from vmc_pde_torch.ops.evolution import make_equation
 from vmc_pde_torch.parallel import mesh, stats
 from vmc_pde_torch.parallel.mesh import ParallelCtx
 from vmc_pde_torch.sampling import sampler as sampling
+from vmc_pde_torch.solver import tdvp as tdvp_mod
 from vmc_pde_torch.solver.tdvp import TDVP
 from vmc_pde_torch.utils.dtypes import full_f32_matmuls
 from vmc_pde_torch.utils.grid import Grid
@@ -600,7 +623,9 @@ def _drive(args, label, n_steps, dim=32, cfg=None, callbacks=()):
           f"set-up){mean}")
     print(f"{label}: kernel launches {counts}")
     arrays = rec.as_arrays()
-    spectrum = "ev_topk" if "ev_topk" in arrays else "ev"
+    # the spectrum of eigh/minsr, the Ritz one of cholesky; cg has none
+    spectrum = next(k for k in ("ev_topk", "ev", "lambda_max")
+                    if k in arrays)
     for key in ("solver_res", "tdvp_error", "entropy", "covar", "x1",
                 "eloc_mean", spectrum):
         if not np.isfinite(arrays[key]).all():
@@ -1789,8 +1814,6 @@ def _host_waits():
     pair of the chunked tri2 + int8 statistics at N=131072, as torch's sync
     debug mode reports them (the attempt's error read by the stepper is
     outside); printed with where they come from."""
-    import warnings
-
     state, tdvp = driver.build_problem(preset(
         "fokkerPlanck32", device="cuda", stepper="adaptive_heun"))[:2]
     chunked = driver.build_problem(preset(
@@ -1804,21 +1827,26 @@ def _host_waits():
             ("heun_attempt", lambda: tdvp.heun_attempt(theta, 0.0, 2e-3, 5)),
             ("chunked heun_pair", lambda: chunked.heun_pair(
                 theta, 0.0, 2e-3, 5))):
-        call()  # warm-up
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                call()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        waits = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-                 if "synchroniz" in str(w.message)]
-        found[label] = waits
+        found[label] = waits = _sync_sites(call)
         print(f"host waits inside one fused {label}: "
               f"{len(waits)} {sorted(set(waits))}")
     return found
+
+
+def _sync_sites(call):
+    """The file:line of every synchronizing CUDA operation in ``call()``
+    (after a warm-up call), as torch's sync debug mode reports them."""
+    call()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
 
 
 def phase_sexp_batch(theta, theta_student, out):
@@ -1944,6 +1972,435 @@ def phase_fluidpaper_adaptive(out):
                                            acceptance=rate)
 
 
+# --------------------------------------------------------------------------
+# H: the solvers and Gram precisions (phases 26-30)
+# --------------------------------------------------------------------------
+
+
+def _batch(state, theta, n, seed):
+    """(theta_c, x): f32 theta on the card and n pushed draws of a fixed
+    generator seed."""
+    theta_c = theta.to(device=state.device, dtype=torch.float32)
+    params = state.flow.layout.unravel(theta_c)
+    gen = torch.Generator(device=state.device).manual_seed(seed)
+    return theta_c, state.flow.push(params, state.flow.latent_sample(
+        gen, params, n, torch.float32))[0]
+
+
+def _cos_rel(u, ref):
+    u, ref = u.double(), ref.double()
+    return (float(u @ ref / (u.norm() * ref.norm())),
+            float((u - ref).norm() / ref.norm()))
+
+
+def phase_cg(theta5):
+    """H1 (phase 26): --solver cg at fokkerPlanck32's N=16384, direct: 3
+    fixed-Heun steps through the CLI (2 plain-mode launches per step,
+    lambda_max recorded and no spectrum); one RHS at the theta phase 5
+    ends on against the Cholesky solve on the same draws at the JAX
+    test's setting (svd_tol 1e-5, 600 iterations, cg_tol 1e-10;
+    tests/test_tdvp.py:215-239): cosine > 0.999, residual below 1e-3,
+    lambda_max within 3e-2; the update, 2e-2, is held on one batch's O
+    rows against an f64 solve of the same Tikhonov system (S and F formed
+    in f64, cg's lambda_max). The f32 Cholesky solve is not the
+    reference there: at a condition of ~1e5 f32 rounding moves its
+    solution by ~2e-2, while CG reads O and never forms S (an H100 80GB
+    HBM3 at 700 W); its gap is printed beside. Then the CG solve timed with
+    CUDA events at the CLI defaults, its iterations and the host
+    waits of one RHS; one adaptive-Heun step with the matrix-free S
+    metric (5 launches per attempt)."""
+    n_steps = 3
+    label = "fokkerPlanck32 N=16384 cg"
+    _, arrays, counts = _drive(["fokkerPlanck32", "--solver", "cg"], label,
+                               n_steps)
+    if counts["persample"] != 2 * n_steps:
+        fail(f"{label}: {counts['persample']} plain-mode launches, "
+             f"expected {2 * n_steps}")
+    if "ev" in arrays or "ev_topk" in arrays:
+        fail(f"{label} recorded a spectrum")
+    print(f"{label}: lambda_max per step {arrays['lambda_max'].tolist()}")
+    out = dict(launches=counts["persample"])
+    rhs = {}
+    for method, extra in (("cholesky", {}), ("cg", dict(cg_maxiter=600,
+                                                        cg_tol=1e-10))):
+        state, tdvp = driver.build_problem(preset(
+            "fokkerPlanck32", device="cuda", solver_method=method,
+            svd_tol=1e-5, **extra))[:2]
+        theta_c = theta5.to(device=state.device, dtype=torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aux = tdvp._rhs_impl(theta_c, 0.0, 21)
+        torch.cuda.synchronize()
+        rhs[method] = aux
+        print(f"one {method} RHS at svd_tol 1e-5 (phase 5's theta): "
+              f"{time.perf_counter() - t0:.3f} s, solver_res "
+              f"{float(aux['solver_res']):.3e}, lambda_max "
+              f"{float(aux['lambda_max']):.6e}" + (
+                  f", {int(aux['_cg_iters'])} iterations"
+                  if method == "cg" else ""))
+    cos, rel = _cos_rel(rhs["cg"]["update"], rhs["cholesky"]["update"])
+    lam = abs(float(rhs["cg"]["lambda_max"])
+              / float(rhs["cholesky"]["lambda_max"]) - 1.0)
+    res = float(rhs["cg"]["solver_res"])
+    print(f"cg vs cholesky on the same draws: cosine {cos:.6f} (gate "
+          f"0.999), lambda_max relative {lam:.3e} (3e-2), residual "
+          f"{res:.3e} (1e-3), update relative {rel:.3e}")
+    out.update(vs_cholesky=dict(cosine=cos, update_rel=rel, residual=res,
+                                lambda_max_rel=lam))
+    # one batch's O rows: CG and the f32 Cholesky solve against an f64
+    # solve of the same Tikhonov system (S and F formed in f64 from the
+    # same rows, cg's lambda_max), at the JAX test's setting and at the
+    # CLI defaults
+    state, tdvp = driver.build_problem(preset(
+        "fokkerPlanck32", device="cuda", solver_method="cg"))[:2]
+    theta_c, x = _batch(state, theta5, tdvp.n_samples, 22)
+    _, eloc, O = tdvp._per_sample_batch(theta_c, x, 0.0)
+    O_c, e_c = O - O.mean(0), eloc - eloc.mean()
+    del O
+    n = O_c.shape[0]
+    O64 = O_c.double()
+    S64, F64 = O64.T @ O64 / n, e_c.double() @ O64 / n
+    del O64
+    S32, F32 = O_c.T @ O_c / n, e_c @ O_c / n
+    acc = {}
+    for setting, cfg in (
+            ("svd_tol 1e-5, 600 iterations", dataclasses.replace(
+                tdvp.cfg, svd_tol=1e-5, cg_maxiter=600, cg_tol=1e-10)),
+            ("the CLI defaults", tdvp.cfg)):
+        u, _, lam_max, _, iters = tdvp_mod._solve_cg(O_c, e_c, cfg, "high")
+        u_ref = tdvp_mod._solve_cholesky(S64, F64, cfg, lam_max=lam_max)[0]
+        u_chol = tdvp_mod._solve_cholesky(S32, F32, cfg, lam_max=lam_max)[0]
+        acc[setting] = err = {
+            k: float((v.double() - u_ref).norm() / u_ref.norm())
+            for k, v in (("cg", u), ("cholesky_f32", u_chol))}
+        print(f"{label}, {setting} (svd_tol {cfg.svd_tol:.3e}): against an "
+              f"f64 solve of the same Tikhonov system, cg after "
+              f"{int(iters)} iterations {err['cg']:.3e} (2e-2 at 1e-5), the "
+              f"f32 Cholesky solve {err['cholesky_f32']:.3e}")
+    del S64, S32
+    out["vs_f64_solve"] = acc
+    if not (cos > 0.999 and res < 1e-3 and lam < 3e-2
+            and acc["svd_tol 1e-5, 600 iterations"]["cg"] < 2e-2):
+        fail("cg disagrees with the Cholesky solve")
+    # the CG solve alone at the CLI defaults
+    iters = int(tdvp_mod._solve_cg(O_c, e_c, tdvp.cfg, "high")[4])
+    ms = _time_ms(lambda: tdvp_mod._solve_cg(O_c, e_c, tdvp.cfg, "high"),
+                  3)
+    del O_c
+    waits = _sync_sites(lambda: tdvp._rhs_impl(theta_c, 0.0, 23))
+    print(f"{label}: the CG solve {ms:.3f} ms for {iters} iterations "
+          f"(cg_maxiter {tdvp.cfg.cg_maxiter}, cg_tol {tdvp.cfg.cg_tol}, "
+          f"CUDA events), {ms / max(iters, 1):.4f} ms per iteration; host "
+          f"waits in one RHS: {len(waits)} {sorted(set(waits))}")
+    if len(waits) > -(-tdvp.cfg.cg_maxiter // tdvp_mod.CG_CHECK_EVERY) + 2:
+        fail(f"{label}: {len(waits)} host waits in one RHS")
+    out.update(solve_ms=ms, iterations=iters, host_waits_per_rhs=len(waits))
+    label = "fokkerPlanck32 N=16384 cg adaptive_heun"
+    _, arrays, counts = _drive(["fokkerPlanck32", "--solver", "cg",
+                                "--stepper", "adaptive_heun"], label, 1)
+    att = sum(_step_table(label, arrays))
+    if counts["persample"] != 5 * att:
+        fail(f"{label}: {counts['persample']} launches for {att} attempts")
+    out["adaptive_heun"] = dict(attempts=att, launches=counts["persample"])
+    return out
+
+
+MINSR_FLOWS = {
+    # the preset's flow at N=2048 < P=9264
+    "fokkerPlanck32 N=2048": dict(n_samples_tdvp=2048, n_samples_obs=2048),
+    # scripts/bench_minsr.py's default: d=32, depth 8, hidden (32,),
+    # diffusion, N=1024; P=34,864 is above auto's kernel range (32768)
+    "bench_minsr d=32 depth 8 N=1024": dict(
+        depth=8, hidden=(32,), equation="diffusion", equation_params={},
+        n_samples_tdvp=1024, n_samples_obs=1024, per_sample_backend="cuda"),
+}
+
+
+def _minsr_explicit(cfg, tdvp, theta, label):
+    """One batch's direct minSR against explicit P-space forms on the same
+    O rows: the residual ||S u - F|| / ||F|| by f64 matvecs with O (gate:
+    within a factor 1.5 of the kernel-space one), and the leading
+    eigenvalues of S = O_c^T O_c / N by the Cholesky path's randomized
+    top-k Ritz routine run to 16 subspace iterations (the top 8 within
+    1e-2 of the largest; at the path's own 2 iterations the Ritz values
+    fall ~3-4% short of S's, printed beside); the N x N
+    eigh, the RHS and, for comparison, a Cholesky RHS (``cfg`` with
+    solver_method cholesky) timed."""
+    n = tdvp.n_samples
+    theta_c, x = _batch(tdvp.state, theta, n, 31)
+    _, eloc, O = tdvp._per_sample_batch(theta_c, x, 0.0)
+    O_c, e_c = O - O.mean(0), eloc - eloc.mean()
+    del O
+    sdt = tdvp.precision.solve
+    u, ev, _, res, _ = tdvp_mod._solve_minsr(O_c, e_c, tdvp.cfg, "high", sdt)
+    O64 = O_c.double()
+    F = e_c.double() @ O64 / n
+    Su = (O64 @ u.double()) @ O64 / n
+    res_p = float((Su - F).norm() / F.norm())
+    del O64
+    S = O_c.T @ O_c / n
+    top = {}
+    for n_iter in (2, 16):
+        ritz, _ = tdvp_mod._randomized_topk_eigh(
+            S, 64, torch.Generator(device=S.device).manual_seed(5),
+            n_iter=n_iter)
+        top[n_iter] = float((ev[-8:].double() - ritz[-8:].double()).abs()
+                            .max() / ritz[-1].double())
+    del S
+    T = O_c @ O_c.T
+    eigh_ms = _time_ms(lambda: torch.linalg.eigh(T.to(sdt)), 3)
+    rhs_ms = _time_ms(lambda: tdvp._rhs_impl(theta_c, 0.0, 32), 3)
+    del T
+    chol = driver.build_problem(dataclasses.replace(
+        cfg, solver_method="cholesky"))[1]
+    chol_ms = _time_ms(lambda: chol._rhs_impl(theta_c, 0.0, 32), 2)
+    del chol
+    print(f"{label} minsr: residual kernel-space {float(res):.4e} vs "
+          f"P-space {res_p:.4e}; top-8 ev vs the Ritz values of S "
+          f"{top[16]:.3e} of the largest at 16 subspace iterations "
+          f"(1e-2), {top[2]:.3e} at the Cholesky path's 2; ev[-3:] "
+          f"{ev[-3:].tolist()}; N x N eigh {eigh_ms:.3f} ms, RHS "
+          f"{rhs_ms:.3f} ms, a Cholesky RHS {chol_ms:.3f} ms (CUDA events)")
+    ratio = float(res) / res_p
+    if not (top[16] < 1e-2 and 1 / 1.5 < ratio < 1.5):
+        fail(f"{label}: minsr diagnostics off the explicit ones "
+             f"(ev {top}, residual ratio {ratio})")
+    return dict(residual=float(res), residual_pspace=res_p,
+                top8_ev=top[16], top8_ev_ritz2=top[2],
+                eigh_ms=eigh_ms, rhs_ms=rhs_ms, cholesky_rhs_ms=chol_ms)
+
+
+def phase_minsr():
+    """H2 and H3 (phases 27-28): minSR in its regime, P > N, on two flows
+    (MINSR_FLOWS). H2: 3 fixed-Heun steps each with exactly 1 plain-mode
+    launch per RHS, and one batch's kernel-space diagnostics against
+    explicit P-space ones (_minsr_explicit). H3: the streaming solve at
+    chunk_size N/4, 3 steps with exactly 4 * 7 / 2 + 4 = 18 launches per
+    RHS, and one RHS against the direct one on the same draws: the
+    spectrum within 1e-4 of its largest value, the residuals within a
+    factor 2, the update within 1e-3. The JAX package bounds the update at
+    2e-4 in f64, where the regularized kernel inverse amplifies T's last
+    bits by up to ~1/svd_tol on threshold modes; in f32 that could reach
+    eps_f32 / svd_tol = 8e-3, but the chunked T's blocks are the direct
+    T's dot products to a few ulp and the measured gap is 3e-6 to 9e-6
+    (an H100 80GB HBM3 at 700 W): 1e-3 keeps a hundredfold margin and still
+    catches a wrong block."""
+    out = {}
+    for name, over in MINSR_FLOWS.items():
+        n = over["n_samples_tdvp"]
+        res = {}
+        for chunk in (0, n // 4):
+            cfg = preset("fokkerPlanck32", device="cuda",
+                         solver_method="minsr", chunk_size=chunk, **over)
+            label = f"{name} minsr" + (f" chunk {chunk}" if chunk else "")
+            state, arrays, counts = _drive(None, label, 3, cfg=cfg)
+            per_rhs = 18 if chunk else 1
+            if counts["persample"] != 2 * 3 * per_rhs:
+                fail(f"{label}: {counts['persample']} launches, expected "
+                     f"{per_rhs} per RHS")
+            if arrays["ev"].shape != (3, n):
+                fail(f"{label}: ev of shape {arrays['ev'].shape}")
+            tdvp = driver.build_problem(cfg)[1]
+            if not chunk:
+                res["explicit"] = _minsr_explicit(
+                    cfg, tdvp, state.get_parameters(), name)
+                theta = state.get_parameters()
+            theta_c = theta.to(device=state.device, dtype=torch.float32)
+            torch.cuda.synchronize()
+            _zero_counts()
+            t0 = time.perf_counter()
+            aux = tdvp._rhs_impl(theta_c, 0.0, 33)
+            torch.cuda.synchronize()
+            res[chunk] = dict(aux=aux, s=time.perf_counter() - t0,
+                              launches=_counts()["persample"])
+        d, c = res[0]["aux"], res[n // 4]["aux"]
+        ev = float((c["ev"] - d["ev"]).abs().max() / d["ev"][-1].abs())
+        r_d, r_c = float(d["solver_res"]), float(c["solver_res"])
+        cos, rel = _cos_rel(c["update"], d["update"])
+        print(f"{name} streaming (chunk {n // 4}, {res[n // 4]['launches']} "
+              f"launches, {res[n // 4]['s']:.3f} s) vs direct "
+              f"({res[0]['s']:.3f} s) on the same draws: spectrum "
+              f"{ev:.3e} of the largest (1e-4), residual {r_c:.4e} vs "
+              f"{r_d:.4e}, update relative {rel:.3e} (1e-3), cosine "
+              f"{cos:.6f}, tdvp_error {float(c['tdvp_error']):.6e} vs "
+              f"{float(d['tdvp_error']):.6e}")
+        if not (ev < 1e-4 and 0.5 < r_c / r_d < 2.0 and rel < 1e-3):
+            fail(f"{name}: streaming minsr off the direct solve")
+        out[name] = dict(res["explicit"], streaming=dict(
+            spectrum=ev, residual=r_c, residual_direct=r_d, update_rel=rel,
+            cosine=cos, s=res[n // 4]["s"], direct_s=res[0]["s"],
+            launches_per_rhs=res[n // 4]["launches"]))
+    return out
+
+
+def phase_precisions_direct(theta5):
+    """H4a (phase 29): the direct statistics at N=16384 on the theta phase
+    5 ends on, under --precision tpu_f64stats: gram_precision f64 (the
+    plain-mode kernel, f64 products) and default (one bf16 pass) against
+    high (the f32 product) on the same draws: S0 and F0 of f64 within
+    1e-4 of f32's largest entry, default's gap printed (bf16's ~1e-3
+    class expected, gate 1e-2 and above 1e-6, which shows the bf16 pass
+    ran); the f64 Cholesky solve's residual against S and against the
+    Tikhonov system S + lam I it solves."""
+    sts, out = {}, {}
+    for mode in ("high", "f64", "default"):
+        state, tdvp = driver.build_problem(preset(
+            "fokkerPlanck32", device="cuda", precision="tpu_f64stats",
+            gram_precision=mode))[:2]
+        theta_c, x = _batch(state, theta5, tdvp.n_samples, 41)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = tdvp._direct_stats(theta_c, 0.0, x)
+        torch.cuda.synchronize()
+        print(f"direct statistics N={tdvp.n_samples} gram_precision {mode}: "
+              f"{time.perf_counter() - t0:.3f} s, S0 {st['S0'].dtype}")
+        sts[mode] = (st, tdvp)
+    ref = sts["high"][0]
+    for mode in ("f64", "default"):
+        st = sts[mode][0]
+        gaps = {k: _rel(st[k], ref[k], ref[k].abs().max())
+                for k in ("S0", "F0")}
+        print(f"gram_precision {mode} vs high: S0 {gaps['S0']:.3e}, F0 "
+              f"{gaps['F0']:.3e} of the largest entry")
+        out[f"{mode}_vs_high"] = gaps
+    if not max(out["f64_vs_high"].values()) < 1e-4:
+        fail("f64 statistics off the f32 ones")
+    if not 1e-6 < max(out["default_vs_high"].values()) < 1e-2:
+        fail("the default statistics are not one bf16 pass")
+    st, tdvp = sts["f64"]
+    aux = tdvp._solve_device(st["S0"], st["S0"], st["F0"], st,
+                             tdvp.n_samples, 42)
+    S, F, u = st["S0"], st["F0"], aux["update"]
+    lam = tdvp.cfg.svd_tol * float(aux["lambda_max"])
+    tik = float((S @ u + lam * u - F).norm() / F.norm())
+    res = float(aux["solver_res"])
+    print(f"f64 statistics + f64 Cholesky (svd_tol {tdvp.cfg.svd_tol:.1e}):"
+          f" residual against S {res:.3e}, against S + lam I {tik:.3e}")
+    if not (res < 1e-3 and math.isfinite(tik)):
+        fail("the f64 solve's residual")
+    out.update(residual=res, residual_tikhonov=tik)
+    return out
+
+
+def phase_f64acc_production(theta5):
+    """H4b (phase 29): f64acc at the production point (N=524288 in chunks
+    of 65536, tri2 + int8) for 3 fixed-Heun steps: exactly 16 split, 32
+    quant8 and 2 pilot launches per step; then on one batch the statistics
+    under f64acc, under high (the same split chunks, f32 sums) and under
+    chunked f64 (the plain-mode kernel and f64 products), and the JAX
+    test's ordering (tests/test_tdvp.py:1410-1460) in the Frobenius norm:
+    ||S_f64acc - S_f64|| < ||S_high - S_f64||. The largest entry's error
+    is printed too but not gated: per chunk the split's own error (1e-5
+    class) dwarfs the f32 sums' (1e-7 class), so the max-abs order is a
+    coin toss, where the Frobenius norm adds the two independent errors'
+    squares."""
+    n, c = 524288, 65536
+    label = f"fokkerPlanck32 N={n} chunked tri2+int8 f64acc"
+    args = ["fokkerPlanck32", "--samples", str(n), "--chunk-size", str(c),
+            "--gram-backend", "tri2", "--gram-cross", "int8",
+            "--gram-precision", "f64acc"]
+    _, _, counts = _drive(args, label, 3)
+    want = {"persample_split": 3 * 16, "quant8": 3 * 32, "persample": 3 * 2}
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"{label}: launches {counts}, expected {want}")
+    S, times = {}, {}
+    for mode, over in (("f64acc", dict(gram_backend="tri2",
+                                       gram_cross="int8")),
+                       ("high", dict(gram_backend="tri2", gram_cross="int8")),
+                       ("f64", {})):
+        state, tdvp = driver.build_problem(preset(
+            "fokkerPlanck32", device="cuda", n_samples_tdvp=n,
+            n_samples_obs=n, chunk_size=c, gram_precision=mode, **over))[:2]
+        theta_c, x = _batch(state, theta5, n, 43)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        S[mode] = tdvp._chunked_stats(theta_c, 0.0, x)["S0"].double()
+        torch.cuda.synchronize()
+        times[mode] = time.perf_counter() - t0
+        del x
+    ref = S.pop("f64")
+    fro = {m: float((v - ref).norm() / ref.norm()) for m, v in S.items()}
+    mx = {m: _rel(v, ref, ref.abs().max()) for m, v in S.items()}
+    acc_only = float((S["high"] - S["f64acc"]).norm() / ref.norm())
+    print(f"{label}: statistics of one batch in {times} s; against chunked "
+          f"f64, Frobenius f64acc {fro['f64acc']:.4e} < high "
+          f"{fro['high']:.4e} (gate), largest entry f64acc "
+          f"{mx['f64acc']:.4e}, high {mx['high']:.4e}; the f32 sums alone "
+          f"(high - f64acc) {acc_only:.4e}")
+    if not fro["f64acc"] < fro["high"]:
+        fail("f64acc is not closer to the f64 statistics than high")
+    return dict(launches=counts, stats_s=times, frobenius=fro, max_abs=mx,
+                f32_sums_only=acc_only)
+
+
+def phase_host_solve(theta5):
+    """H5 (phase 30): the host f64 solve. mwe in f64 with --host-solve (the
+    eigh branch) for 10 steps: residual below 1e-10; then one
+    fokkerPlanck32 RHS under tpu_f64stats with the host solve (Cholesky
+    branch: numpy f64, lambda_max by power iteration at P > 512) against
+    the device's f64 Cholesky solve on the same draws with the same
+    power-iteration lambda_max (spectrum_topk=0): within 1e-6."""
+    _, arrays, _ = _drive(["mwe", "--precision", "f64", "--host-solve"],
+                          "mwe f64 --host-solve", 10, dim=2)
+    res = float(arrays["solver_res"].max())
+    if not res < 1e-10:
+        fail(f"mwe --host-solve residual {res}")
+    out = dict(mwe_residual=res)
+    aux = {}
+    for on_device in (False, True):
+        state, tdvp = driver.build_problem(preset(
+            "fokkerPlanck32", device="cuda", precision="tpu_f64stats",
+            solve_on_device=on_device))[:2]
+        if on_device:
+            # the power-iteration lambda_max of the host solve, not the
+            # top-k Ritz one
+            tdvp = TDVP(state, tdvp.equation, dataclasses.replace(
+                tdvp.cfg, spectrum_topk=0), n_samples=tdvp.n_samples)
+        theta_c = theta5.to(device=state.device, dtype=torch.float32)
+        a = tdvp._rhs_impl(theta_c, 0.0, 51)
+        if not on_device:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a.update(tdvp._host_solve(a))
+            out["host_solve_s"] = time.perf_counter() - t0
+        aux[on_device] = a
+    cos, rel = _cos_rel(aux[False]["update"], aux[True]["update"])
+    lam = abs(float(aux[False]["lambda_max"])
+              / float(aux[True]["lambda_max"]) - 1.0)
+    print(f"fokkerPlanck32 host solve (numpy f64, P={tdvp.n_params}): "
+          f"{out['host_solve_s']:.3f} s; against the device f64 solve: "
+          f"update relative {rel:.3e} (1e-6), lambda_max {lam:.3e}, "
+          f"residual {float(aux[False]['solver_res']):.4e} vs "
+          f"{float(aux[True]['solver_res']):.4e}")
+    if not rel < 1e-6:
+        fail("the host solve differs from the device solve")
+    out.update(update_rel=rel, lambda_max_rel=lam)
+    return out
+
+
+def phase_solvers(theta5):
+    """H1-H5 (phases 26-30); returns their records and the kernels'
+    launches by path."""
+    out = {"cg": phase_cg(theta5), "minsr": phase_minsr(),
+           "precisions_direct": phase_precisions_direct(theta5),
+           "f64acc_production": phase_f64acc_production(theta5),
+           "host_solve": phase_host_solve(theta5)}
+    prod = out["f64acc_production"]["launches"]
+    paths = {"fokkerPlanck32 N=16384 cg": out["cg"]["launches"],
+             "fokkerPlanck32 N=16384 cg adaptive_heun":
+                 out["cg"]["adaptive_heun"]["launches"],
+             "fokkerPlanck32 N=524288 chunked tri2+int8 f64acc (pilots)":
+                 prod["persample"]}
+    for name in MINSR_FLOWS:
+        paths[f"{name} minsr"] = 6
+        paths[f"{name} minsr streaming, 4 chunks"] = 108
+    split = {"fokkerPlanck32 N=524288 chunked tri2+int8 f64acc":
+             prod["persample_split"]}
+    q8 = {"fokkerPlanck32 N=524288 chunked tri2+int8 f64acc":
+          prod["quant8"]}
+    return out, paths, split, q8
+
+
 def main():
     phase_device()
     full_f32_matmuls()
@@ -1992,6 +2449,8 @@ def main():
     paths["fokkerPlanck32 N=524288 chunked adaptive_heun"] = \
         prod["persample"]
     phase_fluidpaper_adaptive(steppers)
+    solvers, solver_paths, split_paths, q8_paths = phase_solvers(theta5)
+    paths.update(solver_paths)
     ranks = phase_mesh()
     for name in ("persample_sharded", "metropolis_sharded"):
         results[name] = dict(ranks[0][name])
@@ -2014,17 +2473,19 @@ def main():
         results[name] = dict(results[name], scope=scope[name],
                              student_t_global_affine=student[name])
     results["persample"]["launches_by_path"] = paths
-    for name in ("persample_split", "quant8"):
+    for name, more in (("persample_split", split_paths),
+                       ("quant8", q8_paths)):
         results[name]["launches_by_path"] = {
             "fokkerPlanck32 N=524288 chunked tri2+int8 fixed_heun":
                 launches[name],
             "fokkerPlanck32 N=524288 chunked tri2+int8 adaptive_heun":
-                prod[name]}
+                prod[name], **more}
     results["syrk"]["launches_by_path"] = {
         "fokkerPlanck32 N=16384 syrk fixed_heun": launches["syrk"],
         "one direct batch with the dense SExp (S0, A, SExp)":
             steppers["launches"]["syrk"]}
     print(json.dumps({"steppers": steppers}))
+    print(json.dumps({"solvers": solvers}))
     print(json.dumps({"mesh_paths": mesh_paths}))
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],

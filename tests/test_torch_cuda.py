@@ -828,3 +828,66 @@ def test_syrk_kernel_with_the_sexp_weight(dev):
     tol = 3e-5 * float(ref.abs().max())
     assert float((S.double() - ref).abs().max()) <= tol
     assert float((S - plain).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("method", ["cg", "minsr"])
+def test_gram_free_rhs_kernel_against_plain_pipeline(dev, method):
+    """One cg and one minSR RHS on fokkerPlanck32's flow (P=9264, N=1024,
+    f32) with the per-sample kernel engaged, against the same RHS through
+    the torch.func pipeline on the card, on the same draws (one launch
+    against none). cg at the JAX test's setting (svd_tol 1e-5, 600
+    iterations, cg_tol 1e-10), held as that test holds it against the
+    Cholesky solve: cosine > 0.999, 2e-2 on the update; minSR: the
+    spectrum within 1e-4 of its largest value, cosine > 0.999."""
+    from vmc_pde_torch import driver
+    from vmc_pde_torch.config import preset
+
+    extra = (dict(svd_tol=1e-5, cg_maxiter=600, cg_tol=1e-10)
+             if method == "cg" else {})
+    out = {}
+    for backend in ("cuda", "torch"):
+        cfg = preset("fokkerPlanck32", device="cuda", n_samples_tdvp=1024,
+                     n_samples_obs=1024, solver_method=method,
+                     per_sample_backend=backend, **extra)
+        state, tdvp = driver.build_problem(cfg)[:2]
+        theta_c = state.get_parameters().float()
+        before = persample.per_sample_cuda.launches
+        aux = tdvp._rhs_impl(theta_c, 0.0, 11)
+        torch.cuda.synchronize()
+        assert persample.per_sample_cuda.launches - before == (
+            1 if backend == "cuda" else 0)
+        assert not bool(aux["nan"]) and float(aux["solver_res"]) < 1e-3
+        out[backend] = aux
+    u, ref = out["cuda"]["update"].double(), out["torch"]["update"].double()
+    cos = float(u @ ref / (u.norm() * ref.norm()))
+    assert cos > 0.999, cos
+    if method == "cg":
+        assert float((u - ref).norm() / ref.norm()) < 2e-2
+    else:
+        ev, ev_ref = out["cuda"]["ev"], out["torch"]["ev"]
+        assert ev.shape == (1024,)
+        assert float((ev - ev_ref).abs().max()) < 1e-4 * float(ev_ref[-1])
+
+
+def test_default_product_is_one_bf16_pass(dev):
+    """gram_precision='default' on the card: one bf16 pass with f32
+    accumulation in _mm_bf16's K blocks, bit for bit (matrix, vector-
+    matrix and matrix-vector forms), within bf16's rounding (1e-2 of the
+    largest entry) of the f32 product and off it (TF32 and the f32 path
+    would agree to ~1e-6)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    a = torch.randn((4100, 300), generator=gen, device=dev) + 0.5
+    v = torch.randn(4100, generator=gen, device=dev)
+    bf = torch.bfloat16
+    got = stats.contract(a.T, a, "default")
+    assert torch.equal(got, stats._mm_bf16(a.T.to(bf), a.to(bf)))
+    assert torch.equal(stats.contract(v, a, "default"),
+                       stats._mm_bf16(v[None].to(bf), a.to(bf))[0])
+    w = torch.randn(300, generator=gen, device=dev)
+    assert torch.equal(stats.contract(a, w, "default"),
+                       stats._mm_bf16(a.to(bf), w[:, None].to(bf))[:, 0])
+    ref = a.double().T @ a.double()
+    gap = float((got.double() - ref).abs().max() / ref.abs().max())
+    full = stats.contract(a.T, a, "high")
+    gap_f32 = float((full.double() - ref).abs().max() / ref.abs().max())
+    assert 1e-5 < gap < 1e-2 and gap_f32 < 1e-6, (gap, gap_f32)

@@ -31,6 +31,7 @@ from vmc_pde_torch.config import preset
 from vmc_pde_torch.models.state import VarState
 from vmc_pde_torch.ops import evolution
 from vmc_pde_torch.sampling.sampler import Sampler
+from vmc_pde_torch.solver import tdvp as tdvp_mod
 from vmc_pde_torch.solver.steppers import FixedStepper
 from vmc_pde_torch.solver.tdvp import TDVP, TDVPConfig, fold_in
 from vmc_pde_torch.utils.dtypes import Precision
@@ -77,8 +78,11 @@ def test_eloc_matches_jax(name, params):
 
 def test_unported_paths_raise():
     """What the port still refuses raises NotImplementedError naming
-    ROADMAP.md; the adaptive steppers, refused before they were ported,
-    now build and take a step with a finite error."""
+    ROADMAP.md: the Hessian block mode, the MC sphere integrals, and cg,
+    minsr, the host solve and the gram precisions beyond the f32 product
+    on a mesh (the gate itself, at a world of 2). The adaptive steppers
+    and minsr, cg and f64acc, refused before they were ported, now build
+    and give a finite step or RHS."""
     _, tdvp, stepper = driver.build_problem(preset(
         "mwe", device="cpu", stepper="adaptive_heun", n_samples_tdvp=256,
         n_samples_obs=256))[:3]
@@ -92,10 +96,21 @@ def test_unported_paths_raise():
     eq = evolution.make_equation("diffusion", DIM)
     for cfg in (TDVPConfig(solver_method="minsr"),
                 TDVPConfig(solver_method="cg"),
-                TDVPConfig(gram_precision="f64acc", chunk_size=4),
-                TDVPConfig(hessian_mode="block")):
+                TDVPConfig(gram_precision="f64acc", chunk_size=4)):
+        update, aux = TDVP(state, eq, cfg, n_samples=8).rhs(theta, 0.0, 3)
+        assert torch.isfinite(update).all() and not bool(aux["nan"])
+    for cfg in (TDVPConfig(hessian_mode="block"),
+                TDVPConfig(integrals=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TDVP(state, eq, cfg, n_samples=8)
+    for cfg, method in ((TDVPConfig(), "cg"), (TDVPConfig(), "minsr"),
+                        (TDVPConfig(gram_precision="f64acc"), "eigh"),
+                        (TDVPConfig(gram_precision="f64"), "eigh"),
+                        (TDVPConfig(gram_precision="default"), "cholesky"),
+                        (TDVPConfig(solve_on_device=False), "eigh")):
+        tdvp_mod._check_single_device(cfg, method, 1)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tdvp_mod._check_single_device(cfg, method, 2)
 
 
 @pytest.mark.parametrize("latent_name,cfg,match", [

@@ -52,14 +52,21 @@ class RunConfig:
     # (Student_t latent; TDVPConfig.is_gamma)
     is_gamma: float = 1.0
     diagonal_shift: float = 0.0
-    solver_method: str = "auto"     # auto | eigh | cholesky
-    eigh_max_params: int = 2048
-    gram_precision: str = "high"
+    # False: solve the regularized system on the host in numpy f64 (the
+    # reference's default path; eigh and cholesky)
+    solve_on_device: bool = True
+    solver_method: str = "auto"     # auto | eigh | cholesky | cg | minsr
+    eigh_max_params: int = 2048     # "auto" switches eigh->cholesky here
+    gram_precision: str = "high"    # highest | high | default | f64 |
+                                    # f64acc (parallel/stats.py)
     gram_backend: str = "auto"      # auto | xla | syrk | sym2 | tri2
     gram_cross: str = "auto"        # auto | bf16 | int8 (split cross pass)
     hessian_mode: str = "auto"
     # auto | torch | cuda (the JAX package's xla | pallas)
     per_sample_backend: str = "auto"
+    cg_maxiter: int = 250
+    cg_tol: float = 1e-7
+    # floor svd_tol at 64 eps of the statistics' dtype (TDVPConfig)
     auto_tol_floor: bool = True
     # > 0: stream the statistics in chunks of this many samples
     chunk_size: int = 0

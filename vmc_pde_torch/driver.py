@@ -13,6 +13,12 @@ the reference-compatible infos schema.
         --stepper adaptive_heun --t-end 0.1 --exact-t-end
     python -m vmc_pde_torch.driver fokkerPlanck32 --stepper fixed_rk3 \
         --steps-per-dispatch 4 --max-steps 8
+    python -m vmc_pde_torch.driver fokkerPlanck32 --solver cg
+    python -m vmc_pde_torch.driver fokkerPlanck32 --solver minsr \
+        --samples 2048 --chunk-size 512
+    python -m vmc_pde_torch.driver fokkerPlanck32 --precision tpu_f64stats \
+        --gram-precision f64
+    python -m vmc_pde_torch.driver mwe --precision f64 --host-solve
 
 One process per rank on a mesh (parallel/mesh.py), each started with
 its --process-id, e.g. two ranks on the CPU:
@@ -97,6 +103,8 @@ def build_problem(cfg: RunConfig, ctx=None):
         eloc_clip=cfg.eloc_clip, is_gamma=cfg.is_gamma,
         diagonal_shift=cfg.diagonal_shift, solver_method=cfg.solver_method,
         eigh_max_params=cfg.eigh_max_params,
+        cg_maxiter=cfg.cg_maxiter, cg_tol=cfg.cg_tol,
+        solve_on_device=cfg.solve_on_device,
         gram_precision=cfg.gram_precision,
         gram_backend=cfg.gram_backend, gram_cross=cfg.gram_cross,
         chunk_size=cfg.chunk_size,
@@ -104,23 +112,31 @@ def build_problem(cfg: RunConfig, ctx=None):
         per_sample_backend=cfg.per_sample_backend,
         hessian_mode=cfg.hessian_mode, auto_tol_floor=cfg.auto_tol_floor,
         # adaptive steppers need an S metric: the dense SExp on the eigh
-        # solve, the matrix-free quadratic on cholesky (TDVPConfig)
+        # solve, the matrix-free quadratic on cholesky, cg and minsr
+        # (TDVPConfig)
         sexp_mode="auto" if cfg.stepper.startswith("adaptive") else "none")
     tdvp = TDVP(state, equation, tdvp_cfg, n_samples=cfg.n_samples_tdvp,
                 n_samples_obs=cfg.n_samples_obs, precision=precision)
     ramp = dict(timeStep=cfg.dt0, maxStep=cfg.max_step,
                 increase_fac=cfg.increase_fac)
     adaptive = dict(timeStep=cfg.dt0, tol=cfg.tol, maxStep=cfg.max_step)
+    # the fused steps solve on the device; the host solve steps through
+    # tdvp.rhs, one stage at a time
+    fused = tdvp.fused_steps_available
     if cfg.stepper == "adaptive_heun":
-        stepper = AdaptiveHeun(attempt_fn=tdvp.heun_attempt, **adaptive)
+        stepper = AdaptiveHeun(attempt_fn=tdvp.heun_attempt if fused
+                               else None, **adaptive)
     elif cfg.stepper == "adaptive_rk23":
-        stepper = AdaptiveRK23(attempt_fn=tdvp.rk23_attempt, **adaptive)
+        stepper = AdaptiveRK23(attempt_fn=tdvp.rk23_attempt if fused
+                               else None, **adaptive)
     elif cfg.stepper == "fixed_euler":
         stepper = FixedStepper(mode="Euler", **ramp)
     elif cfg.stepper == "fixed_rk3":
-        stepper = FixedStepper(mode="RK3", pair_fn=tdvp.rk3_triple, **ramp)
+        stepper = FixedStepper(mode="RK3", pair_fn=tdvp.rk3_triple if fused
+                               else None, **ramp)
     elif cfg.stepper == "fixed_heun":
-        stepper = FixedStepper(mode="Heun", pair_fn=tdvp.heun_pair, **ramp)
+        stepper = FixedStepper(mode="Heun", pair_fn=tdvp.heun_pair if fused
+                               else None, **ramp)
     else:
         raise ValueError(f"unknown stepper {cfg.stepper!r}")
     grid = None
@@ -267,6 +283,22 @@ def main(argv=None, callbacks=()):
                         "per-column-quantized int8 product)")
     p.add_argument("--chunk-size", type=int, default=None,
                    help=">0: stream samples through the stats in chunks")
+    p.add_argument("--solver", type=str, default=None,
+                   choices=["auto", "eigh", "cholesky", "cg", "minsr"],
+                   help="linear-solver strategy (TDVPConfig.solver_method): "
+                        "cg = matrix-free conjugate gradients, minsr = the "
+                        "N x N kernel solve for P >> N (streamed with "
+                        "--chunk-size)")
+    p.add_argument("--gram-precision", type=str, default=None,
+                   choices=["highest", "high", "default", "f64", "f64acc"],
+                   help="statistics contractions: highest/high = full f32 "
+                        "products, default = one bf16 pass on the card, "
+                        "f64 = the f32 gradients contracted in float64 "
+                        "(pair with --precision tpu_f64stats), f64acc = "
+                        "f32 chunks accumulated in float64 (chunked)")
+    p.add_argument("--host-solve", action="store_true",
+                   help="solve the regularized system on the host in numpy "
+                        "f64 (the reference's default path)")
     p.add_argument("--is-gamma", type=float, default=None,
                    help="<1: tail-tempered importance sampling of the TDVP "
                         "statistics (Student_t latent; TDVPConfig.is_gamma)")
@@ -326,7 +358,12 @@ def main(argv=None, callbacks=()):
         overrides["per_sample_backend"] = args.per_sample_backend
     if args.exact_t_end:
         overrides["exact_t_end"] = True
-    for name in ("gram_backend", "gram_cross", "chunk_size", "is_gamma",
+    if args.host_solve:
+        overrides["solve_on_device"] = False
+    if args.solver is not None:
+        overrides["solver_method"] = args.solver
+    for name in ("gram_backend", "gram_cross", "gram_precision",
+                 "chunk_size", "is_gamma",
                  "stats_partitioning", "mesh_dp", "mesh_tp", "stepper",
                  "steps_per_dispatch"):
         if getattr(args, name) is not None:

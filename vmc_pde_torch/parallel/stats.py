@@ -33,6 +33,21 @@ are XLA contractions outside any Pallas kernel:
   (rows, contraction) row-major.
 
 A bf16 output is never taken from a plain bf16 matmul.
+
+``gram_precision`` (the JAX package's PRECISIONS, stats.py:31-64) says how
+the statistics contract; ``contract`` applies it to one product:
+
+- ``highest``, ``high``: the product in the operands' dtype, full f32 on
+  the card (TF32 off);
+- ``default``: the JAX package's one-pass reduced product. On a CUDA
+  device f32 operands contract in one bf16 pass with f32 accumulation
+  (``_mm_bf16``, whose K blocks bound the tensor cores' truncation); on
+  the CPU it is the f32 product, as the JAX package's DEFAULT is on its
+  CPU backend;
+- ``f64``: the f32 operands cast to f64 and contracted in f64
+  (GRAM_OPERAND_DTYPE), with f64 accumulators across chunks;
+- ``f64acc``: the f32 product per chunk, accumulated across chunks in f64
+  (GRAM_ACC_DTYPE; the chunked statistics only).
 """
 
 from __future__ import annotations
@@ -40,6 +55,12 @@ from __future__ import annotations
 import torch
 
 from . import mesh
+
+PRECISIONS = ("highest", "high", "default", "f64", "f64acc")
+# the operand dtype of a mode's contractions (absent: the compute dtype)
+GRAM_OPERAND_DTYPE = {"f64": torch.float64}
+# the chunked statistics' accumulator dtype (absent: the compute dtype)
+GRAM_ACC_DTYPE = {"f64": torch.float64, "f64acc": torch.float64}
 
 # Exact int32 accumulation bound of the int8 cross term: |q| <= 127, so a
 # sum over N samples stays below 2^31 - 1 for N <= 133152; rounded down to
@@ -108,6 +129,22 @@ def _mm_bf16(a, b):
         part = mm(a3, b3).sum(0)
         out = part if out is None else out.add_(part)
     return out
+
+
+def contract(a, b, mode="high"):
+    """a @ b (1-D or 2-D operands, as torch.matmul takes them) as
+    gram_precision ``mode`` contracts (module docstring)."""
+    if mode == "f64":
+        return torch.matmul(a.double(), b.double())
+    if (mode == "default" and a.device.type == "cuda"
+            and a.dtype == b.dtype == torch.float32):
+        a2 = a if a.ndim == 2 else a[None, :]
+        b2 = b if b.ndim == 2 else b[:, None]
+        out = _mm_bf16(a2.bfloat16(), b2.bfloat16())
+        if b.ndim == 1:
+            out = out[:, 0]
+        return out if a.ndim == 2 else out[0]
+    return torch.matmul(a, b)
 
 
 def _mm_int8(a_rk, b_ck):
@@ -280,6 +317,17 @@ def tri2_gram_sum_raw_pair(pair, bounds, cross_int8=False, amax=None,
     hi, lo = pair
     return _tri2_from_split(hi, hi, lo, bounds, cross_int8=cross_int8,
                             amax=amax, m2=m2)
+
+
+def sym2_outer_sum(data):
+    """Unnormalized symmetric outer Gram X X^T of (N, P) data, (N, N), in
+    two bf16 products: H H^T + H L^T + (H L^T)^T, sym2_gram_sum's split in
+    the kernel-space orientation of minSR's T. The contraction runs over
+    P, in _mm_bf16's bounded K blocks."""
+    hi, lo = _split_bf16(data.float())
+    m1 = _mm_bf16(hi, hi.T)
+    m2 = _mm_bf16(hi, lo.T)
+    return m1 + m2 + m2.T
 
 
 def tri2_bounds(P, target_block=512):

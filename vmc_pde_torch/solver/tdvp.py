@@ -1,15 +1,20 @@
-"""TDVP right-hand side, the counterpart of vmc_pde_tpu/solver/tdvp.py for
-the main path: exact latent sampling (with the tail-tempered Student-t
-importance proposal of ``is_gamma``) or Metropolis chains carried across
-right-hand sides, direct statistics (self-normalized importance-weighted
-under ``is_gamma``, E_loc winsorized under ``eloc_clip``) or chunked
-statistics, with the f32, syrk, sym2 or tri2 Gram and the bf16 or int8
-cross term (parallel/stats.py, kernels/syrk.py), the spectral eigh or the
-Tikhonov-Cholesky solve, observables, the fused integrator steps (the
-fixed Heun pair, the SSPRK3 triple, the adaptive Heun and Bogacki-Shampine
-attempts) and the adaptive steppers' S metric: the dense SExp =
-E[logp^2 O_c^T O_c] beside the other moments, or the matrix-free
-quadratic v^T SExp v from the per-sample O rows.
+"""TDVP right-hand side, the counterpart of vmc_pde_tpu/solver/tdvp.py:
+exact latent sampling (with the tail-tempered Student-t importance
+proposal of ``is_gamma``) or Metropolis chains carried across right-hand
+sides, direct statistics (self-normalized importance-weighted under
+``is_gamma``, E_loc winsorized under ``eloc_clip``) or chunked statistics,
+with the f32, syrk, sym2 or tri2 Gram and the bf16 or int8 cross term
+(parallel/stats.py, kernels/syrk.py) at any ``gram_precision`` (the f64
+operands of ``f64``, the f64 accumulators of ``f64acc``, the one-pass
+``default``); the spectral eigh or the Tikhonov-Cholesky solve, on the
+device or on the host in f64 (``solve_on_device=False``), or the two
+Gram-free solvers: matrix-free conjugate gradients (``cg``) and the
+kernel-space minSR (``minsr``, direct or streaming over chunks);
+observables, the fused integrator steps (the fixed Heun pair, the SSPRK3
+triple, the adaptive Heun and Bogacki-Shampine attempts) and the adaptive
+steppers' S metric: the dense SExp = E[logp^2 O_c^T O_c] beside the other
+moments, or the matrix-free quadratic v^T SExp v from the per-sample O
+rows.
 
 One right-hand side (RHS): draw latent z (exact draws, or n / n_chains
 sweeps of the Metropolis chains), push it through the inverse flow to
@@ -23,15 +28,17 @@ as the reference does; the update u is dtheta/dt.
 theta is held in the master dtype (f64) by the integrator and cast to the
 compute dtype per stage. Random numbers come from ``torch.Generator``s
 seeded from an integer key; ``fold_in`` derives independent keys per step
-and stage. The f64 Gram precisions, cg/minSR and the host solve are not
-ported yet (ROADMAP.md).
+and stage.
 
 On a mesh (``state.ctx``, parallel/mesh.py) every rank runs this class on
 its shard of the samples: the draws are global and sliced, the per-sample
 kernels run on the rank's rows, means and maxima are global, and the
 moments cross ranks in one all-reduce per statistics evaluation; the solve
 and the Heun update then run on every rank from the same reduced moments.
-``stats_partitioning`` selects, as in the JAX package:
+cg, minsr, the host solve and the gram precisions ``default``, ``f64``
+and ``f64acc`` run on one device only (NotImplementedError naming
+ROADMAP.md on a mesh). ``stats_partitioning`` selects, as in the JAX
+package:
 
 - "shard_map" (what "auto" takes where it may): the per-rank direct or
   chunked statistics with the plain-mode and split kernels and quant8 on
@@ -56,8 +63,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
+import warnings
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..kernels import persample, quant8, syrk
@@ -95,14 +104,19 @@ class TDVPConfig:
     is_gamma: float = 1.0
     # "eigh" (spectral pseudo-inverse with the reference's per-mode
     # regularizers), "cholesky" (Tikhonov (S + svd_tol lambda_max I) u = F
-    # with a power-iteration or top-k Ritz lambda_max); "auto" = eigh up to
-    # eigh_max_params, cholesky above
+    # with a power-iteration or top-k Ritz lambda_max), "cg" (the same
+    # Tikhonov system by Jacobi-preconditioned conjugate gradients on
+    # matvecs with O, S never formed; direct statistics only), "minsr"
+    # (the N x N kernel T = O_c O_c^T's eigh, for P >> N; chunk_size > 0
+    # streams it); "auto" = eigh up to eigh_max_params, cholesky above
     solver_method: str = "auto"
     eigh_max_params: int = 2048
     cg_maxiter: int = 250
     cg_tol: float = 1e-7
-    # "highest" and "high" both mean a full-f32 matmul on the card (TF32
-    # off, utils/dtypes.full_f32_matmuls)
+    # highest | high | default | f64 | f64acc (parallel/stats.py): "highest"
+    # and "high" both mean a full-f32 matmul on the card (TF32 off,
+    # utils/dtypes.full_f32_matmuls), "default" one bf16 pass there, "f64"
+    # f64 operands, "f64acc" f64 accumulators across chunks
     gram_precision: str = "high"
     gram_backend: str = "auto"
     gram_cross: str = "auto"
@@ -110,7 +124,9 @@ class TDVPConfig:
     # top-k Ritz spectrum on the cholesky path (randomized subspace
     # iteration); 0 disables
     spectrum_topk: int = 64
-    # floor svd_tol / eig_cutoff at 64 / 8 eps of the compute dtype
+    # floor svd_tol / eig_cutoff at 64 / 8 eps of the statistics' dtype
+    # (f64 under gram_precision="f64"; f32's eps / sqrt(n / chunk_size)
+    # under "f64acc")
     auto_tol_floor: bool = True
     hessian_mode: str = "auto"
     # "auto" | "shard_map" | "gspmd": the statistics on a mesh (module
@@ -126,6 +142,9 @@ class TDVPConfig:
     compute_snr: bool = True
     compute_sexp: bool = False
     sexp_mode: str = "none"
+    # False: the RHS returns S, S0, F0 and A and rhs() solves on the host
+    # in numpy f64 (the reference's default path); eigh and cholesky only,
+    # and only through rhs() (TDVP.fused_steps_available)
     solve_on_device: bool = True
     chunk_size: int = 0
     observables: bool = True
@@ -138,12 +157,10 @@ def _not_ported(what: str):
 
 
 def _check_ported(cfg: TDVPConfig) -> None:
-    if cfg.solver_method in ("cg", "minsr"):
-        raise _not_ported(f"solver_method={cfg.solver_method!r}")
-    if cfg.solver_method not in ("auto", "eigh", "cholesky"):
+    if cfg.solver_method not in ("auto", "eigh", "cholesky", "cg", "minsr"):
         raise ValueError(f"unknown solver_method {cfg.solver_method!r}")
-    if cfg.gram_precision not in ("highest", "high"):
-        raise _not_ported(f"gram_precision={cfg.gram_precision!r}")
+    if cfg.gram_precision not in stats.PRECISIONS:
+        raise ValueError(f"unknown gram_precision {cfg.gram_precision!r}")
     if cfg.gram_backend not in ("auto", "xla", "syrk", "sym2", "tri2"):
         raise ValueError(f"unknown gram_backend {cfg.gram_backend!r}")
     if cfg.gram_cross not in ("auto", "bf16", "int8"):
@@ -161,13 +178,26 @@ def _check_ported(cfg: TDVPConfig) -> None:
             f"unknown stats_partitioning {cfg.stats_partitioning!r}")
     if cfg.sexp_mode not in ("none", "auto", "dense", "matfree"):
         raise ValueError(f"unknown sexp_mode {cfg.sexp_mode!r}")
-    if not cfg.solve_on_device:
-        raise _not_ported("the host solve")
     if cfg.integrals:
         raise _not_ported("the MC sphere integrals")
     if cfg.per_sample_backend not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown per_sample_backend "
                          f"{cfg.per_sample_backend!r} (auto, torch, cuda)")
+
+
+def _check_single_device(cfg: TDVPConfig, method: str, world: int) -> None:
+    """The paths that run on one device only: on a mesh (``world`` > 1)
+    the Gram-free solvers, the host solve and the gram precisions beyond
+    the f32 product raise. The JAX package's GSPMD forms of these are
+    ROADMAP.md queue 1 item 6."""
+    if world == 1:
+        return
+    if method in ("cg", "minsr"):
+        raise _not_ported(f"solver_method={method!r} on a mesh")
+    if cfg.gram_precision in ("default", "f64", "f64acc"):
+        raise _not_ported(f"gram_precision={cfg.gram_precision!r} on a mesh")
+    if not cfg.solve_on_device:
+        raise _not_ported("the host solve on a mesh")
 
 
 def _soft_cutoff(x, tol):
@@ -176,11 +206,12 @@ def _soft_cutoff(x, tol):
     return torch.sigmoid(6.0 * (torch.log(x) - math.log(tol)))
 
 
-def _solve_regularized(S, F, cfg: TDVPConfig, n_samples: int, A=None):
-    """Eigendecompose S and apply the reference's regularized
-    pseudo-inverse. A = E[Ebar^2 Obar^T Obar] feeds the per-mode SNR.
-    Returns (update, ev, snr, VtF)."""
-    ev, V = torch.linalg.eigh(S)
+def _solve_regularized(S, F, cfg: TDVPConfig, n_samples: int, A=None,
+                       eigh=torch.linalg.eigh):
+    """Eigendecompose S (with ``eigh``) and apply the reference's
+    regularized pseudo-inverse. A = E[Ebar^2 Obar^T Obar] feeds the
+    per-mode SNR. Returns (update, ev, snr, VtF)."""
+    ev, V = eigh(S)
     VtF = V.T @ F
     ratio = (ev / ev[-1]).abs()
     inv_ev = torch.where(ratio > cfg.eig_cutoff, 1.0 / ev,
@@ -241,6 +272,138 @@ def _solve_cholesky(S, F, cfg: TDVPConfig, lam_max=None):
     return torch.where(info == 0, u, torch.nan), lam_max
 
 
+def _numpy_eigh(S):
+    """torch.linalg.eigh's outputs from numpy's eigh of a CPU tensor."""
+    ev, V = np.linalg.eigh(S.numpy())
+    return torch.from_numpy(ev), torch.from_numpy(V)
+
+
+# conjugate gradients read their stopping flag on the host once per this
+# many iterations (the iteration itself stops on the device)
+CG_CHECK_EVERY = 16
+
+
+def _cg(A, b, M, tol: float, maxiter: int, check_every=CG_CHECK_EVERY):
+    """jax.scipy.sparse.linalg.cg's preconditioned iteration (jax 0.9's
+    _cg_solve) step for step: x0 = 0, gamma = r . M(r), and it runs while
+    r . r > tol^2 b . b and k < maxiter. JAX runs a device while_loop;
+    here the test is a device flag that freezes x, r, p and gamma once it
+    fails, which gives what stopping there gives, and the host reads it
+    once per ``check_every`` iterations to leave the loop. Returns
+    (x, iterations as a device tensor)."""
+    atol2 = tol**2 * (b @ b)
+    x = torch.zeros_like(b)
+    r = b.clone()  # b - A(x0) with x0 = 0
+    p = z = M(r)
+    gamma = r @ z
+    active = r @ r > atol2
+    iters = torch.zeros((), dtype=torch.int32, device=b.device)
+    for k in range(maxiter):
+        if k and k % check_every == 0 and not bool(active):
+            break
+        Ap = A(p)
+        alpha = gamma / (p @ Ap)
+        x_new = x + alpha * p
+        r_new = r - alpha * Ap
+        z = M(r_new)
+        gamma_new = r_new @ z
+        p_new = z + (gamma_new / gamma) * p
+        x, r, gamma, p = (torch.where(active, new, old) for new, old in (
+            (x_new, x), (r_new, r), (gamma_new, gamma), (p_new, p)))
+        iters += active.to(torch.int32)
+        active = active & (r @ r > atol2)
+    return x, iters
+
+
+def _solve_cg(O_c, e_c, cfg: TDVPConfig, mode: str):
+    """Matrix-free Tikhonov solve (O_c^T O_c / N + lam I) u = F with
+    Jacobi preconditioning: every operation is an (N, P) matvec, the Gram
+    is never formed. ``mode``: the gram_precision of the matvecs
+    (stats.contract). Returns (update, F, lam_max, matvec, iterations)."""
+    n = O_c.shape[0]
+    diag_s = (O_c * O_c).mean(0)
+
+    def sv(v):
+        # (O_c v)^T O_c == O_c^T (O_c v)
+        out = stats.contract(stats.contract(O_c, v, mode), O_c, mode) / n
+        if cfg.diagonal_shift > 1e-10:
+            # the shift S += shift * diag(S), matvec form
+            out = out + cfg.diagonal_shift * diag_s * v
+        return out
+
+    F = stats.contract(e_c, O_c, mode) / n
+    # power iteration for lambda_max (matvecs only)
+    v = torch.ones_like(F) / math.sqrt(F.shape[0])
+    for _ in range(12):
+        w = sv(v)
+        v = w / torch.linalg.norm(w)
+    lam_max = v @ sv(v)
+    lam = cfg.svd_tol * lam_max
+    diag = diag_s + lam  # the Jacobi preconditioner
+    if cfg.diagonal_shift > 1e-10:
+        diag = diag + cfg.diagonal_shift * diag_s
+    update, iters = _cg(lambda u: sv(u) + lam * u, F, lambda r: r / diag,
+                        cfg.cg_tol, cfg.cg_maxiter)
+    return update, F, lam_max, sv, iters
+
+
+def _minsr_kernel_solve(T, e_c, cfg: TDVPConfig, sdt):
+    """Kernel-space (minSR) spectral solve for P >> N: the nonzero
+    spectrum of S = O_c^T O_c / N is eig(T) / N of the N x N kernel
+    T = O_c O_c^T, and the minimum-norm solution of S u = F is
+    u = O_c^T alpha, alpha = W diag(reg_i / mu_i) W^T e_c for
+    T = W diag(mu) W^T. The reference's per-mode regularizers apply to
+    ev = mu / N; the per-mode SNR comes from V_i^T A V_i =
+    (mu_i / N) sum_n e_n^2 W_ni^2; the residual and the TDVP error from
+    the quadratic q(v) = v^T T v: ||S u - F||^2 = q(T alpha - e_c) / N^2,
+    ||F||^2 = q(e_c) / N^2, u^T S u = ||T alpha||^2 / N and
+    F . u = e_c^T T alpha / N, so no P-sized vector is needed.
+
+    ``T``: the raw kernel (symmetrized here). Returns (alpha (N,) in
+    ``sdt``, ev, snr, residual, u^T S u - 2 F . u)."""
+    n = e_c.shape[0]
+    T_s = 0.5 * (T + T.T).to(sdt)
+    mu, W = torch.linalg.eigh(T_s)
+    ev = mu / n
+    e_s = e_c.to(sdt)
+    Wte = W.T @ e_s
+    ratio = (ev / ev[-1]).abs()
+    inv_mu = torch.where(ratio > cfg.eig_cutoff, 1.0 / mu,
+                         torch.zeros_like(mu))
+    regularizer = _soft_cutoff(ratio, cfg.svd_tol)
+    snr = None
+    if cfg.compute_snr or cfg.use_snr:
+        VtF = mu.clamp_min(0.0).sqrt() * Wte / n
+        rho_var = ((mu / n) * (e_s**2 @ W**2) - VtF**2).abs().clamp_min(
+            torch.finfo(VtF.dtype).tiny)
+        snr = (n * VtF**2 / rho_var).abs().sqrt()
+        if cfg.use_snr:
+            regularizer = regularizer * _soft_cutoff(snr, cfg.snr_tol)
+    alpha = W @ (inv_mu * regularizer * Wte)
+    Ta = T_s @ alpha
+
+    def q(v):
+        return (v @ (T_s @ v)).clamp_min(0.0)
+
+    residual = (q(Ta - e_s) / q(e_s).clamp_min(torch.finfo(sdt).tiny)).sqrt()
+    tdvp_quad = (Ta @ Ta) / n - 2.0 * (e_s @ Ta) / n
+    return alpha, ev, snr, residual, tdvp_quad
+
+
+def _solve_minsr(O_c, e_c, cfg: TDVPConfig, mode: str, sdt,
+                 use_sym2: bool = False):
+    """Direct minSR on the materialized O_c: T by one product (or
+    stats.sym2_outer_sum's two bf16 ones, ``use_sym2``), the kernel-space
+    solve, and update = O_c^T alpha. Returns (update, ev, snr, residual,
+    tdvp_quad)."""
+    T = (stats.sym2_outer_sum(O_c) if use_sym2
+         else stats.contract(O_c, O_c.T, mode))
+    alpha, ev, snr, residual, tdvp_quad = _minsr_kernel_solve(T, e_c, cfg,
+                                                              sdt)
+    update = stats.contract(alpha.to(O_c.dtype), O_c, mode).to(sdt)
+    return update, ev, snr, residual, tdvp_quad
+
+
 class TDVP:
     """Fused TDVP right-hand side on one device, or on one rank of a mesh.
 
@@ -279,7 +442,15 @@ class TDVP:
             self.n_samples = -(-self.n_samples // step) * step
 
         if cfg.auto_tol_floor:
-            eps = torch.finfo(self.precision.compute).eps
+            # the floor follows the dtype the statistics are contracted in:
+            # f64 under "f64"; under "f64acc" each chunk contracts in f32
+            # but the chunks add up exactly, so the noise floor drops by
+            # sqrt(n_chunks)
+            eps = torch.finfo(stats.GRAM_OPERAND_DTYPE.get(
+                cfg.gram_precision, self.precision.compute)).eps
+            if (cfg.gram_precision == "f64acc"
+                    and 0 < cfg.chunk_size < self.n_samples):
+                eps /= math.sqrt(self.n_samples / cfg.chunk_size)
             cfg = dataclasses.replace(
                 cfg, svd_tol=max(cfg.svd_tol, 64.0 * eps),
                 eig_cutoff=max(cfg.eig_cutoff, 8.0 * eps))
@@ -302,9 +473,14 @@ class TDVP:
                     and self.flow.latent_name == "Student_t"):
                 raise ValueError("is_gamma tempering needs the exact "
                                  "Student_t latent")
-            if cfg.chunk_size:
+            if cfg.chunk_size or method in ("cg", "minsr"):
                 raise ValueError("is_gamma tempering runs on the direct "
                                  "eigh/cholesky statistics path")
+        if method == "cg" and cfg.chunk_size:
+            raise ValueError("solver_method='cg' works on the materialized "
+                             "O matrix; use chunk_size=0")
+        if method in ("cg", "minsr") and not cfg.solve_on_device:
+            raise ValueError(f"solver_method={method!r} runs on device only")
         self.solver_method = method
         # the adaptive steppers' S metric, as in the JAX package: "auto" is
         # the dense SExp for eigh and the matrix-free quadratic otherwise
@@ -313,22 +489,75 @@ class TDVP:
         if cfg.sexp_mode == "dense" or (cfg.sexp_mode == "auto"
                                         and method == "eigh"):
             cfg = dataclasses.replace(cfg, compute_sexp=True)
-        if method == "cholesky":
-            # per-mode SNR exists only in the top-k Ritz basis
-            if cfg.use_snr and cfg.spectrum_topk <= 0:
-                raise ValueError("use_snr on solver_method='cholesky' gates "
-                                 "modes in the top-k Ritz subspace; set "
-                                 "spectrum_topk > 0")
+        if method == "cg" and (cfg.compute_snr or cfg.use_snr
+                               or cfg.compute_sexp):
+            # matrix-free: no S, no spectrum, no SExp matrix
+            if cfg.compute_sexp:
+                warnings.warn(
+                    "solver_method='cg' cannot provide the SExp matrix; an "
+                    "adaptive stepper's S-metric error norm will silently "
+                    "degrade to the plain 2-norm. Use solver_method="
+                    "'cholesky' (or 'eigh') with adaptive_heun.",
+                    stacklevel=2)
+            if cfg.use_snr:
+                warnings.warn(
+                    "solver_method='cg' is matrix-free (no spectral basis), "
+                    "so use_snr cannot gate modes and is DISABLED. Use "
+                    "'eigh' (P <= eigh_max_params), 'cholesky' with "
+                    "spectrum_topk > 0 (Ritz-projected gating), or 'minsr' "
+                    "(kernel-basis gating) for SNR regularization.",
+                    stacklevel=2)
+            cfg = dataclasses.replace(cfg, compute_snr=False, use_snr=False,
+                                      compute_sexp=False)
+        elif method == "minsr" and cfg.compute_sexp:
+            # the spectrum and the SNR live in the kernel basis, but a
+            # (P, P) SExp would defeat minSR's point
+            raise ValueError(
+                "solver_method='minsr' cannot provide the SExp matrix for "
+                "the adaptive stepper's S-metric; use 'cholesky' or 'eigh' "
+                "with adaptive_heun")
+        if method == "minsr" and cfg.diagonal_shift > 1e-10:
+            raise ValueError(
+                "solver_method='minsr' does not support diagonal_shift "
+                "(no N x N kernel-space representation of shift * diag(S))")
+        elif method == "cholesky":
+            # per-mode SNR exists only in the top-k Ritz basis, which the
+            # on-device solve alone has
+            if cfg.use_snr and (cfg.spectrum_topk <= 0
+                                or not cfg.solve_on_device):
+                raise ValueError(
+                    "use_snr on solver_method='cholesky' gates modes in "
+                    "the randomized Ritz subspace, which exists on the "
+                    "on-device solve only; set spectrum_topk > 0 and "
+                    "solve_on_device=True (or use solver_method='eigh'/"
+                    "'minsr' for full-spectrum SNR gating)")
             keep_snr = ((cfg.compute_snr or cfg.use_snr)
                         and cfg.spectrum_topk > 0)
             cfg = dataclasses.replace(cfg, compute_snr=keep_snr)
         self.cfg = cfg
+
+        # torch has no x64 switch to forget, so the JAX package's "needs
+        # x64" refusal of f64/f64acc has no counterpart here
+        if cfg.gram_precision == "f64acc":
+            # the mode is the chunked accumulation: the direct contraction
+            # has no carry across chunks to widen
+            if not 0 < cfg.chunk_size < self.n_samples:
+                raise ValueError(
+                    "gram_precision='f64acc' upgrades the CHUNKED "
+                    "accumulation carry to f64; set 0 < chunk_size < "
+                    f"n_samples (chunk_size={cfg.chunk_size}, "
+                    f"n_samples={self.n_samples})")
+            if method not in ("eigh", "cholesky"):
+                raise ValueError(
+                    "gram_precision='f64acc' serves the Gram-based "
+                    "eigh/cholesky statistics path")
 
         # The statistics on a mesh, gated as in the JAX package
         # (tdvp.py:634-686): shard_map where it may run (and auto takes it,
         # except at tp > 1 with P > 16384, where the JAX package keeps its
         # memory-scaling GSPMD layout), else the GSPMD counterpart
         W = ctx.world
+        _check_single_device(cfg, method, W)
         smap_ok = (
             W > 1
             and method in ("eigh", "cholesky")
@@ -366,7 +595,7 @@ class TDVP:
         # kernels/syrk.py), and only an explicit int8 its int8 cross term
         # (parallel/stats.py)
         split_ok = (self.precision.compute == torch.float32
-                    and cfg.gram_precision == "high")
+                    and cfg.gram_precision in ("high", "f64acc"))
         if cfg.gram_backend in ("syrk", "sym2", "tri2") and not split_ok:
             raise ValueError(
                 f"gram_backend={cfg.gram_backend!r} implements f32 "
@@ -486,7 +715,11 @@ class TDVP:
         normalizers and every mean are global, each rank contracts its
         rows against the global means, and F0, S0, A and the E_loc
         variance cross ranks in ONE all-reduce of the assembled moments
-        (the JAX package's _direct_stats with axis / n_global)."""
+        (the JAX package's _direct_stats with axis / n_global).
+
+        Under gram_precision="f64" the centered O, E_loc, logp and the
+        weights are cast to f64 before the contractions; every product
+        takes the gram_precision (stats.contract)."""
         ctx = self.ctx
         n = x.shape[0] * ctx.world
         logp, eloc, O = self._per_sample_batch(theta_c, x, t)
@@ -506,16 +739,22 @@ class TDVP:
                   wtimes(O)], n)
         e_c = eloc - eloc_mean
         O_c = O - o_mean
+        eloc_var = wtimes(e_c**2).sum() / n
+        lp = logp
+        gdt = stats.GRAM_OPERAND_DTYPE.get(self.cfg.gram_precision)
+        if gdt is not None:
+            O_c, e_c, lp = O_c.to(gdt), e_c.to(gdt), lp.to(gdt)
+            w = None if w is None else w.to(gdt)
         gram_sum, _, gram_fin = self._gram_backend()
         A = SExp = None
         if self.cfg.compute_snr or self.cfg.use_snr:
             A = gram_fin(gram_sum(O_c, wtimes(e_c**2))) / n
         if self.cfg.compute_sexp:
             # SExp = E[w logp^2 O_c^T O_c], the adaptive steppers' metric
-            SExp = gram_fin(gram_sum(O_c, wtimes(logp**2))) / n
+            SExp = gram_fin(gram_sum(O_c, wtimes(lp**2))) / n
+        F0 = stats.contract(wtimes(e_c), O_c, self.cfg.gram_precision) / n
         F0, S0, A, SExp, eloc_var = mesh.all_reduce_sum(ctx, [
-            (wtimes(e_c) @ O_c) / n, gram_fin(gram_sum(O_c, w)) / n, A,
-            SExp, wtimes(e_c**2).sum() / n])
+            F0, gram_fin(gram_sum(O_c, w)) / n, A, SExp, eloc_var])
         return dict(
             O=O if self._sexp_matfree else None,
             SExp=SExp,
@@ -532,14 +771,17 @@ class TDVP:
                           1.0 / stats.global_means(ctx, [w**2], n)[0]),
         )
 
-    def _gram_backend(self):
+    def _gram_backend(self, acc_dtype=None):
         """(gram_sum, gram_zero, gram_fin) of the configured backend:
         gram_sum(Os, w=None) the unnormalized chunk moment Os^T diag(w) Os,
-        gram_zero() its accumulator, gram_fin(acc) the assembled (P, P).
-        tri2 accumulates the raw triangle strips and cross term and
-        mirrors them once; the other backends the matrix itself (syrk:
-        one kernel launch per moment, mirrored inside)."""
-        P, cdt = self.n_params, self.precision.compute
+        gram_zero() its accumulator (in ``acc_dtype``, default the compute
+        dtype), gram_fin(acc) the assembled (P, P). tri2 accumulates the
+        raw triangle strips and cross term and mirrors them once; the
+        other backends the matrix itself (syrk: one kernel launch per
+        moment, mirrored inside; the f32 product at the gram_precision
+        otherwise)."""
+        P = self.n_params
+        cdt = acc_dtype or self.precision.compute
         dev, cross = self.device, self._cross_int8
         # GSPMD: the rank's rows of a globally sharded operand, so the int8
         # cross term takes the global column scales and row count (the
@@ -569,8 +811,9 @@ class TDVP:
             gram_sum = lambda Os, w=None: stats.sym2_gram_sum(  # noqa: E731
                 Os, w, cross_int8=cross, **glob)
         else:
-            gram_sum = lambda Os, w=None: torch.matmul(  # noqa: E731
-                Os.T, Os if w is None else Os * w[:, None])
+            mode = self.cfg.gram_precision
+            gram_sum = lambda Os, w=None: stats.contract(  # noqa: E731
+                Os.T, Os if w is None else Os * w[:, None], mode)
         return (gram_sum,
                 lambda: torch.zeros((P, P), dtype=cdt, device=dev),
                 lambda acc: acc)
@@ -601,7 +844,14 @@ class TDVP:
         own column scales and de-scales them before the reduce; and every
         accumulated moment crosses ranks in ONE all-reduce after the scan,
         per statistics evaluation, not per chunk (the JAX package's
-        _chunked_stats with axis / n_global)."""
+        _chunked_stats with axis / n_global).
+
+        The accumulators take the gram_precision's dtype (f64 under
+        "f64" and "f64acc": each chunk's f32 moments add into f64). Under
+        "f64" every chunk's shifted O and E_loc are cast to f64 before
+        its products, so the chunks run the plain-mode kernel (the split
+        pair applies only where the operand dtype stays the compute
+        dtype, as in the JAX package)."""
         cfg = self.cfg
         ctx = self.ctx
         n_loc, d = x.shape
@@ -612,12 +862,15 @@ class TDVP:
                              f"chunk size {c} (TDVP.__init__ rounds its own "
                              "budgets; a hand-built call must do the same)")
         P = self.n_params
-        use_pair = self._ps_split is not None
+        mode = cfg.gram_precision
+        gdt = stats.GRAM_OPERAND_DTYPE.get(mode)
+        acc_dt = stats.GRAM_ACC_DTYPE.get(mode, theta_c.dtype)
+        use_pair = self._ps_split is not None and gdt is None
         use_q8 = (use_pair and self._cross_int8 and c % 8 == 0
                   and c <= stats._INT8_CROSS_N_MAX)
         want_A = cfg.compute_snr or cfg.use_snr
         want_l2 = cfg.compute_sexp
-        gram_sum, gram_zero, gram_fin = self._gram_backend()
+        gram_sum, gram_zero, gram_fin = self._gram_backend(acc_dt)
 
         c_pilot = min(c, 8 * cfg.per_sample_tile) if use_pair else c
         pilot = self._per_sample_batch(theta_c, x[:c_pilot], t)
@@ -630,7 +883,7 @@ class TDVP:
                         for v in mesh.all_reduce_sum(ctx, [c_O, c_E]))
 
         def zeros(*shape):
-            return torch.zeros(shape, dtype=theta_c.dtype, device=x.device)
+            return torch.zeros(shape, dtype=acc_dt, device=x.device)
 
         acc = dict(sum_O=zeros(P), sum_E=zeros(), sum_absE=zeros(),
                    sum_E2=zeros(), sum_rawE2=zeros(), sum_EO=zeros(P),
@@ -660,20 +913,24 @@ class TDVP:
         def chunk_plain(logp, eloc, O):
             Os = O - c_O
             es = eloc - c_E
+            if gdt is not None:
+                Os, es, logp, eloc = (v.to(gdt) for v in (Os, es, logp,
+                                                          eloc))
             add_scalars(eloc, es)
             add("sum_O", Os.sum(0))
-            add("sum_EO", es @ Os)
+            add("sum_EO", stats.contract(es, Os, mode))
             add("sum_OO", gram_sum(Os))
             if want_A:
                 w = es**2
-                add("sum_E2O", w @ Os)
+                add("sum_E2O", stats.contract(w, Os, mode))
                 add("sum_E2OO", gram_sum(Os, w))
                 add("sum_EOO", gram_sum(Os, es))
             if want_l2:
                 w = logp**2
                 add("sum_l2", w.sum())
-                add("sum_l2O", w @ Os)
+                add("sum_l2O", stats.contract(w, Os, mode))
                 add("sum_l2OO", gram_sum(Os, w))
+            return logp, eloc
 
         def chunk_pair(xc):
             logp, g, quad, pair, colsum, omax = self._ps_split(
@@ -725,12 +982,10 @@ class TDVP:
         if use_pair:
             out = [chunk_pair(x[i:i + c]) for i in range(0, n_loc, c)]
         else:
-            chunk_plain(*pilot)
-            out = [pilot[:2]]
+            out = [chunk_plain(*pilot)]
             for i in range(c, n_loc, c):
-                batch = self._per_sample_batch(theta_c, x[i:i + c], t)
-                chunk_plain(*batch)
-                out.append(batch[:2])
+                out.append(chunk_plain(*self._per_sample_batch(
+                    theta_c, x[i:i + c], t)))
         logp = torch.cat([o[0] for o in out])
         eloc = torch.cat([o[1] for o in out])
 
@@ -844,6 +1099,58 @@ class TDVP:
             z = ctx.local_rows(z)
         x, _ = self.flow.push(params, z)
 
+        if self.solver_method == "cg":
+            aux, logp, O = self._rhs_cg(theta_c, t, x)
+        elif self.solver_method == "minsr":
+            aux, logp, O = self._rhs_minsr(theta_c, t, x, n)
+        else:
+            aux, logp, O = self._rhs_stats(theta_c, t, x, n, log_w, k_spec)
+
+        if cfg.observables and with_obs:
+            # the IS batch is proposal-distributed: observables resample
+            if self.n_samples_obs > n or log_w is not None:
+                if mcmc is not None:
+                    # the observables' budget continues the chains
+                    sweeps = self.n_samples_obs // self.sampler.n_chains
+                    z_o, mcmc["state"], acc = self._chain_fn(
+                        self._gen(k_obs), mcmc["state"],
+                        self.sampler.chain_rw_scale(), sweeps)
+                    mcmc["acc"] = mcmc["acc"] + acc
+                    mcmc["prop"] += sweeps * self.sampler.n_chains
+                    z_o = z_o.to(theta_c.dtype)
+                else:
+                    z_o = ctx.local_rows(self.flow.latent_sample(
+                        self._gen(k_obs), params, self.n_samples_obs,
+                        theta_c.dtype))
+                x_o, logp_o = self.flow.push(params, z_o)
+            else:
+                x_o, logp_o = x, logp
+            aux = self._observables(x_o, logp_o, aux)
+        if mcmc is not None:
+            aux["_chain_state"] = mcmc["state"]
+            aux["mcmc_accepted"] = mcmc["acc"]
+            aux["mcmc_proposed"] = mcmc["prop"]
+        if self._sexp_matfree and stash_sexp:
+            # the matrix-free S metric's inputs (_sexp_quad): this stage's
+            # point, samples, logp, IS weights and, on the direct path, O
+            aux["_sexp"] = (theta_c, x, logp, log_w, O)
+        # the host solve's update comes later, in rhs(): F0 stands in
+        aux["nan"] = torch.isnan(aux.get("update", aux.get("F0"))).any()
+        return aux
+
+    def _eloc_moments(self, eloc):
+        """The E_loc diagnostics of the Gram-free solvers (one device)."""
+        mean = eloc.mean()
+        return dict(eloc_mean=mean, eloc_abs_mean=eloc.abs().mean(),
+                    eloc_var=((eloc - mean)**2).mean(), max_grad=eloc.max())
+
+    def _rhs_stats(self, theta_c, t, x, n, log_w, k_spec):
+        """The Gram-based RHS (eigh, cholesky): the statistics, then the
+        regularized solve on the device, or, for the host solve, S, S0,
+        F0, A and E[E_loc^2] for rhs() to solve. Returns (aux, logp, O)
+        with O the per-sample rows the direct statistics kept for the
+        matrix-free S metric (else None)."""
+        cfg = self.cfg
         if cfg.chunk_size and cfg.chunk_size < n:
             st = self._chunked_stats(theta_c, t, x)
         else:
@@ -852,7 +1159,29 @@ class TDVP:
         S = S0
         if cfg.diagonal_shift > 1e-10:
             S = S + torch.diag(cfg.diagonal_shift * torch.diag(S))
+        aux = {}
+        if not cfg.solve_on_device:
+            aux.update(S=S, S0=S0, F0=F0, A=st["A"],
+                       eloc_sq_mean=st["eloc_sq_mean"])
+        else:
+            aux.update(self._solve_device(S, S0, F0, st, n, k_spec))
+        aux["eloc_mean"] = st["eloc_mean"]
+        aux["eloc_abs_mean"] = st["eloc_abs_mean"]
+        aux["eloc_var"] = st["eloc_var"]
+        aux["max_grad"] = mesh.all_reduce_max(self.ctx, st["eloc"].max())
+        if st.get("is_ess_share") is not None:
+            # effective sample share 1 / E[w^2] of the mean-1 IS weights
+            aux["is_ess_share"] = st["is_ess_share"]
+        if st["SExp"] is not None:
+            aux["SExp"] = st["SExp"]
+        return aux, st["logp"], st["O"]
 
+    def _solve_device(self, S, S0, F0, st, n, k_spec):
+        """The regularized solve of S u = F0 on the device in the solve
+        dtype: eigh with the reference's per-mode regularizers, or the
+        Tikhonov-Cholesky solve with the top-k Ritz spectrum. Returns the
+        solver's aux entries (update, residual, TDVP error, spectrum)."""
+        cfg = self.cfg
         sdt = self.precision.solve
         S_s, F_s = S.to(sdt), F0.to(sdt)
         A_s = None if st["A"] is None else st["A"].to(sdt)
@@ -890,46 +1219,170 @@ class TDVP:
                                    - 2.0 * F_s @ update) \
             / st["eloc_sq_mean"].to(sdt)
         aux["update"] = update
-        aux["eloc_mean"] = st["eloc_mean"]
-        aux["eloc_abs_mean"] = st["eloc_abs_mean"]
-        aux["eloc_var"] = st["eloc_var"]
-        aux["max_grad"] = mesh.all_reduce_max(ctx, st["eloc"].max())
-        if st.get("is_ess_share") is not None:
-            # effective sample share 1 / E[w^2] of the mean-1 IS weights
-            aux["is_ess_share"] = st["is_ess_share"]
-
-        if cfg.observables and with_obs:
-            # the IS batch is proposal-distributed: observables resample
-            if self.n_samples_obs > n or log_w is not None:
-                if mcmc is not None:
-                    # the observables' budget continues the chains
-                    sweeps = self.n_samples_obs // self.sampler.n_chains
-                    z_o, mcmc["state"], acc = self._chain_fn(
-                        self._gen(k_obs), mcmc["state"],
-                        self.sampler.chain_rw_scale(), sweeps)
-                    mcmc["acc"] = mcmc["acc"] + acc
-                    mcmc["prop"] += sweeps * self.sampler.n_chains
-                    z_o = z_o.to(theta_c.dtype)
-                else:
-                    z_o = ctx.local_rows(self.flow.latent_sample(
-                        self._gen(k_obs), params, self.n_samples_obs,
-                        theta_c.dtype))
-                x_o, logp_o = self.flow.push(params, z_o)
-            else:
-                x_o, logp_o = x, st["logp"]
-            aux = self._observables(x_o, logp_o, aux)
-        if mcmc is not None:
-            aux["_chain_state"] = mcmc["state"]
-            aux["mcmc_accepted"] = mcmc["acc"]
-            aux["mcmc_proposed"] = mcmc["prop"]
-        if st["SExp"] is not None:
-            aux["SExp"] = st["SExp"]
-        if self._sexp_matfree and stash_sexp:
-            # the matrix-free S metric's inputs (_sexp_quad): this stage's
-            # point, samples, logp, IS weights and, on the direct path, O
-            aux["_sexp"] = (theta_c, x, st["logp"], log_w, st["O"])
-        aux["nan"] = torch.isnan(update).any()
         return aux
+
+    def _rhs_cg(self, theta_c, t, x):
+        """Matrix-free RHS: the per-sample batch, then Jacobi-preconditioned
+        CG on the Tikhonov normal equations (_solve_cg); S is never formed.
+        The residual and the TDVP error come from matvecs against the
+        unregularized S, as on the other paths. Returns (aux, logp, O)."""
+        cfg = self.cfg
+        logp, eloc, O = self._per_sample_batch(theta_c, x, t)
+        eloc = self._maybe_clip_eloc(eloc)
+        e_c = eloc - eloc.mean()
+        O_c = O - O.mean(0)
+        gdt = stats.GRAM_OPERAND_DTYPE.get(cfg.gram_precision)
+        if gdt is not None:
+            O_c, e_c = O_c.to(gdt), e_c.to(gdt)
+        update, F0, lam_max, sv, iters = _solve_cg(O_c, e_c, cfg,
+                                                   cfg.gram_precision)
+        s_u = sv(update)
+        aux = dict(
+            update=update,
+            solver_res=torch.linalg.norm(s_u - F0) / torch.linalg.norm(F0),
+            tdvp_error=1.0 + (update @ s_u - 2.0 * F0 @ update)
+            / (eloc**2).mean(),
+            lambda_max=lam_max, _cg_iters=iters, **self._eloc_moments(eloc))
+        return aux, logp, O
+
+    def _rhs_minsr(self, theta_c, t, x, n):
+        """Kernel-space RHS: the per-sample batch (or the streaming passes
+        of _minsr_chunked when 0 < chunk_size < n), the N x N kernel's
+        eigh and the minimum-norm update; the (P, P) Gram never exists.
+        Returns (aux, logp, O), O None when streamed."""
+        cfg = self.cfg
+        sdt = self.precision.solve
+        O = None
+        if cfg.chunk_size and cfg.chunk_size < n:
+            logp, eloc, update, ev, snr, residual, tdvp_quad = \
+                self._minsr_chunked(theta_c, t, x)
+        else:
+            logp, eloc, O = self._per_sample_batch(theta_c, x, t)
+            eloc = self._maybe_clip_eloc(eloc)
+            e_c = eloc - eloc.mean()
+            O_c = O - O.mean(0)
+            gdt = stats.GRAM_OPERAND_DTYPE.get(cfg.gram_precision)
+            if gdt is not None:
+                O_c, e_c = O_c.to(gdt), e_c.to(gdt)
+            update, ev, snr, residual, tdvp_quad = _solve_minsr(
+                O_c, e_c, cfg, cfg.gram_precision, sdt,
+                use_sym2=self._use_sym2 or self._use_tri2)
+        aux = dict(
+            update=update, solver_res=residual,
+            tdvp_error=1.0 + tdvp_quad / (eloc**2).mean().to(sdt),
+            ev=ev, snr=snr if snr is not None else torch.zeros_like(ev),
+            **self._eloc_moments(eloc))
+        return aux, logp, O
+
+    def _minsr_chunked(self, theta_c, t, x):
+        """Streaming minSR: O never exists beyond two (chunk, P) blocks.
+        Three passes over the chunks, each chunk through the per-sample
+        route (the plain-mode kernel on the card):
+
+        1. the mean of O and the per-sample logp and E_loc;
+        2. the kernel blocks T[i, j] = G_i G_j^T for chunk pairs j <= i,
+           G_k = O_k - mean(O) made again for each pair, G_i kept through
+           the inner loop (the diagonal blocks by sym2_outer_sum where the
+           sym2/tri2 backends are configured);
+        3. u = sum_i G_i^T alpha_i.
+
+        That is n_c (n_c + 3) / 2 + n_c per-sample evaluations for n_c
+        chunks, against 1 for the direct path; passes 2 and 3 need only O
+        and take no trace directions. The solver's diagnostics are
+        kernel-space (_minsr_kernel_solve), so apart from mean(O) and u no
+        P-sized array lives longer than two blocks. Returns (logp, eloc,
+        update, ev, snr, residual, tdvp_quad)."""
+        cfg = self.cfg
+        n = x.shape[0]
+        c = cfg.chunk_size
+        if n % c:
+            raise ValueError(
+                f"sample budget {n} is not a multiple of chunk_size {c}")
+        mode = cfg.gram_precision
+        cdt = stats.GRAM_OPERAND_DTYPE.get(mode, self.precision.compute)
+        sdt = self.precision.solve
+        xs = [x[i:i + c] for i in range(0, n, c)]
+
+        sum_O = torch.zeros(self.n_params, dtype=cdt, device=x.device)
+        logps, elocs = [], []
+        for xc in xs:
+            logp, eloc, O = self._per_sample_batch(theta_c, xc, t)
+            sum_O += O.sum(0)
+            logps.append(logp)
+            elocs.append(eloc)
+        del O
+        o_mean = sum_O / n
+        logp, eloc = torch.cat(logps), torch.cat(elocs)
+        e_c = eloc - eloc.mean()
+
+        def centered(xc):
+            # O - mean(O), promoted to f64 through o_mean under "f64"
+            return self._per_sample(self.flow, theta_c, xc, None)[3] - o_mean
+
+        use_s2 = self._use_sym2 or self._use_tri2
+        T = torch.zeros((n, n), dtype=cdt, device=x.device)
+        for i, xi in enumerate(xs):
+            G_i = centered(xi)
+            bi = slice(i * c, (i + 1) * c)
+            T[bi, bi] = (stats.sym2_outer_sum(G_i) if use_s2
+                         else stats.contract(G_i, G_i.T, mode))
+            for j in range(i):
+                bj = slice(j * c, (j + 1) * c)
+                blk = stats.contract(G_i, centered(xs[j]).T, mode)
+                T[bi, bj] = blk
+                T[bj, bi] = blk.T
+        del G_i
+        alpha, ev, snr, residual, tdvp_quad = _minsr_kernel_solve(
+            T, e_c, cfg, sdt)
+        del T
+        u = torch.zeros(self.n_params, dtype=cdt, device=x.device)
+        for i, xi in enumerate(xs):
+            u += stats.contract(alpha[i * c:(i + 1) * c].to(cdt),
+                                centered(xi), mode)
+        return logp, eloc, u.to(sdt), ev, snr, residual, tdvp_quad
+
+    def _host_solve(self, aux):
+        """The host f64 solve (the reference's default path), from the
+        S, S0, F0, A and E[E_loc^2] the RHS left in ``aux`` (popped):
+        numpy's eigh with the regularizers, or the Tikhonov solve by
+        np.linalg.solve with lambda_max from np.linalg.norm(S, 2) up to
+        P = 512 and from power iteration above. The update goes back to
+        the device; the diagnostics stay on the host."""
+        def host(key):
+            v = aux.pop(key)
+            return None if v is None else v.detach().to("cpu", torch.float64)
+
+        S, S0, F0, A = host("S"), host("S0"), host("F0"), host("A")
+        e2 = float(aux.pop("eloc_sq_mean"))
+        out = {}
+        if self.solver_method == "eigh":
+            update, ev, snr, _ = _solve_regularized(
+                S, F0, self.cfg, self.n_samples, A=A, eigh=_numpy_eigh)
+            out["ev"] = ev
+            out["snr"] = snr if snr is not None else torch.zeros_like(ev)
+        else:
+            P = S.shape[0]
+            lam_max = (float(np.linalg.norm(S.numpy(), 2)) if P <= 512
+                       else float(_lambda_max(S)))
+            lam = self.cfg.svd_tol * lam_max
+            update = torch.from_numpy(np.linalg.solve(
+                S.numpy() + lam * np.eye(P), F0.numpy()))
+            out["lambda_max"] = torch.tensor(lam_max, dtype=torch.float64)
+        out["solver_res"] = (torch.linalg.norm(S @ update - F0)
+                             / torch.linalg.norm(F0))
+        out["tdvp_error"] = 1.0 + (update @ S0 @ update
+                                   - 2.0 * F0 @ update) / e2
+        out["update"] = update.to(self.device)
+        out["nan"] = torch.isnan(out["update"]).any()
+        return out
+
+    @property
+    def fused_steps_available(self) -> bool:
+        """The fused steps and attempts solve inside the call, so they need
+        the on-device solve; the host solve runs through rhs(), one stage
+        at a time (the driver then passes the steppers no fused
+        functions)."""
+        return self.cfg.solve_on_device
 
     def _finish(self, aux):
         self.ev = aux.get("ev", aux.get("ev_topk"))
@@ -968,6 +1421,8 @@ class TDVP:
                              with_obs=intStep % 5 == 0,
                              chain_state=self._chain_inputs(key),
                              stash_sexp=True)
+        if not self.cfg.solve_on_device:
+            aux.update(self._host_solve(aux))
         self._absorb_mcmc(aux)
         self._sexp_ctx = aux.pop("_sexp", None)
         self._finish(aux)
@@ -1084,6 +1539,10 @@ class TDVP:
     def _fused(self, impl, theta, key, *args, z_ext=None):
         """Run a fused step or attempt from master-precision theta; the
         outputs with dy in the master dtype."""
+        if not self.fused_steps_available:
+            raise ValueError("the fused steps solve on the device; with "
+                             "solve_on_device=False step through rhs() "
+                             "(TDVP.fused_steps_available)")
         res = impl(theta.to(self.precision.compute), *args, z_ext=z_ext,
                    chain_state=self._chain_inputs(key))
         aux = res[-1]
