@@ -165,7 +165,27 @@
    chunked f64, f64acc nearer to f64 than high (Frobenius norm);
 30. (H5) the host f64 solve: ``mwe --precision f64 --host-solve`` for 10
    steps (residual below 1e-10), one fokkerPlanck32 RHS solved on the
-   host (numpy f64) against the device's f64 Cholesky, timed.
+   host (numpy f64) against the device's f64 Cholesky, timed;
+31. (I1) the randomized QMC draws on the card against the CPU at
+   fokkerPlanck32's production batch (d=33, n=524288): the scrambled bits
+   from the same words bit for bit, the f32 normals within 8 f32 ulps of
+   the CPU's f64 ones, chi^2 for nu in {1.05, 2.5, 50} within the
+   inversion's bound; the net, the normals and the Newton solve timed;
+32. (I2) ``fokkerPlanck32 --qmc`` at N=16384 for 5 steps (exactly 10
+   plain-mode launches) and at the production point for 3 steps (48
+   split, 96 quant8, 6 pilots), each step time beside phase 5's and 7's;
+   the spread of F0 over 8 randomizations, QMC against pseudo-random
+   draws (printed, no gate);
+33. (I3) the Student-t + global affine ``fokkerPlanck32`` with ``qmc`` for
+   4 steps (8 launches), and the kernel on QMC draws of the joint
+   (d+1)-column net held to plain f32 with phase 15's grading;
+34. (I4) ``fokkerPlanck32 --hessian-mode block`` for 2 steps (the
+   torch.func pipeline: no launch), its f32 E_loc against the f64
+   pipeline's beside the kernel's trace-mode E_loc, and mwe and
+   diffusion_anisotropic in f64, block against trace within 1e-10;
+35. (I5) the MC sphere integrals: mwe in f64 for 10 steps within 5
+   standard errors of its closed form, fokkerPlanck32 at N=16384 for 3
+   steps (6 launches) in [0, 1 + 5 SE], with the step time.
 
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
@@ -239,6 +259,10 @@ WRAPPERS = {"persample": persample.per_sample_cuda,
 MESH_WORLD = 4
 # the chunked path's pilot batch (solver/tdvp.py): its per-sample shape
 PILOT_N = 2048
+# wall seconds of each step of each _drive run, by its label
+STEP_TIMES = {}
+MAIN_LABEL = "fokkerPlanck32 N=16384"
+CHUNKED_LABEL = "fokkerPlanck32 N=524288 chunked tri2+int8"
 
 
 def fail(msg):
@@ -616,6 +640,7 @@ def _drive(args, label, n_steps, dim=32, cfg=None, callbacks=()):
         state, rec = driver.run(cfg, max_steps=n_steps, callbacks=[record])
     counts = _counts()
     steps = np.array(stamps) - np.array([t0] + starts[:-1])
+    STEP_TIMES[label] = steps
     mean = (f", mean of steps 2-{len(steps)} {steps[1:].mean():.3f} s"
             if len(steps) > 1 else "")
     print(f"{label}: {len(steps)} steps, wall s/step "
@@ -643,8 +668,7 @@ def _drive(args, label, n_steps, dim=32, cfg=None, callbacks=()):
 
 
 def phase_main_path():
-    state, _, counts = _drive(["fokkerPlanck32"], "fokkerPlanck32 N=16384",
-                              5)
+    state, _, counts = _drive(["fokkerPlanck32"], MAIN_LABEL, 5)
     if counts["persample"] == 0:
         fail("the main path never launched the per-sample kernel")
     return state, counts
@@ -655,7 +679,7 @@ def phase_chunked_path():
     _, _, counts = _drive(
         ["fokkerPlanck32", "--samples", "524288", "--chunk-size", "65536",
          "--gram-backend", "tri2", "--gram-cross", "int8"],
-        "fokkerPlanck32 N=524288 chunked tri2+int8", n_steps)
+        CHUNKED_LABEL, n_steps)
     want = n_steps * 2 * (524288 // 65536)
     if counts["persample_split"] != want:
         fail(f"split kernel launches {counts['persample_split']}, expected "
@@ -2401,6 +2425,315 @@ def phase_solvers(theta5):
     return out, paths, split, q8
 
 
+# -- phase I (31-35): randomized QMC, the Hessian block mode and the MC
+# sphere integrals
+
+QMC_N = 524288  # the production point's batch
+
+
+def _chi2_bound(x, bits, nu):
+    """Per-sample bound on the relative gap of two f64 chi^2 inversions of
+    the same 30-bit uniforms: 1e-10 plus the inversion's conditioning,
+    16 eps u / (x pdf(x)) (tests/test_torch_qmc.py), computed in f64 on the
+    host; 1e-8 above nu = 40, where torch.special.gammainc's own relative
+    error (1.8e-9 at a = 25) moves x by 2e-10."""
+    from scipy.stats import chi2 as schi2
+
+    if nu > 40:
+        return np.full(x.shape, 1e-8)
+    u = (bits.astype(np.float64) + 0.5) * 2.0**-30
+    return 1e-10 + 16 * np.finfo(np.float64).eps * u / (x * schi2.pdf(x, nu))
+
+
+def phase_qmc_draws():
+    """I1 (phase 31): the QMC draws on the card against the CPU: the same
+    words at d=33 and n=524288 (the joint Student-t net of fokkerPlanck32's
+    production batch) give the same scrambled bits bit for bit;
+    _mirrored_ndtri in f32 on the card within 8 f32 ulps of max(|z|, 1) of
+    the CPU's f64 value; chi2_from_bits for nu in {1.05, 2.5, 50} within
+    _chi2_bound of the CPU's; the Sobol generation (d=32 and 33), the
+    normals and the Newton solve at N=524288 timed with CUDA events."""
+    from vmc_pde_torch.sampling import qmc
+
+    n, d = QMC_N, 33
+    lms, shift = qmc.draw_words(torch.Generator().manual_seed(5), d)
+    cpu = qmc.scrambled_bits_from_words(n, lms, shift)
+    dev = qmc.scrambled_bits_from_words(n, lms.cuda(), shift.cuda())
+    if not torch.equal(dev.cpu(), cpu):
+        fail("the scrambled Sobol bits differ between the card and the CPU")
+    z32 = qmc._mirrored_ndtri(dev, torch.float32).cpu().double()
+    z64 = qmc._mirrored_ndtri(cpu, torch.float64)
+    ulps = float(((z32 - z64).abs() / (z64.abs().clamp_min(1.0)
+                                       * 2.0**-23)).max())
+    print(f"QMC at d={d}, n={n}: scrambled bits on the card equal the "
+          f"CPU's; f32 normals on the card within {ulps:.3f} f32 ulps of "
+          f"max(|z|, 1) of the CPU's f64 (bound 8), |z| up to "
+          f"{float(z64.abs().max()):.4f}")
+    if not ulps <= 8.0:
+        fail(f"the f32 QMC normals on the card are {ulps} ulps off")
+    out = dict(bits_equal=True, ndtri_f32_ulps=ulps)
+    col = cpu[:, d - 1]
+    for nu in (1.05, 2.5, 50.0):
+        x_dev = qmc.chi2_from_bits(col.cuda(), nu, dtype=torch.float64)
+        x_cpu = qmc.chi2_from_bits(col, nu, dtype=torch.float64).numpy()
+        rel = np.abs(x_dev.cpu().numpy() - x_cpu) / x_cpu
+        worst = float((rel / _chi2_bound(x_cpu, col.numpy(), nu)).max())
+        print(f"chi2_from_bits nu={nu}: card vs CPU, largest relative gap "
+              f"{rel.max():.3e}, largest share of its bound {worst:.3f}")
+        if not worst <= 1.0:
+            fail(f"chi2_from_bits nu={nu} differs on the card: {rel.max()}")
+        out[f"chi2_nu{nu}_max_rel"] = float(rel.max())
+    gen = torch.Generator(device="cuda")
+    times = {}
+    for label, fn in (
+            ("scrambled bits d=32", lambda: qmc.scrambled_bits(
+                gen.manual_seed(1), 32, n)),
+            ("scrambled bits d=33", lambda: qmc.scrambled_bits(
+                gen.manual_seed(1), 33, n)),
+            ("normals f32 d=32", lambda: qmc.normal(gen.manual_seed(1), n,
+                                                    32)),
+            ("chi2 Newton (25 steps, f64)", lambda: qmc.chi2_from_bits(
+                dev[:, d - 1], 2.0, dtype=torch.float32))):
+        times[label] = _time_ms(fn, 10)
+    print(f"QMC at N={n} on the card: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in times.items()))
+    out["ms"] = times
+    return out
+
+
+def _step_mean(label):
+    steps = STEP_TIMES[label]
+    return float(np.mean(steps[1:])) if len(steps) > 1 else float(steps[0])
+
+
+def _f0_spread(theta5, qmc_on, n=16384, reps=8):
+    """F0 at theta5 over ``reps`` randomizations of n draws: the norm of
+    its per-entry standard deviation over the norm of its mean."""
+    state, tdvp = driver.build_problem(preset(
+        "fokkerPlanck32", device="cuda", qmc=qmc_on, n_samples_tdvp=n,
+        n_samples_obs=n))[:2]
+    F = []
+    for s in range(reps):
+        theta_c, x = _batch(state, theta5, n, 60 + s)
+        F.append(tdvp._direct_stats(theta_c, 0.0, x)["F0"].double())
+    F = torch.stack(F)
+    return float(F.std(0).norm() / F.mean(0).norm())
+
+
+def phase_qmc_paths(theta5):
+    """I2 (phase 32): fokkerPlanck32 --qmc through driver.main at N=16384
+    for 5 fixed-Heun steps (exactly 10 plain-mode launches) and at the
+    production point (N=524288 in chunks of 65536, tri2 + int8) for 3
+    steps (exactly 48 split, 96 quant8 and 6 pilot launches); no NaN,
+    residual below 1e-3 (_drive), each mean step beside the pseudo-random
+    run's of phases 5 and 7; then the spread of F0 over 8 randomizations
+    at the theta phase 5 ends on, QMC against pseudo-random draws at
+    N=16384 (printed, no gate)."""
+    out = {}
+    label = "fokkerPlanck32 --qmc N=16384"
+    _, _, counts = _drive(["fokkerPlanck32", "--qmc"], label, 5)
+    if counts["persample"] != 10 or counts["persample_split"]:
+        fail(f"{label}: launches {counts}, expected 10 plain-mode")
+    out["direct"] = dict(launches=counts["persample"],
+                         s_per_step=_step_mean(label),
+                         prng_s_per_step=_step_mean(MAIN_LABEL))
+    plabel = "fokkerPlanck32 --qmc N=524288 chunked tri2+int8"
+    _, _, counts = _drive(
+        ["fokkerPlanck32", "--qmc", "--samples", str(QMC_N), "--chunk-size",
+         "65536", "--gram-backend", "tri2", "--gram-cross", "int8"],
+        plabel, 3)
+    want = dict(persample_split=48, quant8=96, persample=6)
+    if any(counts[k] != v for k, v in want.items()):
+        fail(f"{plabel}: launches {counts}, expected {want}")
+    out["production"] = dict(launches=want, s_per_step=_step_mean(plabel),
+                             prng_s_per_step=_step_mean(CHUNKED_LABEL))
+    for key, lab in (("direct", label), ("production", plabel)):
+        o = out[key]
+        print(f"{lab}: {o['s_per_step']:.4f} s per step against "
+              f"{o['prng_s_per_step']:.4f} s with pseudo-random draws "
+              f"(ratio {o['s_per_step'] / o['prng_s_per_step']:.4f})")
+    spread = {name: _f0_spread(theta5, on)
+              for name, on in (("qmc", True), ("prng", False))}
+    print(f"F0 at phase 5's theta, N=16384, 8 randomizations: relative "
+          f"spread QMC {spread['qmc']:.4e}, pseudo-random "
+          f"{spread['prng']:.4e} (ratio "
+          f"{spread['prng'] / spread['qmc']:.3f})")
+    out["f0_spread"] = spread
+    return out
+
+
+def phase_qmc_student(dev):
+    """I3 (phase 33): the Student-t + global affine fokkerPlanck32 with
+    --qmc through driver.run at N=16384 for 4 steps (exactly 8 plain-mode
+    launches); then the kernel held to plain f32 on QMC draws of the
+    joint (d+1)-column net at phase 15's perturbed theta (nu = 2.5) with
+    phase 15's grading (GRADE_Q, GRADE_MAX), the largest |x| of the QMC
+    and the pseudo-random draws printed."""
+    n_steps = 4
+    label = "fokkerPlanck32 Student-t + global affine --qmc N=16384"
+    cfg = preset("fokkerPlanck32", latent_name="Student_t",
+                 global_affine=True, qmc=True, device="cuda")
+    state, _, counts = _drive(None, label, n_steps, cfg=cfg)
+    if not state.flow.qmc or counts["persample"] != 2 * n_steps:
+        fail(f"{label}: launches {counts}, expected {2 * n_steps}")
+    flow, _, perturbed, dirs = _student_problem(dev)
+    params = flow.layout.unravel(perturbed)
+    reach = {}
+    for name, f in (("qmc", dataclasses.replace(flow, qmc=True)),
+                    ("prng", flow)):
+        gen = torch.Generator(device=dev).manual_seed(12)
+        x, _ = f.push(params, f.latent_sample(gen, params, 16384,
+                                              torch.float32))
+        reach[name] = float(x.abs().max())
+        if name == "qmc":
+            err = _persample_vs_plain(flow, perturbed, x, dirs,
+                                      "Student-t perturbed, QMC draws",
+                                      grade=True)
+    print(f"Student-t perturbed theta, N=16384: largest |x| of the QMC "
+          f"draws {reach['qmc']:.2f}, of the pseudo-random ones "
+          f"{reach['prng']:.2f}")
+    return dict(launches=counts["persample"], s_per_step=_step_mean(label),
+                max_abs_err_O=err, max_abs_x=reach)
+
+
+def _eloc_block_vs_trace(name, precision, theta=None, n=16384, seed=70):
+    """E_loc of one batch under hessian_mode block and trace on the same
+    draws (``theta``: f32 on the card, default the preset's initial one),
+    and the f64 trace-mode E_loc of the plain pipeline on them."""
+    out = {}
+    for mode in ("block", "trace"):
+        state, tdvp = driver.build_problem(preset(
+            name, device="cuda", precision=precision, hessian_mode=mode,
+            n_samples_tdvp=n, n_samples_obs=n))[:2]
+        th = state.theta if theta is None else theta
+        theta_c, x = _batch(state, th, n, seed)
+        theta_c, x = theta_c.to(state.theta.dtype), x.to(state.theta.dtype)
+        out[mode] = tdvp._per_sample_batch(theta_c, x, 0.1)[1]
+        out[f"{mode}_tdvp"] = tdvp
+    eq = out["trace_tdvp"].equation
+    dirs = torch.as_tensor(eq.hessian_trace_dirs(state.flow.dim),
+                           dtype=torch.float64, device=x.device)
+    _, g, quad, _ = persample.per_sample_plain(state.flow, theta_c.double(),
+                                               x.double(), dirs)
+    out["f64"] = eq.eloc(x.double(), g, quad, 0.1)
+    return out
+
+
+def phase_hessian_block(theta5):
+    """I4 (phase 34): fokkerPlanck32 --hessian-mode block at N=16384, the
+    16 x 16 momentum block on the torch.func pipeline: 2 steps through
+    the CLI with no kernel launch, no NaN, residual below 1e-3, timed;
+    on one batch at the theta phase 5 ends on, the block-mode E_loc (f32,
+    torch.func) and the trace-mode one (f32, the kernel) against the f64
+    plain pipeline's, the block within 4 times the kernel's error or
+    1e-5 of the largest value; mwe and diffusion_anisotropic in f64,
+    block against trace on the same draws, within 1e-10."""
+    label = "fokkerPlanck32 --hessian-mode block N=16384"
+    _, _, counts = _drive(["fokkerPlanck32", "--hessian-mode", "block"],
+                          label, 2)
+    if any(counts.values()):
+        fail(f"{label} launched kernels: {counts}")
+    e = _eloc_block_vs_trace("fokkerPlanck32", "tpu", theta=theta5)
+    if e["block_tdvp"].uses_kernel or not e["trace_tdvp"].uses_kernel:
+        fail("the block mode must run the torch.func pipeline, trace mode "
+             "the kernel")
+    scale = e["f64"].abs().max()
+    err_b, err_t = (_rel(e[m], e["f64"], scale) for m in ("block", "trace"))
+    print(f"fokkerPlanck32 N=16384 E_loc against the f64 plain pipeline: "
+          f"block (f32 torch.func) {err_b:.3e}, trace (f32 kernel) "
+          f"{err_t:.3e} of the largest value (bound max(4 x trace, 1e-5))")
+    if not err_b <= max(4.0 * err_t, 1e-5):
+        fail(f"block-mode E_loc off by {err_b}")
+    out = dict(launches=0, s_per_step=_step_mean(label),
+               prng_trace_s_per_step=_step_mean(MAIN_LABEL),
+               eloc_err_block_f32=err_b, eloc_err_trace_kernel=err_t)
+    for name in ("mwe", "diffusion_anisotropic"):
+        e = _eloc_block_vs_trace(name, "f64", n=4096)
+        rel = _rel(e["block"], e["trace"])
+        print(f"{name} f64 N=4096: block against trace E_loc {rel:.3e} "
+              f"(tol 1e-10)")
+        if not rel < 1e-10:
+            fail(f"{name}: block E_loc differs from trace: {rel}")
+        out[f"{name}_block_vs_trace"] = rel
+    print(f"{label}: {out['s_per_step']:.4f} s per step against "
+          f"{out['prng_trace_s_per_step']:.4f} s in trace mode (the kernel)")
+    return out
+
+
+def phase_integrals():
+    """I5 (phase 35): mwe in f64 with integrals=True (dt 1e-2) for 10
+    steps: each of the three integrals within 5 Monte Carlo standard
+    errors of 1 - exp(-r^2 / (2 sigma^2(t))), sigma^2(t) = 1 + 2t (the
+    standard error from p's first two moments on a 2-D ball); then
+    fokkerPlanck32 at N=16384 with integrals=True for 3 steps (exactly 6
+    plain-mode launches): finite values in [0, 1 + 5 SE], SE from p's
+    spread on one ball batch at the last theta, and the step time beside
+    phase 5's."""
+    n = 4096
+    cfg = preset("mwe", device="cuda", precision="f64", n_samples_tdvp=n,
+                 n_samples_obs=n, integrals=True, verbose=False, dt0=1e-2)
+    _, a, _ = _drive(None, "mwe f64 integrals", 10, dim=2, cfg=cfg)
+    s2 = 1.0 + 2.0 * a["times"]
+    out = {}
+    for label, lim in (("1", 1.0), ("0.5", 0.5), ("0.1", 0.1)):
+        r2 = lim**2 * 10.0
+        est = a[f"integral_{label}sigma"]
+        exact = 1.0 - np.exp(-r2 / (2.0 * s2))
+        m1 = exact / (math.pi * r2)
+        m2 = (1.0 - np.exp(-r2 / s2)) / (4.0 * math.pi**2 * s2 * r2)
+        se = math.pi * r2 * np.sqrt((m2 - m1**2) / n)
+        z = float((np.abs(est - exact) / se).max())
+        print(f"mwe integral_{label}sigma: last {est[-1]:.5f} vs "
+              f"{exact[-1]:.5f}, largest gap {z:.2f} SE over 10 steps")
+        if not z < 5.0:
+            fail(f"mwe integral_{label}sigma misses its closed form")
+        out[f"mwe_{label}sigma_max_se"] = z
+    label = "fokkerPlanck32 integrals N=16384"
+    state, a, counts = _drive(None, label, 3, cfg=preset(
+        "fokkerPlanck32", device="cuda", integrals=True))
+    if counts["persample"] != 6:
+        fail(f"{label}: launches {counts}, expected 6 plain-mode")
+    params = state.params
+    gen = torch.Generator(device="cuda").manual_seed(80)
+    ball = tdvp_mod.unit_ball(gen, 16384, 32, torch.float32, state.device)
+    for label_i, lim in (("1", 1.0), ("0.5", 0.5), ("0.1", 0.1)):
+        r = lim * math.sqrt(10.0)
+        p = torch.exp(state.flow.log_prob(params, r * ball)).double()
+        se = float(p.std()) * tdvp_mod._ball_volume(32, r) / math.sqrt(16384)
+        v = a[f"integral_{label_i}sigma"]
+        print(f"fokkerPlanck32 integral_{label_i}sigma per step "
+              f"{' '.join(f'{x:.4e}' for x in v)} (SE {se:.2e})")
+        if not (np.isfinite(v).all() and (v >= 0).all()
+                and (v <= 1.0 + 5 * se).all()):
+            fail(f"fokkerPlanck32 integral_{label_i}sigma out of range")
+    out["fokkerPlanck32"] = dict(
+        launches=counts["persample"], s_per_step=_step_mean(label),
+        prng_s_per_step=_step_mean(MAIN_LABEL))
+    print(f"{label}: {out['fokkerPlanck32']['s_per_step']:.4f} s per step "
+          f"against {out['fokkerPlanck32']['prng_s_per_step']:.4f} s "
+          f"without the integrals")
+    return out
+
+
+def phase_qmc_hessian_integrals(dev, theta5):
+    """I1-I5 (phases 31-35); returns their records and the kernels'
+    launches by path."""
+    out = {"qmc_draws": phase_qmc_draws(),
+           "qmc_paths": phase_qmc_paths(theta5),
+           "qmc_student": phase_qmc_student(dev),
+           "hessian_block": phase_hessian_block(theta5),
+           "integrals": phase_integrals()}
+    prod = "fokkerPlanck32 N=524288 chunked tri2+int8 --qmc"
+    paths = {"fokkerPlanck32 --qmc": out["qmc_paths"]["direct"]["launches"],
+             f"{prod} (pilots)": 6,
+             "fokkerPlanck32 Student-t + global affine --qmc":
+                 out["qmc_student"]["launches"],
+             "fokkerPlanck32 --hessian-mode block": 0,
+             "fokkerPlanck32 integrals":
+                 out["integrals"]["fokkerPlanck32"]["launches"]}
+    return out, paths, {prod: 48}, {prod: 96}
+
+
 def main():
     phase_device()
     full_f32_matmuls()
@@ -2451,6 +2784,11 @@ def main():
     phase_fluidpaper_adaptive(steppers)
     solvers, solver_paths, split_paths, q8_paths = phase_solvers(theta5)
     paths.update(solver_paths)
+    qhi, qhi_paths, qhi_split, qhi_q8 = phase_qmc_hessian_integrals(
+        dev, theta5)
+    paths.update(qhi_paths)
+    split_paths.update(qhi_split)
+    q8_paths.update(qhi_q8)
     ranks = phase_mesh()
     for name in ("persample_sharded", "metropolis_sharded"):
         results[name] = dict(ranks[0][name])
@@ -2487,6 +2825,7 @@ def main():
     print(json.dumps({"steppers": steppers}))
     print(json.dumps({"solvers": solvers}))
     print(json.dumps({"mesh_paths": mesh_paths}))
+    print(json.dumps({"qmc_hessian_integrals": qhi}))
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name],

@@ -891,3 +891,46 @@ def test_default_product_is_one_bf16_pass(dev):
     full = stats.contract(a.T, a, "high")
     gap_f32 = float((full.double() - ref).abs().max() / ref.abs().max())
     assert 1e-5 < gap < 1e-2 and gap_f32 < 1e-6, (gap, gap_f32)
+
+
+@pytest.mark.parametrize("dim,n", [(33, 65536), (1, 4097)])
+def test_qmc_bits_on_the_card_match_the_cpu(dev, dim, n):
+    """The scrambled Sobol net (sampling/qmc.py) from the same words on
+    the card and on the CPU: bit for bit; the f32 normals on the card
+    within 8 f32 ulps of max(|z|, 1) of the CPU's f64 ones."""
+    from vmc_pde_torch.sampling import qmc
+
+    lms, shift = qmc.draw_words(torch.Generator().manual_seed(dim), dim)
+    cpu = qmc.scrambled_bits_from_words(n, lms, shift)
+    got = qmc.scrambled_bits_from_words(n, lms.to(dev), shift.to(dev))
+    assert torch.equal(got.cpu(), cpu)
+    z = qmc._mirrored_ndtri(got, torch.float32).cpu().double()
+    ref = qmc._mirrored_ndtri(cpu, torch.float64)
+    assert float(((z - ref).abs() / ref.abs().clamp_min(1.0)).max()) \
+        <= 8 * 2.0**-23
+
+
+@pytest.mark.parametrize("nu", [1.05, 2.5, 50.0])
+def test_qmc_chi2_on_the_card_matches_the_cpu(dev, nu):
+    """chi2_from_bits (f64 Newton on torch.special.gammainc) on the card
+    against the CPU on the same bits, both 30-bit extremes included:
+    within 1e-10 relative plus the inversion's conditioning, 16 eps u /
+    (x pdf(x)) (tests/test_torch_qmc.py's bound, with 1e-8 above nu = 40
+    for torch's gammainc at large shape)."""
+    from scipy.stats import chi2 as schi2
+
+    from vmc_pde_torch.sampling import qmc
+
+    bits = torch.cat([
+        qmc.scrambled_bits(torch.Generator().manual_seed(4), 1, 65536)[:, 0],
+        torch.tensor([0, 1, 2**29, 2**30 - 2, 2**30 - 1],
+                     dtype=torch.int32)])
+    cpu = qmc.chi2_from_bits(bits, nu, dtype=torch.float64).numpy()
+    got = qmc.chi2_from_bits(bits.to(dev), torch.tensor(
+        nu, dtype=torch.float64, device=dev), dtype=torch.float64)
+    got = got.cpu().numpy()
+    u = (bits.numpy().astype(np.float64) + 0.5) * 2.0**-30
+    tol = (np.full(u.shape, 1e-8) if nu > 40 else
+           1e-10 + 16 * np.finfo(np.float64).eps * u
+           / (cpu * schi2.pdf(cpu, nu)))
+    assert (np.abs(got - cpu) / cpu <= tol).all()

@@ -78,11 +78,11 @@ def test_eloc_matches_jax(name, params):
 
 def test_unported_paths_raise():
     """What the port still refuses raises NotImplementedError naming
-    ROADMAP.md: the Hessian block mode, the MC sphere integrals, and cg,
-    minsr, the host solve and the gram precisions beyond the f32 product
-    on a mesh (the gate itself, at a world of 2). The adaptive steppers
-    and minsr, cg and f64acc, refused before they were ported, now build
-    and give a finite step or RHS."""
+    ROADMAP.md: cg, minsr, the host solve and the gram precisions beyond
+    the f32 product on a mesh (the gate itself, at a world of 2). The
+    adaptive steppers, minsr, cg, f64acc, the Hessian block mode and the
+    MC sphere integrals, refused before they were ported, now build and
+    give a finite step or RHS."""
     _, tdvp, stepper = driver.build_problem(preset(
         "mwe", device="cpu", stepper="adaptive_heun", n_samples_tdvp=256,
         n_samples_obs=256))[:3]
@@ -96,13 +96,12 @@ def test_unported_paths_raise():
     eq = evolution.make_equation("diffusion", DIM)
     for cfg in (TDVPConfig(solver_method="minsr"),
                 TDVPConfig(solver_method="cg"),
-                TDVPConfig(gram_precision="f64acc", chunk_size=4)):
+                TDVPConfig(gram_precision="f64acc", chunk_size=4),
+                TDVPConfig(hessian_mode="block"),
+                TDVPConfig(integrals=True)):
         update, aux = TDVP(state, eq, cfg, n_samples=8).rhs(theta, 0.0, 3)
         assert torch.isfinite(update).all() and not bool(aux["nan"])
-    for cfg in (TDVPConfig(hessian_mode="block"),
-                TDVPConfig(integrals=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TDVP(state, eq, cfg, n_samples=8)
+    assert torch.isfinite(aux["integral_0.5sigma"])
     for cfg, method in ((TDVPConfig(), "cg"), (TDVPConfig(), "minsr"),
                         (TDVPConfig(gram_precision="f64acc"), "eigh"),
                         (TDVPConfig(gram_precision="f64"), "eigh"),

@@ -28,6 +28,10 @@ class RunConfig:
     alpha: float = 10.0
     init_scale: float = 1e-5
     seed: int = 1
+    # randomized-QMC (scrambled Sobol) exact-latent draws
+    # (sampling/qmc.py): Gauss and Student_t latents only; the MCMC
+    # presets ignore it
+    qmc: bool = False
 
     # sampling
     sample_seed: int = 1
@@ -61,7 +65,7 @@ class RunConfig:
                                     # f64acc (parallel/stats.py)
     gram_backend: str = "auto"      # auto | xla | syrk | sym2 | tri2
     gram_cross: str = "auto"        # auto | bf16 | int8 (split cross pass)
-    hessian_mode: str = "auto"
+    hessian_mode: str = "auto"      # auto | trace | block (TDVPConfig)
     # auto | torch | cuda (the JAX package's xla | pallas)
     per_sample_backend: str = "auto"
     cg_maxiter: int = 250
@@ -70,6 +74,9 @@ class RunConfig:
     auto_tol_floor: bool = True
     # > 0: stream the statistics in chunks of this many samples
     chunk_size: int = 0
+    # the MC integrals of p over three balls in the observables
+    # (TDVPConfig.integrals; no flag, as in the JAX package)
+    integrals: bool = False
 
     # time integration: fixed_heun | fixed_euler | fixed_rk3 |
     # adaptive_heun | adaptive_rk23 (solver/steppers.py)

@@ -19,6 +19,8 @@ the reference-compatible infos schema.
     python -m vmc_pde_torch.driver fokkerPlanck32 --precision tpu_f64stats \
         --gram-precision f64
     python -m vmc_pde_torch.driver mwe --precision f64 --host-solve
+    python -m vmc_pde_torch.driver fokkerPlanck32 --qmc
+    python -m vmc_pde_torch.driver fokkerPlanck32 --hessian-mode block
 
 One process per rank on a mesh (parallel/mesh.py), each started with
 its --process-id, e.g. two ranks on the CPU:
@@ -55,6 +57,7 @@ import torch
 
 from .config import RunConfig
 from .models.flow import build_flow
+from .models.latent import EXACT_NAMES
 from .models.state import VarState
 from .ops.evolution import make_equation
 from .parallel import mesh
@@ -94,7 +97,8 @@ def build_problem(cfg: RunConfig, ctx=None):
         cfg.seed, cfg.dim, depth=cfg.depth, hidden=cfg.hidden_resolved(),
         variant=cfg.variant, global_affine=cfg.global_affine,
         latent_name=cfg.latent_name, offset=cfg.offset, alpha=cfg.alpha,
-        out_scale=cfg.init_scale, dtype=precision.compute, device=device)
+        out_scale=cfg.init_scale, dtype=precision.compute, device=device,
+        qmc=cfg.qmc and cfg.latent_name in EXACT_NAMES)
     state = VarState(flow, theta, sampler=sampler, precision=precision,
                      ctx=ctx)
     equation = make_equation(cfg.equation, cfg.dim, **cfg.equation_params)
@@ -107,7 +111,7 @@ def build_problem(cfg: RunConfig, ctx=None):
         solve_on_device=cfg.solve_on_device,
         gram_precision=cfg.gram_precision,
         gram_backend=cfg.gram_backend, gram_cross=cfg.gram_cross,
-        chunk_size=cfg.chunk_size,
+        chunk_size=cfg.chunk_size, integrals=cfg.integrals,
         stats_partitioning=cfg.stats_partitioning,
         per_sample_backend=cfg.per_sample_backend,
         hessian_mode=cfg.hessian_mode, auto_tol_floor=cfg.auto_tol_floor,
@@ -302,6 +306,15 @@ def main(argv=None, callbacks=()):
     p.add_argument("--is-gamma", type=float, default=None,
                    help="<1: tail-tempered importance sampling of the TDVP "
                         "statistics (Student_t latent; TDVPConfig.is_gamma)")
+    p.add_argument("--hessian-mode", type=str, default=None,
+                   choices=["auto", "trace", "block"],
+                   help="per-sample Hessian: the quadratic trace along the "
+                        "equation's directions (the kernel's) or the (k, k) "
+                        "block (torch.func)")
+    p.add_argument("--qmc", action="store_true",
+                   help="randomized-QMC (scrambled Sobol) exact-latent "
+                        "draws: lower estimator noise at the same sample "
+                        "budget (sampling/qmc.py)")
     p.add_argument("--stepper", type=str, default=None,
                    choices=["fixed_heun", "fixed_euler", "fixed_rk3",
                             "adaptive_heun", "adaptive_rk23"],
@@ -362,8 +375,10 @@ def main(argv=None, callbacks=()):
         overrides["solve_on_device"] = False
     if args.solver is not None:
         overrides["solver_method"] = args.solver
+    if args.qmc:
+        overrides["qmc"] = True
     for name in ("gram_backend", "gram_cross", "gram_precision",
-                 "chunk_size", "is_gamma",
+                 "chunk_size", "is_gamma", "hessian_mode",
                  "stats_partitioning", "mesh_dp", "mesh_tp", "stepper",
                  "steps_per_dispatch"):
         if getattr(args, name) is not None:

@@ -34,6 +34,9 @@ class Flow:
     blocks: Tuple[coupling.BlockSpec, ...]
     latent_name: str = "Gauss"
     offset: Tuple[float, ...] = None
+    # randomized-QMC exact-latent draws (sampling/qmc.py) in every
+    # latent_sample and latent_sample_tempered call
+    qmc: bool = False
 
     def __post_init__(self):
         if self.offset is None:
@@ -95,7 +98,7 @@ class Flow:
                       dtype: torch.dtype):
         """n latent draws with the offset applied, shape (n, dim)."""
         z = latent.sample(self.latent_name, gen, params["latent"], self.dim,
-                          n, dtype)
+                          n, dtype, qmc=self.qmc)
         return z + self._offset(z)
 
     def latent_sample_tempered(self, gen: torch.Generator, params, n: int,
@@ -106,7 +109,7 @@ class Flow:
         if self.latent_name != "Student_t":
             raise ValueError("tempered sampling is a Student_t feature")
         z, log_w = latent.student_t_tempered_sample(
-            gen, params["latent"], self.dim, n, gamma, dtype)
+            gen, params["latent"], self.dim, n, gamma, dtype, qmc=self.qmc)
         return z + self._offset(z), log_w
 
 
@@ -151,6 +154,7 @@ def build_flow(
     out_scale: float = 1e-5,
     dtype: torch.dtype = torch.float32,
     device="cpu",
+    qmc: bool = False,
 ):
     """(Flow, theta) the way the JAX package's build_flow constructs them.
     Partitions and initial weights come from a numpy generator seeded by
@@ -167,7 +171,7 @@ def build_flow(
     offset = tuple(float(o) for o in
                    (offset if offset is not None else np.zeros(dim)))
     flow = Flow(dim=dim, blocks=blocks, latent_name=latent_name,
-                offset=offset)
+                offset=offset, qmc=qmc)
     theta = torch.as_tensor(flow.layout.ravel(flow.init(rng)), dtype=dtype,
                             device=device)
     return flow, theta

@@ -16,8 +16,8 @@ deformation) and have no closed-form sampler; the Metropolis sampler
 draws them (sampling/sampler.py). Gauss and Student-t draw exactly; the
 Student-t chi^2 mixing variable comes from the caller's generator, and
 ``student_t_tempered_sample`` draws the heavier-tailed importance proposal
-of the TDVP's ``is_gamma``. The JAX package's randomized-QMC draws are not
-ported yet (ROADMAP.md).
+of the TDVP's ``is_gamma``. With ``qmc`` both draw from a scrambled Sobol
+net instead (sampling/qmc.py).
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ import math
 
 import numpy as np
 import torch
+
+from ..sampling import qmc as _qmc
 
 NAMES = ("Gauss", "Student_t", "cos_dist", "double_well")
 EXACT_NAMES = ("Gauss", "Student_t")  # closed-form samplers exist
@@ -150,27 +152,41 @@ def log_prob(name: str, latent_params, dim: int, x):
 
 
 def sample(name: str, gen: torch.Generator, latent_params, dim: int, n: int,
-           dtype: torch.dtype):
+           dtype: torch.dtype, qmc: bool = False):
     """n exact draws, shape (n, dim): z = mu + U eps (Gauss) or
     z = mu + U eps sqrt(nu / chi^2_nu) (Student-t, chi^2_nu = 2 Gamma(nu/2)
-    from the same generator)."""
+    from the same generator). ``qmc``: eps (and chi^2) from one scrambled
+    Sobol net of the generator's randomization; for Student-t one joint
+    (dim + 1)-column net, its last column the chi^2, so that radius and
+    directions equidistribute jointly."""
     check_name(name)
     if name not in EXACT_NAMES:
         raise ValueError(f"no closed-form sampler for latent {name!r}")
     mu = latent_params["mu"]
-    eps = torch.randn((n, dim), generator=gen, dtype=dtype, device=mu.device)
+    student = name == "Student_t"
+    if qmc:
+        bits = _qmc.scrambled_bits(gen, dim + 1 if student else dim, n,
+                                   mu.device)
+        eps = _qmc._mirrored_ndtri(bits[:, :dim], dtype)
+    else:
+        eps = torch.randn((n, dim), generator=gen, dtype=dtype,
+                          device=mu.device)
     U = chol_factor(latent_params, dim).to(dtype)
     z = eps @ U.T
-    if name == "Student_t":
+    if student:
         nu = nu_value(latent_params).to(dtype)
-        chi2 = 2.0 * torch._standard_gamma(
-            (0.5 * nu).expand(n).contiguous(), generator=gen)
+        if qmc:
+            chi2 = _qmc.chi2_from_bits(bits[:, dim], nu, dtype=dtype)
+        else:
+            chi2 = 2.0 * torch._standard_gamma(
+                (0.5 * nu).expand(n).contiguous(), generator=gen)
         z = z * (nu / chi2).sqrt()[:, None]
     return z + mu.to(dtype)
 
 
 def student_t_tempered_sample(gen: torch.Generator, latent_params, dim: int,
-                              n: int, gamma: float, dtype: torch.dtype):
+                              n: int, gamma: float, dtype: torch.dtype,
+                              qmc: bool = False):
     """Tail-tempered importance proposal of the Student-t TDVP statistics:
     z drawn from the heavier-tailed t_{nu_q}(mu, S), nu_q = max(gamma nu,
     1.05), and log_w = log t_nu(z) - log t_{nu_q}(z). The proposal
@@ -180,7 +196,7 @@ def student_t_tempered_sample(gen: torch.Generator, latent_params, dim: int,
     q_params = dict(latent_params)
     q_params["dist_params"] = (nu_q - 1.0).log().reshape(1).to(
         latent_params["dist_params"].dtype)
-    z = sample("Student_t", gen, q_params, dim, n, dtype)
+    z = sample("Student_t", gen, q_params, dim, n, dtype, qmc=qmc)
     log_w = (student_t_log_prob(latent_params, dim, z)
              - student_t_log_prob(q_params, dim, z))
     return z, log_w

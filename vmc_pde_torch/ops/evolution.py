@@ -4,8 +4,10 @@ Each equation computes the per-sample local "energy"
 
     Eloc_i = (d/dt) log p(x_i)   prescribed by the PDE at sample x_i,
 
-from the coordinate score g = grad_x log p and the Hessian quadratic trace
-along ``hessian_trace_dirs``. All six equations of the JAX package:
+from the coordinate score g = grad_x log p and ``hess``: the Hessian
+quadratic trace along ``hessian_trace_dirs`` (ndim 1), or the (N, k, k)
+Hessian block in the coordinates ``hessian_coords`` (ndim 3, the TDVP's
+block mode). All six equations of the JAX package:
 
 - ``diffusion``: dp/dt = D lap p, Eloc = D (|g|^2 + tr H);
 - ``diffusion_drift``: adds the drift mu sum_i g_i;
@@ -88,11 +90,17 @@ class Equation:
     def hessian_trace_dirs(self, dim: int) -> Optional[np.ndarray]:
         """(k, d) directions V when Eloc consumes the Hessian only through
         sum_j V_j^T H V_j; ``eloc`` then receives that scalar per sample
-        as a 1-D ``hess``."""
+        as a 1-D ``hess`` (or, in block mode, the block)."""
         return None
 
     def eloc(self, x, g, hess, t):
         raise NotImplementedError
+
+
+def _trace(hess):
+    """The trace-mode scalar, or the trace of each (k, k) block."""
+    return hess if hess.ndim == 1 else hess.diagonal(dim1=-2,
+                                                     dim2=-1).sum(-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,7 +117,7 @@ class Diffusion(Equation):
         return np.eye(dim)
 
     def eloc(self, x, g, hess, t):
-        return self.D * ((g**2).sum(-1) + hess)
+        return self.D * ((g**2).sum(-1) + _trace(hess))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -128,7 +136,7 @@ class DiffusionDrift(Equation):
         return np.eye(dim)
 
     def eloc(self, x, g, hess, t):
-        return self.D * ((g**2).sum(-1) + hess) + self.mu * g.sum(-1)
+        return self.D * ((g**2).sum(-1) + _trace(hess)) + self.mu * g.sum(-1)
 
 
 @functools.lru_cache(maxsize=None)
@@ -167,7 +175,8 @@ class DiffusionAnisotropic(Equation):
     def eloc(self, x, g, hess, t):
         D = device_constant(tuple(map(tuple, self.D_matrix.tolist())),
                             g.device, g.dtype)
-        return ((g @ D) * g).sum(-1) + hess
+        tr = hess if hess.ndim == 1 else torch.einsum("nij,ji->n", hess, D)
+        return ((g @ D) * g).sum(-1) + tr
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,7 +214,8 @@ class AdvectionHamiltonian(Equation):
 class FokkerPlanck(AdvectionHamiltonian):
     """Phase-space Fokker-Planck with momentum diffusion and damping. The
     per-site T weights ride the Hessian trace directions as
-    sqrt(T_i) e_{p_i}, so ``hess`` is already sum_i T_i H_{p_i p_i}."""
+    sqrt(T_i) e_{p_i}, so a 1-D ``hess`` is already sum_i T_i H_{p_i p_i};
+    the block is the momentum block."""
 
     T: object = 10.0  # float or per-site tuple, length dim // 2
     gamma: float = 1.0
@@ -237,7 +247,9 @@ class FokkerPlanck(AdvectionHamiltonian):
         g_p, x_p = g[..., 1::2], x[..., 1::2]
         Tv = device_constant(tuple(self._t_vec(x.shape[-1] // 2).tolist()),
                              g.device, g.dtype)
-        diff = self.m * self.gamma * ((g_p**2 * Tv).sum(-1) + hess)
+        lap_T = (hess if hess.ndim == 1
+                 else (hess.diagonal(dim1=-2, dim2=-1) * Tv).sum(-1))
+        diff = self.m * self.gamma * ((g_p**2 * Tv).sum(-1) + lap_T)
         damp = self.gamma * (x_p * g_p).sum(-1)
         return adv + diff + damp
 

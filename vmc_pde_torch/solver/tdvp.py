@@ -20,7 +20,9 @@ One right-hand side (RHS): draw latent z (exact draws, or n / n_chains
 sweeps of the Metropolis chains), push it through the inverse flow to
 samples x; per sample logp, score g, Hessian quadratic trace and
 the O row (kernels/persample.py: the CUDA kernel on the card, the
-torch.func pipeline otherwise); E_loc from the equation; the force
+torch.func pipeline otherwise), or under ``hessian_mode`` "block" the
+(k, k) Hessian block by torch.func (ops/score.py); E_loc from the
+equation; the force
 F = E[e_c O_c] and Gram S = E[O_c^T O_c] of the centered quantities (plus
 A = E[e_c^2 O_c^T O_c] for the per-mode SNR); solve S u = F regularized
 as the reference does; the update u is dtheta/dt.
@@ -71,6 +73,7 @@ import torch
 
 from ..kernels import persample, quant8, syrk
 from ..models.state import VarState
+from ..ops import score
 from ..ops.evolution import Equation
 from ..parallel import mesh, stats
 from ..utils.dtypes import Precision, full_f32_matmuls
@@ -128,6 +131,10 @@ class TDVPConfig:
     # (f64 under gram_precision="f64"; f32's eps / sqrt(n / chunk_size)
     # under "f64acc")
     auto_tol_floor: bool = True
+    # "trace": the quadratic trace along the equation's trace directions
+    # (the CUDA kernel's mode); "block": the (k, k) Hessian block in its
+    # hessian_coords (torch.func pipeline); "auto": trace where the
+    # equation gives directions, else the block
     hessian_mode: str = "auto"
     # "auto" | "shard_map" | "gspmd": the statistics on a mesh (module
     # docstring); one rank runs the single-device statistics whatever it is
@@ -148,6 +155,8 @@ class TDVPConfig:
     solve_on_device: bool = True
     chunk_size: int = 0
     observables: bool = True
+    # the observables add the Monte Carlo integrals of p over the balls of
+    # radius {1, 0.5, 0.1} sqrt(integral_T) (sphere_integrals)
     integrals: bool = False
     integral_T: float = 10.0
 
@@ -156,7 +165,7 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
 
 
-def _check_ported(cfg: TDVPConfig) -> None:
+def _check_config(cfg: TDVPConfig) -> None:
     if cfg.solver_method not in ("auto", "eigh", "cholesky", "cg", "minsr"):
         raise ValueError(f"unknown solver_method {cfg.solver_method!r}")
     if cfg.gram_precision not in stats.PRECISIONS:
@@ -169,17 +178,13 @@ def _check_ported(cfg: TDVPConfig) -> None:
         raise ValueError("tri2_target_block must be >= 0 (0 = 512)")
     if cfg.chunk_size < 0:
         raise ValueError("chunk_size must be >= 0")
-    if cfg.hessian_mode == "block":
-        raise _not_ported("hessian_mode='block'")
-    if cfg.hessian_mode not in ("auto", "trace"):
+    if cfg.hessian_mode not in ("auto", "trace", "block"):
         raise ValueError(f"unknown hessian_mode {cfg.hessian_mode!r}")
     if cfg.stats_partitioning not in ("auto", "gspmd", "shard_map"):
         raise ValueError(
             f"unknown stats_partitioning {cfg.stats_partitioning!r}")
     if cfg.sexp_mode not in ("none", "auto", "dense", "matfree"):
         raise ValueError(f"unknown sexp_mode {cfg.sexp_mode!r}")
-    if cfg.integrals:
-        raise _not_ported("the MC sphere integrals")
     if cfg.per_sample_backend not in ("auto", "torch", "cuda"):
         raise ValueError(f"unknown per_sample_backend "
                          f"{cfg.per_sample_backend!r} (auto, torch, cuda)")
@@ -404,6 +409,36 @@ def _solve_minsr(O_c, e_c, cfg: TDVPConfig, mode: str, sdt,
     return update, ev, snr, residual, tdvp_quad
 
 
+def _ball_volume(dim: int, radius: float) -> float:
+    return math.pi ** (dim / 2) / math.gamma(dim / 2 + 1) * radius**dim
+
+
+def unit_ball(gen: torch.Generator, n: int, dim: int, dtype, device):
+    """n points uniform in the unit ball: normal directions, normalized,
+    times radii u^(1/dim), drawn in that order from ``gen``."""
+    dirs = torch.randn((n, dim), generator=gen, dtype=dtype, device=device)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    radii = torch.rand((n,), generator=gen, dtype=dtype,
+                       device=device) ** (1.0 / dim)
+    return dirs * radii[:, None]
+
+
+def sphere_integrals(ctx, flow, params, ball, integral_T: float):
+    """The Monte Carlo integrals of p over the balls of radius {1, 0.5,
+    0.1} sqrt(integral_T) about the origin from the unit-ball points
+    ``ball`` (this rank's rows on a mesh): the global mean of p at the
+    scaled points times the ball's volume, under the reference's infos
+    keys (integral_1sigma, integral_0.5sigma, integral_0.1sigma)."""
+    n, d = ball.shape
+    out = {}
+    for label, lim in (("1", 1.0), ("0.5", 0.5), ("0.1", 0.1)):
+        r = lim * math.sqrt(integral_T)
+        p = torch.exp(flow.log_prob(params, r * ball))
+        (mean,) = stats.global_means(ctx, [p], n * ctx.world)
+        out[f"integral_{label}sigma"] = mean * _ball_volume(d, r)
+    return out
+
+
 class TDVP:
     """Fused TDVP right-hand side on one device, or on one rank of a mesh.
 
@@ -417,7 +452,7 @@ class TDVP:
                  cfg: TDVPConfig = TDVPConfig(), n_samples: int = 10000,
                  n_samples_obs: Optional[int] = None,
                  precision: Optional[Precision] = None):
-        _check_ported(cfg)
+        _check_config(cfg)
         full_f32_matmuls()
         self.state = state
         self.flow = state.flow
@@ -620,12 +655,33 @@ class TDVP:
                 "(use gram_backend='sym2'/'tri2')")
 
         self._unravel = self.flow.layout.unravel
+        # the Hessian as the JAX package selects it (tdvp.py:851-873): the
+        # quadratic trace along the equation's trace directions ("auto",
+        # "trace"), else the (k, k) block in its hessian_coords ("block",
+        # and "auto" for an equation that declares no trace directions)
         hess_idx = equation.hessian_coords(self.flow.dim)
-        dirs = equation.hessian_trace_dirs(self.flow.dim)
-        if hess_idx is not None and dirs is None:
-            raise _not_ported(f"the Hessian block of {equation.name!r}")
+        dirs = None
+        if cfg.hessian_mode in ("auto", "trace"):
+            dirs = equation.hessian_trace_dirs(self.flow.dim)
+            if (dirs is None and cfg.hessian_mode == "trace"
+                    and hess_idx is not None):
+                raise ValueError(
+                    f"equation {equation.name!r} needs the full Hessian "
+                    "block; hessian_mode='trace' is not available")
+        elif (hess_idx is None
+              and equation.hessian_trace_dirs(self.flow.dim) is not None):
+            raise ValueError(
+                f"equation {equation.name!r} declares only "
+                "hessian_trace_dirs (no hessian_coords block), so "
+                "hessian_mode='block' cannot serve it; use "
+                "hessian_mode='auto' or 'trace'")
         self._hess_dirs = None if dirs is None else torch.as_tensor(
             dirs, dtype=self.precision.compute, device=self.device)
+        # the block runs on the torch.func pipeline: the kernel serves
+        # trace mode only (persample.supports)
+        self._hess_block = (
+            score.make_flat_log_prob(self.flow, self._unravel), hess_idx
+        ) if dirs is None and hess_idx is not None else None
 
         kernel_ok = persample.supports(self.flow, dirs, hess_idx)
         backend = cfg.per_sample_backend
@@ -682,10 +738,14 @@ class TDVP:
 
     # ------------------------------------------------------------------
     def _per_sample_batch(self, theta_c, x, t):
-        """x: (n, d) -> (logp (n,), Eloc (n,), O (n, P))."""
-        logp, g, quad, O = self._per_sample(self.flow, theta_c, x,
+        """x: (n, d) -> (logp (n,), Eloc (n,), O (n, P)); E_loc takes the
+        trace, or in block mode the (n, k, k) Hessian blocks."""
+        logp, g, hess, O = self._per_sample(self.flow, theta_c, x,
                                             self._hess_dirs)
-        return logp, self.equation.eloc(x, g, quad, t), O
+        if self._hess_block is not None:
+            hess = score.batched_hessian_block(self._hess_block[0], theta_c,
+                                               x, self._hess_block[1])
+        return logp, self.equation.eloc(x, g, hess, t), O
 
     def _maybe_clip_eloc(self, eloc):
         """Winsorize E_loc at eloc_clip robust standard deviations
@@ -1073,7 +1133,7 @@ class TDVP:
         cfg = self.cfg
         ctx = self.ctx
         params = self._unravel(theta_c)
-        k_sample, k_obs, _, k_spec = (fold_in(key, i) for i in range(4))
+        k_sample, k_obs, k_int, k_spec = (fold_in(key, i) for i in range(4))
         z = z_ext
         mcmc = None
         log_w = None
@@ -1126,6 +1186,13 @@ class TDVP:
             else:
                 x_o, logp_o = x, logp
             aux = self._observables(x_o, logp_o, aux)
+            if cfg.integrals:
+                # fresh points from their own key (the JAX package's k_int)
+                ball = ctx.local_rows(unit_ball(
+                    self._gen(k_int), self.n_samples_obs, self.flow.dim,
+                    theta_c.dtype, self.device))
+                aux.update(sphere_integrals(ctx, self.flow, params, ball,
+                                            cfg.integral_T))
         if mcmc is not None:
             aux["_chain_state"] = mcmc["state"]
             aux["mcmc_accepted"] = mcmc["acc"]

@@ -44,8 +44,11 @@ def device_constant(values: tuple, device: torch.device,
                     dtype: torch.dtype = None) -> torch.Tensor:
     """The small constant ``values`` on ``device``, made once: a copy
     from host memory waits for the device, and the right-hand side needs
-    these constants on every call."""
-    return torch.as_tensor(values, dtype=dtype, device=device)
+    these constants on every call. Made outside any torch.func transform
+    in progress: a tensor made inside one is wrapped at that transform's
+    level, and the cached wrapper would escape it."""
+    with torch._C._DisableFuncTorch():
+        return torch.as_tensor(values, dtype=dtype, device=device)
 
 
 @dataclasses.dataclass(frozen=True)
