@@ -12,22 +12,30 @@ Tolerances:
   conditioning, 16 eps u / (x pdf(x)), the relative change of x when
   P(k, x) moves by 16 ulp of u (it dominates at the 30-bit top extreme,
   where P = 1 - 4.7e-10 and both packages' lower gammainc carry only
-  ~1e-7 of 1 - P: JAX itself misses scipy there by 2.7e-9 at nu = 1.05);
-  at nu = 50 the bound is 1e-8: torch.special.gammainc errs up to 1.8e-9
-  relative at a = 25, x ~ 17.6 (Temme's expansion; scipy and JAX agree
-  to 1e-16 there), which moves x by 2e-10. Against scipy.stats.chi2.ppf:
-  1e-6 relative at both 30-bit extremes, as the JAX test holds.
+  ~1e-7 of 1 - P: JAX itself misses scipy there by 2.7e-9 at nu = 1.05),
+  for every nu, 50 included (the port's last Newton steps run on its own
+  P(k, x), not on torch.special.gammainc, which errs 1.8e-9 relative at
+  a = 25). Against scipy.stats.chi2.ppf: 1e-6 relative at both 30-bit
+  extremes, as the JAX test holds.
+- gammainc_f64 against scipy.special.gammainc: 16 eps (1 + s) relative,
+  s = k |log x| + x + |lgamma k|, the size of the terms whose sum both
+  exponentiate away from x ~ k (the density x^k e^-x / Gamma(k)); near
+  x ~ k both take the Lanczos form and agree to a few ulps (scipy itself
+  lies up to 5e-15 from a 40-digit mpmath value at k = 1/2).
 - the latent draws on shared words: 1e-12 relative (f64; the same bits,
   then a triangular product and, for Student-t, the chi^2 above).
 - the variance-reduction and moment gates are the JAX tests' own
   (tests/test_sampling.py:225-310).
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from scipy import special
 from scipy.stats import chi2 as schi2
 from scipy.stats import qmc as sqmc
 
@@ -120,12 +128,8 @@ def test_chi2_from_bits_matches_jax_and_scipy(nu):
     got = qmc.chi2_from_bits(torch.from_numpy(bits.astype(np.int32)), nu,
                              dtype=torch.float64).numpy()
     u = (bits.astype(np.float64) + 0.5) * 2.0**-30
-    if nu < 40:
-        cond = 16 * np.finfo(np.float64).eps * u / (want *
-                                                    schi2.pdf(want, nu))
-        tol = 1e-10 + cond
-    else:
-        tol = 1e-8
+    cond = 16 * np.finfo(np.float64).eps * u / (want * schi2.pdf(want, nu))
+    tol = 1e-10 + cond
     err = np.abs(got - want) / want
     assert (err <= tol).all(), (err.max(), bits[np.argmax(err / tol)])
     exact = schi2.ppf((EXTREMES.astype(np.float64) + 0.5) * 2.0**-30, nu)
@@ -134,6 +138,25 @@ def test_chi2_from_bits_matches_jax_and_scipy(nu):
     got32 = qmc.chi2_from_bits(torch.from_numpy(bits.astype(np.int32)), nu)
     assert got32.dtype == torch.float32
     assert torch.equal(got32, torch.from_numpy(got).float())
+
+
+@pytest.mark.parametrize("k", [0.5, 1.25, 25.0, 50.0])
+def test_gammainc_f64_matches_scipy(k):
+    """P(k, x) at 2000 points across [1e-3 k, 5 k] plus the switch at
+    x = k + 1, for a number and a 0-dim tensor k: within 16 eps (1 + s)
+    of scipy (module docstring)."""
+    x = np.concatenate([np.geomspace(1e-3 * k, 5 * k, 2000),
+                        k + 1 + np.array([-1e-12, 0.0, 1e-12])])
+    want = special.gammainc(k, x)
+    s = k * np.abs(np.log(x)) + x + abs(math.lgamma(k))
+    tol = 16 * np.finfo(np.float64).eps * (1 + s)
+    for kk in (k, torch.tensor(k, dtype=torch.float64)):
+        got = qmc.gammainc_f64(kk, torch.from_numpy(x)).numpy()
+        err = np.abs(got - want) / want
+        assert (err <= tol).all(), (err.max(), x[np.argmax(err / tol)])
+    # near the mode both use the Lanczos form: a few ulps
+    near = np.abs(x - k) <= 0.4 * k
+    assert (np.abs(got - want)[near] <= 8e-15 * want[near]).all()
 
 
 @pytest.mark.parametrize("nu", [1.05, 8.0])

@@ -280,6 +280,33 @@ def scenario_driver(ctx, spec, inp, rank, world, wdir):
     return {"theta": np.stack(thetas), "same": np.asarray(same)}
 
 
+def scenario_resume(spec, inp, rank, world, wdir):
+    """The driver's checkpoint and resume on the mesh, every rank in one
+    workdir: ``argv`` with --checkpoint-every 1 for 2 steps (the
+    coordinator writes), then --resume for 1 step (every rank reads):
+    the resumed step's t and theta, whether theta is bitwise the
+    coordinator's, and the step the run resumed from."""
+    run_dir = os.path.join(wdir, "run")
+    argv = json.loads(str(inp["argv"])) + [
+        "--workdir", run_dir, "--mesh-dp", str(world)]
+    driver.main(argv + [
+        "--checkpoint-every", "1", "--max-steps", "2", "--distributed",
+        "--coordinator", f"file://{wdir}/rendezvous",
+        "--num-processes", str(world), "--process-id", str(rank)])
+    out = {}
+
+    def record(n_step, t, state, info):
+        theta = state.get_parameters()
+        out.update(step=np.int64(n_step), t=np.float64(t),
+                   theta=theta.numpy().copy(), same=bool(torch.equal(
+                       theta, mesh.broadcast_from_coordinator(theta))))
+
+    # the process group of the first run carries the second's mesh
+    driver.main(argv + ["--resume", "--max-steps", "1"],
+                callbacks=[record])
+    return out
+
+
 def scenario_cuda(ctx, spec, inp):
     """The two sharded wrappers' kernels against their plain versions on
     this rank's shard, and the gathered Metropolis shards against the
@@ -352,6 +379,8 @@ def main():
     inp = dict(np.load(os.path.join(wdir, "inputs.npz")))
     if scenario == "driver":
         out = scenario_driver(None, spec, inp, rank, world, wdir)
+    elif scenario == "resume":
+        out = scenario_resume(spec, inp, rank, world, wdir)
     else:
         device = "cuda" if scenario == "cuda" else "cpu"
         mesh.distributed_init(f"file://{wdir}/rendezvous", world, rank,

@@ -1,7 +1,8 @@
 """Experiment configuration, the counterpart of vmc_pde_tpu/config.py:
 all of its presets. Field names and defaults follow the JAX package's
-RunConfig; fields of paths not ported yet are left out, and ``device``
-is new: the port runs on one explicit torch device per rank.
+RunConfig; ``aot_dir`` (an XLA executable cache: eager torch compiles
+nothing ahead of time) is left out, and ``device`` is new: the port runs
+on one explicit torch device per rank.
 """
 
 from __future__ import annotations
@@ -110,6 +111,19 @@ class RunConfig:
     grid_points: int = 200
     plot_every: float = 1.0
     workdir: Optional[str] = None
+    # also stream each step's infos (times, dt, the stepper's diagnostics,
+    # dist_params) through the native recorder (native/recorder.cpp) into
+    # <workdir>/metrics.bin: one host read per step, the file written by a
+    # background thread (utils/recorder.py). Needs workdir
+    async_recorder: bool = False
+    checkpoint_every: int = 0       # steps; 0 = off (utils/checkpoint.py)
+    resume: bool = False            # resume from workdir's latest checkpoint
+    # start from stored parameters instead of the random init: an npz
+    # holding theta (an evolution checkpoint, or pretrain/train.py's
+    # <workdir>/pretrain_ckpt.npz); the flow must be the one that wrote it
+    init_params: Optional[str] = None
+    profile_dir: Optional[str] = None  # torch.profiler trace of a window
+    profile_steps: Tuple[int, int] = (5, 8)  # [start, end) steps traced
     nan_check_every: int = 10
     verbose: bool = True
 

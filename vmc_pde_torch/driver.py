@@ -21,6 +21,11 @@ the reference-compatible infos schema.
     python -m vmc_pde_torch.driver mwe --precision f64 --host-solve
     python -m vmc_pde_torch.driver fokkerPlanck32 --qmc
     python -m vmc_pde_torch.driver fokkerPlanck32 --hessian-mode block
+    python -m vmc_pde_torch.driver fokkerPlanck32 --seed 3 \
+        --workdir run --checkpoint-every 10 --async-recorder
+    python -m vmc_pde_torch.driver fokkerPlanck32 --workdir run --resume
+    python -m vmc_pde_torch.driver fokkerPlanck32 --profile-dir prof
+    python -m vmc_pde_torch.driver mwe --init-params pre/pretrain_ckpt.npz
 
 One process per rank on a mesh (parallel/mesh.py), each started with
 its --process-id, e.g. two ranks on the CPU:
@@ -29,7 +34,19 @@ its --process-id, e.g. two ranks on the CPU:
         --distributed --coordinator localhost:29500 --num-processes 2 \
         --process-id 0 --mesh-dp 2
 
-Only the coordinator (rank 0) prints and writes infos.hdf5.
+Only the coordinator (rank 0) prints and writes: infos.hdf5, the
+checkpoints, metrics.bin; every rank reads the checkpoint it resumes from.
+
+Run state (utils/checkpoint.py, utils/recorder.py, utils/timings.py):
+``--checkpoint-every K`` writes theta, t, the step counter and the
+stepper's dt after every K-th step into the workdir; ``--resume`` starts
+from the workdir's latest checkpoint and, since the step keys are
+``fold_in(sample_seed + 7, n_step)``, draws the samples the uninterrupted
+run would have drawn (the Metropolis chains' state is not saved: exact
+for the exact-latent presets). ``--resume`` wins over ``--init-params``
+when a checkpoint exists. ``--profile-dir`` traces the steps in
+``[profile_steps[0], profile_steps[1])`` with torch.profiler into
+``trace_rank<r>.json``.
 
 The latent family and the learned global affine have no flags, as in the
 JAX package: ``run(preset("fokkerPlanck32", latent_name="Student_t",
@@ -49,8 +66,8 @@ JAX package keeps its retry loop on the device.
 
 from __future__ import annotations
 
+import contextlib
 import os
-import time
 
 import numpy as np
 import torch
@@ -65,8 +82,10 @@ from .sampling.sampler import Sampler
 from .solver.steppers import AdaptiveHeun, AdaptiveRK23, FixedStepper
 from .solver.tdvp import TDVP, TDVPConfig, fold_in
 from .utils import dtypes
+from .utils.checkpoint import latest_checkpoint, save_checkpoint
 from .utils.grid import Grid
 from .utils.infos import InfoRecorder, store_infos
+from .utils.timings import Timings, profiler_trace
 
 
 def resolve_device(name: str) -> torch.device:
@@ -150,6 +169,75 @@ def build_problem(cfg: RunConfig, ctx=None):
     return state, tdvp, stepper, equation, grid
 
 
+def load_init_params(path: str, state) -> torch.Tensor:
+    """The flat master-dtype theta stored in ``path``: an npz holding
+    ``theta`` (an evolution checkpoint, utils/checkpoint.py, of either
+    package, or the port's pretrain checkpoint, pretrain/train.py), on the
+    state's device. The flow must be the one that wrote it: a theta from
+    the JAX package means the same density only in a flow built from the
+    JAX partitions (models/convert.py), not in the port's build_flow."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"init_params {path!r} is a directory: the JAX package's orbax "
+            "pytree checkpoint (its pretrain/train.py), which needs orbax "
+            "and JAX to read; the port reads npz files holding 'theta' "
+            "(its own pretrain/train.py writes <workdir>/pretrain_ckpt.npz)")
+    with np.load(path) as z:
+        if "theta" not in z:
+            raise ValueError(
+                f"init_params npz {path!r} has no 'theta' array (found "
+                f"{sorted(z.files)}); expected an evolution checkpoint "
+                "(utils/checkpoint.py) or a pretrain checkpoint "
+                "(pretrain/train.py)")
+        theta = np.asarray(z["theta"])
+    if theta.shape != (state.numParameters,):
+        raise ValueError(
+            f"init_params {path!r} holds {theta.shape} parameters; this "
+            f"flow has ({state.numParameters},) -- the architectures must "
+            "match")
+    return torch.as_tensor(theta, dtype=state.precision.master,
+                           device=state.device)
+
+
+def _initial_state(cfg: RunConfig, state, stepper):
+    """(theta, t, n_step) to start from: the workdir's latest checkpoint
+    under ``resume`` (every rank reads it, after a barrier, so that a
+    coordinator still writing its last one is waited for), else
+    ``init_params``, else the flow's init; the stepper's dt is restored
+    with a checkpoint."""
+    if cfg.resume and cfg.workdir:
+        mesh.sync_global_devices()
+        ck = latest_checkpoint(cfg.workdir)
+        if ck is not None:
+            theta = torch.as_tensor(ck["theta"], dtype=state.precision.master,
+                                    device=state.device)
+            stepper.dt = ck["dt"]
+            if cfg.verbose and mesh.is_coordinator():
+                print(f"resumed from step {ck['step']}, t={ck['t']:.4f}")
+            return theta, ck["t"], ck["step"]
+    if cfg.init_params:
+        theta = load_init_params(cfg.init_params, state)
+        if cfg.verbose and mesh.is_coordinator():
+            print(f"initialized parameters from {cfg.init_params}")
+        return theta, 0.0, 0
+    return state.get_parameters(), 0.0, 0
+
+
+def _open_recorder(cfg: RunConfig):
+    """The async recorder of <workdir>/metrics.bin on the coordinator
+    (None elsewhere, and without ``async_recorder``)."""
+    if not cfg.async_recorder:
+        return None
+    if not cfg.workdir:
+        raise ValueError("async_recorder needs a workdir")
+    if not mesh.is_coordinator():
+        return None
+    from .utils.recorder import AsyncRecorder
+
+    os.makedirs(cfg.workdir, exist_ok=True)
+    return AsyncRecorder(os.path.join(cfg.workdir, "metrics.bin"))
+
+
 def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
     """Run the time evolution; returns (state, InfoRecorder). Each
     callback is called as cb(n_step, t, state, info) after every step.
@@ -159,6 +247,7 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
         raise ValueError("steps_per_dispatch must be >= 1")
     state, tdvp, stepper, _, grid = build_problem(cfg)
     rec = InfoRecorder()
+    timings = Timings()
     talk = cfg.verbose and mesh.is_coordinator()
     wdir = cfg.workdir if mesh.is_coordinator() else None
     if wdir:
@@ -184,7 +273,11 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
         pending_nan.clear()
 
     def f(theta, t, key, intStep=0):
+        timings.start_timing("tdvp_rhs")
         out = tdvp.rhs(theta, t, key, intStep=intStep)
+        # verbose output waits for the device anyway: time the RHS's work
+        timings.stop_timing("tdvp_rhs", waitFor=out[0] if cfg.verbose
+                            else None)
         f.SExp = tdvp.SExp  # read by a per-stage adaptive stepper
         return out
 
@@ -197,56 +290,91 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
             return t < cfg.t_end - t_eps
         return t < cfg.t_end + dt
 
-    theta = state.get_parameters()
-    t = 0.0
+    theta, t, n_step = _initial_state(cfg, state, stepper)
+    state.set_parameters(theta)
     dt = stepper.dt
-    n_step = 0
     key = cfg.sample_seed + 7
     plotted = set()
     if grid is not None and talk:
         print("Initial grid integral:", float(state.integrate(grid)))
 
-    while more_steps(t, dt) and n_step < max_steps:
-        t0 = time.perf_counter()
-        res = stepper.step(t, f, theta, fold_in(key, n_step),
-                           normFunction=tdvp.stepper_norm,
-                           dt_cap=cfg.t_end - t if cfg.exact_t_end else None)
-        theta, dt, info = res.y, res.dt_used, res.info
-        pending_nan.append((info["nan"], t))
-        state.set_parameters(theta)
+    arec = _open_recorder(cfg)
+    # the profiler window [profile_steps[0], profile_steps[1]) counts the
+    # steps of this run (a resumed run's too); it closes at loop exit, or
+    # when the loop raises
+    window = contextlib.ExitStack()
+    steps_done = 0
+    try:
+        while more_steps(t, dt) and steps_done < max_steps:
+            if cfg.profile_dir:
+                if steps_done == cfg.profile_steps[0]:
+                    window.enter_context(profiler_trace(
+                        cfg.profile_dir, cuda=state.device.type == "cuda",
+                        name=f"trace_rank{state.ctx.rank}"))
+                elif steps_done == cfg.profile_steps[1]:
+                    window.close()
+            timings.start_timing("step")
+            res = stepper.step(t, f, theta, fold_in(key, n_step),
+                               normFunction=tdvp.stepper_norm,
+                               dt_cap=(cfg.t_end - t if cfg.exact_t_end
+                                       else None))
+            theta, dt, info = res.y, res.dt_used, res.info
+            # verbose output reads the residual below: the step's time
+            # is then its device work's
+            timings.stop_timing("step", waitFor=theta if talk else None)
+            pending_nan.append((info["nan"], t))
+            state.set_parameters(theta)
 
-        rec.append("times", t)
-        rec.append("dt", dt)
-        rec.append_dict(info)
-        rec.append("dist_params", state.params["latent"]["dist_params"])
+            rec.append("times", t)
+            rec.append("dt", dt)
+            rec.append_dict(info)
+            dist_params = state.params["latent"]["dist_params"]
+            rec.append("dist_params", dist_params)
+            if arec is not None:
+                # one host read of the step's tensors (record_dict)
+                arec.record_dict(n_step, {
+                    "times": t, "dt": dt,
+                    **{k: v for k, v in info.items()
+                       if k not in rec.SKIP_KEYS},
+                    "dist_params": dist_params})
 
-        if cfg.verbose or n_step % nan_every == 0:
-            check_nan()
-        if talk:
-            res_f = float(info["solver_res"])  # waits for the device
-            print(f"t = {t:.4f}, dt = {dt:e}  "
-                  f"[{time.perf_counter() - t0:.3f}s]")
-            if "attempts" in info:
-                print(f"\t > Attempts = {info['attempts']}, "
-                      f"Error = {info['step_error']:.3e}")
-            print(f"\t > Solver Residual = {res_f:.3e}")
-            print(f"\t > TDVP Error = {float(info['tdvp_error']):.3e}")
-            print(f"\t > Entropy = {float(info['entropy']):.6f}")
-
-        n = round(t / cfg.plot_every)
-        if (grid is not None and abs(t - n * cfg.plot_every) < dt
-                and n not in plotted):
-            plotted.add(n)
-            integral = float(state.integrate(grid))
-            rec.append("grid_integral_t", t)
-            rec.append("grid_integral", integral)
+            if cfg.verbose or n_step % nan_every == 0:
+                check_nan()
             if talk:
-                print("Grid integral:", integral)
+                res_f = float(info["solver_res"])
+                print(f"t = {t:.4f}, dt = {dt:e}  "
+                      f"[{timings.last('step'):.3f}s]")
+                if "attempts" in info:
+                    print(f"\t > Attempts = {info['attempts']}, "
+                          f"Error = {info['step_error']:.3e}")
+                print(f"\t > Solver Residual = {res_f:.3e}")
+                print(f"\t > TDVP Error = {float(info['tdvp_error']):.3e}")
+                print(f"\t > Entropy = {float(info['entropy']):.6f}")
 
-        for cb in callbacks:
-            cb(n_step, t, state, info)
-        t += dt
-        n_step += 1
+            n = round(t / cfg.plot_every)
+            if (grid is not None and abs(t - n * cfg.plot_every) < dt
+                    and n not in plotted):
+                plotted.add(n)
+                integral = float(state.integrate(grid))
+                rec.append("grid_integral_t", t)
+                rec.append("grid_integral", integral)
+                if talk:
+                    print("Grid integral:", integral)
+
+            if (wdir and cfg.checkpoint_every
+                    and n_step % cfg.checkpoint_every == 0):
+                # theta is the solution at t + dt, the step just taken
+                save_checkpoint(wdir, n_step + 1, t + dt, theta, stepper.dt)
+
+            for cb in callbacks:
+                cb(n_step, t, state, info)
+            t += dt
+            n_step += 1
+            steps_done += 1
+    finally:
+        window.close()
+        if arec is not None:
+            arec.close()
 
     check_nan()
     rec.flush()
@@ -268,12 +396,33 @@ def main(argv=None, callbacks=()):
     p.add_argument("--precision", type=str, default=None,
                    choices=["tpu", "tpu_f64stats", "f32", "f64"])
     p.add_argument("--workdir", type=str, default=None,
-                   help="write infos.hdf5 here (needs h5py)")
+                   help="write infos.hdf5 here (needs h5py), and the "
+                        "checkpoints and metrics.bin when asked")
+    p.add_argument("--seed", type=int, default=None,
+                   help="seed of the flow's init and of the samples "
+                        "(sets seed and sample_seed)")
+    p.add_argument("--init-params", type=str, default=None,
+                   help="start from the theta stored in this npz (an "
+                        "evolution checkpoint, or pretrain/train.py's "
+                        "pretrain_ckpt.npz); the flow must match")
+    p.add_argument("--checkpoint-every", type=int, default=0,
+                   help=">0: checkpoint theta, t, step and dt into the "
+                        "workdir after every that many steps")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the workdir's latest checkpoint "
+                        "(wins over --init-params)")
+    p.add_argument("--async-recorder", action="store_true",
+                   help="also stream each step's infos through the native "
+                        "recorder into <workdir>/metrics.bin")
+    p.add_argument("--profile-dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of steps "
+                        "[5, 8) here")
     p.add_argument("--per-sample-backend", type=str, default=None,
-                   choices=["auto", "torch", "cuda"],
+                   choices=["auto", "torch", "cuda", "xla", "pallas"],
                    help="per-sample pipeline: cuda = the hand-written "
                         "kernel (kernels/persample.py), torch = the "
-                        "torch.func pipeline")
+                        "torch.func pipeline; the JAX package's xla and "
+                        "pallas name them too")
     p.add_argument("--gram-backend", type=str, default=None,
                    choices=["auto", "xla", "syrk", "sym2", "tri2"],
                    help="Gram contraction: xla = the f32 product (what auto "
@@ -377,6 +526,18 @@ def main(argv=None, callbacks=()):
         overrides["solver_method"] = args.solver
     if args.qmc:
         overrides["qmc"] = True
+    if args.seed is not None:
+        overrides["seed"] = args.seed
+        overrides["sample_seed"] = args.seed
+    if args.resume:
+        overrides["resume"] = True
+    if args.async_recorder:
+        overrides["async_recorder"] = True
+    for name in ("init_params", "profile_dir"):
+        if getattr(args, name) is not None:
+            overrides[name] = getattr(args, name)
+    if args.checkpoint_every:
+        overrides["checkpoint_every"] = args.checkpoint_every
     for name in ("gram_backend", "gram_cross", "gram_precision",
                  "chunk_size", "is_gamma", "hessian_mode",
                  "stats_partitioning", "mesh_dp", "mesh_tp", "stepper",

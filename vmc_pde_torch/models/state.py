@@ -140,3 +140,18 @@ class VarState:
     def integrate(self, grid) -> torch.Tensor:
         """Riemann-sum normalization check on a dense grid."""
         return (self.log_prob(grid.coords).exp() * grid.bin_area).sum()
+
+
+def make_var_state(seed: int, dim: int, depth: int = 4,
+                   ctx: Optional[ParallelCtx] = None,
+                   precision: Optional[Precision] = None,
+                   **flow_kwargs) -> VarState:
+    """A VarState (without a sampler) of a fresh ``build_flow(seed, dim,
+    depth, ...)`` in the precision's compute dtype; ``flow_kwargs`` go to
+    build_flow, the device among them (default the CPU)."""
+    from .flow import build_flow
+
+    precision = precision if precision is not None else Precision.f32_only()
+    flow, theta = build_flow(seed, dim, depth=depth, dtype=precision.compute,
+                             **flow_kwargs)
+    return VarState(flow, theta, precision=precision, ctx=ctx)

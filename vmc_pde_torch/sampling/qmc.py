@@ -22,11 +22,15 @@ O(N^-1 log^d N) for the smooth integrands of the exact-latent presets.
   small-u accuracy of ndtri.
 - chi^2 draws invert the regularized incomplete gamma function by Newton
   iterations in log space, always in f64 (the JAX package runs with x64
-  enabled, so its inversion is f64 too), then cast.
+  enabled, so its inversion is f64 too), then cast. The iterations run on
+  ``torch.special.gammainc``, which errs up to 1.8e-9 relative at shape
+  25; two more steps on the module's own P(k, x) (``gammainc_f64``, within
+  a few f64 ulps of scipy's) land on the root of the exact function.
 """
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -167,16 +171,117 @@ def chi2(gen: torch.Generator, nu, n: int, dtype=torch.float32,
                           dtype=dtype, newton_iters=newton_iters)
 
 
+# P(k, x) in f64 (gammainc_f64): both truncations converge to ~1e-16 for
+# shape k up to _K_MAX (the series needs ~sqrt(78 (k + 1)) terms at
+# x = k + 1, the continued fraction 64 at k = 1/2, fewer above)
+_SERIES_TERMS = 96
+_CF_TERMS = 64
+_K_MAX = 100.0
+_POLISH_STEPS = 2
+# Boost's lanczos13m53, as scipy's cephes takes it: Gamma(k) =
+# ((k + g - 1/2) / e)^(k - 1/2) times the ratio of these polynomials,
+# coefficients of the descending powers k^12 .. k^0
+_LANCZOS_G = 6.024680040776729583740234375
+_LANCZOS_NUM = (
+    0.006061842346248906525783753964555936883222,
+    0.5098416655656676188125178644804694509993,
+    19.51992788247617482847860966235652136208,
+    449.9445569063168119446858607650988409623,
+    6955.999602515376140356310115515198987526,
+    75999.29304014542649875303443598909137092,
+    601859.6171681098786670226533699352302507,
+    3481712.15498064590882071018964774556468,
+    14605578.08768506808414169982791359218571,
+    43338889.32467613834773723740590533316085,
+    86363131.28813859145546927288977868422342,
+    103794043.1163445451906271053616070238554,
+    56906521.91347156388090791033559122686859)
+_LANCZOS_DEN = (1.0, 66.0, 1925.0, 32670.0, 357423.0, 2637558.0,
+                13339535.0, 45995730.0, 105258076.0, 150917976.0,
+                120543840.0, 39916800.0, 0.0)
+
+
+def _lanczos_sum(k: torch.Tensor) -> torch.Tensor:
+    """Gamma(k) / ((k + g - 1/2) / e)^(k - 1/2) for f64 k > 0: the two
+    polynomials in k for k <= 1 and in 1/k above (cephes' ratevl), each a
+    sum of powers (positive terms) rather than 13 Horner steps, so that a
+    0-dim k on the card costs a few launches."""
+    f64 = torch.float64
+    dev = k.device
+    num = device_constant(_LANCZOS_NUM, dev, f64)
+    den = device_constant(_LANCZOS_DEN, dev, f64)
+    big = (k > 1.0).unsqueeze(-1)
+    y = torch.where(k > 1.0, 1.0 / k, k).unsqueeze(-1)
+    q = y ** device_constant(tuple(range(13)), dev, f64)
+    # ascending powers of 1/k take the coefficients as listed, ascending
+    # powers of k reversed
+    n = (q * torch.where(big, num, num.flip(0))).sum(-1)
+    d = (q * torch.where(big, den, den.flip(0))).sum(-1)
+    return n / d
+
+
+def _density(k, x, lgk, lsum):
+    """x^k e^-x / Gamma(k) (= dP/d log x) as cephes' igam_fac takes it:
+    exp(k log x - x - lgamma k) where |k - x| > 0.4 k, the Lanczos form
+    exp(k - x) (x / f)^k sqrt(f / e) / lsum, f = k + g - 1/2, nearer k,
+    where the plain form's terms cancel."""
+    plain = torch.exp(k * torch.log(x) - x - lgk)
+    f = k + (_LANCZOS_G - 0.5)
+    near = torch.exp(k - x) * torch.pow(x / f, k) * (torch.sqrt(f / math.e)
+                                                     / lsum)
+    return torch.where((k - x).abs() > 0.4 * k, plain, near)
+
+
+def _gammainc_and_density(k, x, lgk, lsum):
+    """(P(k, x), x^k e^-x / Gamma(k)) for f64 x > 0 and a 0-dim (or
+    x-shaped) shape k: the power series P = dens / k (1 + sum_n prod_{j<=n}
+    x / (k + j)) where x < k + 1, the continued fraction of Q = 1 - P
+    (Numerical Recipes 6.2.7) otherwise. Both run over every element with
+    a fixed number of terms and nothing waits for the device: the series
+    as one cumulative product over a leading terms axis; the fraction
+    truncated after _CF_TERMS terms and evaluated from its tail, one
+    fused ``addcdiv`` per term (the truncation Lentz's forward recurrence
+    would reach after as many steps, at a quarter of its launches)."""
+    f64 = torch.float64
+    dev = x.device
+    dens = _density(k, x, lgk, lsum)
+    lead = (-1,) + (1,) * x.dim()
+    j = device_constant(tuple(range(1, _SERIES_TERMS + 1)), dev,
+                        f64).reshape(lead)
+    series = 1.0 + torch.cumprod(x / (k + j), dim=0).sum(0)
+    p_series = dens / k * series
+    # g_i = b_i + a_{i+1} / g_{i+1} from g_T = b_T, with b_i = x + 2 i + 1
+    # - k and a_i = -i (i - k); Q = dens / g_0
+    i = device_constant(tuple(range(_CF_TERMS + 1)), dev, f64)
+    a = -i * (i - k.unsqueeze(-1)) if k.dim() else -i * (i - k)
+    b = (x + 1.0 - k) + 2.0 * i.reshape(lead)
+    g = b[_CF_TERMS]
+    for t in range(_CF_TERMS - 1, -1, -1):
+        g = torch.addcdiv(b[t], a[..., t + 1], g)
+    return torch.where(x < k + 1.0, p_series, 1.0 - dens / g), dens
+
+
+def gammainc_f64(k, x) -> torch.Tensor:
+    """The regularized lower incomplete gamma P(k, x) in f64 for x > 0
+    and a shape k > 0 (a number or a 0-dim tensor), within a few ulps of
+    scipy.special.gammainc for k up to 100 (tests/test_torch_qmc.py)."""
+    x = torch.as_tensor(x, dtype=torch.float64)
+    k = torch.as_tensor(k, dtype=torch.float64, device=x.device)
+    return _gammainc_and_density(k, x, torch.lgamma(k), _lanczos_sum(k))[0]
+
+
 def chi2_from_bits(bits: torch.Tensor, nu, dtype=torch.float32,
                    newton_iters: int = 25) -> torch.Tensor:
     """chi-square(nu) draws from 30-bit uniforms: P(nu/2, x) = u solved by
     ``newton_iters`` Newton steps in y = log x (each clipped to +-3) from a
     Wilson-Hilferty guess, or from the inverted left-tail asymptote
-    P(k, x) ~ x^k / (k Gamma(k)) where that guess fails; chi2 = 2x. In f64
-    whatever ``dtype``, then cast. ``nu`` may be a device tensor (the
-    Student-t degrees of freedom are learnable); nothing waits for the
-    device. Taking bits lets the Student-t sampler use one joint
-    (dim + 1)-column net for directions and radius."""
+    P(k, x) ~ x^k / (k Gamma(k)) where that guess fails, on
+    ``torch.special.gammainc``; then _POLISH_STEPS steps on
+    ``gammainc_f64`` up to nu = 2 _K_MAX (above it the first root stays);
+    chi2 = 2x. In f64 whatever ``dtype``, then cast. ``nu`` may be a
+    device tensor (the Student-t degrees of freedom are learnable);
+    nothing waits for the device. Taking bits lets the Student-t sampler
+    use one joint (dim + 1)-column net for directions and radius."""
     f64 = torch.float64
     u = (bits.to(f64) + 0.5) * 2.0**-_BITS
     k = torch.as_tensor(nu, dtype=f64, device=bits.device) / 2.0
@@ -194,4 +299,10 @@ def chi2_from_bits(bits: torch.Tensor, nu, dtype=torch.float32,
         f = torch.special.gammainc(k, x) - u
         step = f * torch.exp(-(k * y - x - lgk))
         y = y - torch.clamp(step, -3.0, 3.0)
+    lsum = _lanczos_sum(k)
+    y_torch = y
+    for _ in range(_POLISH_STEPS):
+        p, dens = _gammainc_and_density(k, torch.exp(y), lgk, lsum)
+        y = y - torch.clamp((p - u) / dens, -3.0, 3.0)
+    y = torch.where(k <= _K_MAX, y, y_torch)
     return (2.0 * torch.exp(y)).to(dtype)

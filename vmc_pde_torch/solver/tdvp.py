@@ -141,7 +141,8 @@ class TDVPConfig:
     stats_partitioning: str = "auto"
     # "cuda": the hand-written per-sample kernel (kernels/persample.py);
     # "torch": the torch.func pipeline; "auto": the kernel on a CUDA device
-    # for f32 compute with 2048 <= P <= 32768 where it supports the flow
+    # for f32 compute with 2048 <= P <= 32768 where it supports the flow;
+    # the JAX package's "pallas" and "xla" are taken as "cuda" and "torch"
     per_sample_backend: str = "auto"
     # the CUDA kernel masks ragged batches, so it takes no tile; kept so
     # that configurations carry over from the JAX package
@@ -165,6 +166,10 @@ def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
 
 
+# the JAX package's per_sample_backend values and the port's names for them
+BACKEND_ALIASES = {"xla": "torch", "pallas": "cuda"}
+
+
 def _check_config(cfg: TDVPConfig) -> None:
     if cfg.solver_method not in ("auto", "eigh", "cholesky", "cg", "minsr"):
         raise ValueError(f"unknown solver_method {cfg.solver_method!r}")
@@ -185,9 +190,11 @@ def _check_config(cfg: TDVPConfig) -> None:
             f"unknown stats_partitioning {cfg.stats_partitioning!r}")
     if cfg.sexp_mode not in ("none", "auto", "dense", "matfree"):
         raise ValueError(f"unknown sexp_mode {cfg.sexp_mode!r}")
-    if cfg.per_sample_backend not in ("auto", "torch", "cuda"):
+    if cfg.per_sample_backend not in ("auto", "torch", "cuda",
+                                      *BACKEND_ALIASES):
         raise ValueError(f"unknown per_sample_backend "
-                         f"{cfg.per_sample_backend!r} (auto, torch, cuda)")
+                         f"{cfg.per_sample_backend!r} (auto, torch, cuda; "
+                         f"xla, pallas)")
 
 
 def _check_single_device(cfg: TDVPConfig, method: str, world: int) -> None:
@@ -684,7 +691,8 @@ class TDVP:
         ) if dirs is None and hess_idx is not None else None
 
         kernel_ok = persample.supports(self.flow, dirs, hess_idx)
-        backend = cfg.per_sample_backend
+        backend = BACKEND_ALIASES.get(cfg.per_sample_backend,
+                                      cfg.per_sample_backend)
         if backend == "cuda" and not kernel_ok:
             raise ValueError("per_sample_backend='cuda' does not support "
                              "this flow (kernels.persample.supports)")

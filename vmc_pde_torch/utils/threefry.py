@@ -18,16 +18,18 @@ the CPU with ``jax_threefry_partitionable`` on (the default of JAX 0.9):
   the rest without) and the C library's log above.
 
 XLA compiles the polynomials to fused multiply-adds, and one rounding
-there moves the last bit, so ``_fma`` computes a * b + c exactly with
-Python fractions and rounds once. This module serves the one place the
-port needs JAX's numbers, the random SPD matrix of ops/evolution.py; it is
-small and runs once per (dim, seed).
+there moves the last bit, so ``_fma`` computes a * b + c with one rounding
+on numpy arrays: Boldo and Melquiond's emulation (the exact product as a
+pair of doubles by Dekker's split, an exact sum with c, the two low parts
+added with rounding to odd, one final rounding to nearest). The port needs
+JAX's numbers for the random SPD matrix of ops/evolution.py and for the
+synthetic data of pretrain/train.py (``gen_data``), whose draws run to
+millions of elements, so every step works on whole arrays.
 """
 
 from __future__ import annotations
 
 import math
-from fractions import Fraction
 
 import numpy as np
 
@@ -64,13 +66,48 @@ def random_bits64(seed: int, n: int) -> np.ndarray:
     return (hi.astype(np.uint64) << np.uint64(32)) | lo.astype(np.uint64)
 
 
-def _fma(a: float, b: float, c: float) -> float:
-    """a * b + c with one rounding."""
-    return float(Fraction(a) * Fraction(b) + Fraction(c))
+def _two_sum(a, b):
+    """(s, e) with s = fl(a + b) and s + e = a + b exactly (Knuth)."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
 
 
-def _horner_fma(x: float, coeffs) -> float:
-    p = coeffs[0]
+def _split(a):
+    """Veltkamp's split of a into two 26-bit halves, a = hi + lo."""
+    c = 134217729.0 * a  # 2^27 + 1
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def _two_prod(a, b):
+    """(p, e) with p = fl(a b) and p + e = a b exactly (Dekker)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _add_round_odd(a, b):
+    """a + b rounded to odd: the sum rounded to nearest, moved one ulp
+    toward the exact sum when inexact and its last bit is even."""
+    s, e = _two_sum(a, b)
+    even = (s.view(np.int64) & 1) == 0
+    toward = np.where(e > 0, np.inf, -np.inf)
+    return np.where((e != 0) & even, np.nextafter(s, toward), s)
+
+
+def _fma(a, b, c):
+    """a * b + c with one rounding, on float64 arrays (the magnitudes here
+    are far from overflow and underflow, where Dekker's split holds)."""
+    a, b, c = (np.asarray(v, dtype=np.float64) for v in (a, b, c))
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    return th + _add_round_odd(tl, ul)
+
+
+def _horner_fma(x, coeffs):
+    p = np.full_like(x, coeffs[0])
     for c in coeffs[1:]:
         p = _fma(p, x, c)
     return p
@@ -85,13 +122,20 @@ _LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469e1,
               2.1642788614495947685e2, 6.0118660497603843919e1)
 
 
-def _log1p(x: float) -> float:
-    if abs(x) >= 0.41421356237309504880:
-        return math.log(x + 1.0)
-    r = _horner_fma(x, _LOG1P_NUM) / _horner_fma(x, _LOG1P_DEN)
-    s = x * (x * x) * r
-    s = (-0.5 * x) * x + s
-    return x + s
+def _log1p(x: np.ndarray) -> np.ndarray:
+    big = np.abs(x) >= 0.41421356237309504880
+    # the C library's log where XLA calls it (numpy's own log may differ
+    # in the last bit)
+    out = np.array([math.log(v + 1.0) for v in x[big].tolist()],
+                   dtype=np.float64)
+    xs = x[~big]
+    r = _horner_fma(xs, _LOG1P_NUM) / _horner_fma(xs, _LOG1P_DEN)
+    t = xs * (xs * xs) * r
+    t = (-0.5 * xs) * xs + t
+    res = np.empty_like(x)
+    res[big] = out
+    res[~big] = xs + t
+    return res
 
 
 _ERFINV_W6 = (
@@ -130,18 +174,15 @@ _ERFINV_WBIG = (
     4.8499064014085844221)
 
 
-def erfinv(x: float) -> float:
-    """XLA's f64 erf_inv of one value."""
-    if abs(x) == 1.0:
-        return x * math.inf
+def erfinv(x) -> np.ndarray:
+    """XLA's f64 erf_inv, elementwise."""
+    x = np.asarray(x, dtype=np.float64)
     w = -_log1p(x * -x)
-    if w < 6.25:
-        p = _horner_fma(w - 3.125, _ERFINV_W6)
-    elif w < 16.0:
-        p = _horner_fma(math.sqrt(w) - 3.25, _ERFINV_W16)
-    else:
-        p = _horner_fma(math.sqrt(w) - 5.0, _ERFINV_WBIG)
-    return p * x
+    sw = np.sqrt(w)
+    p = np.where(w < 6.25, _horner_fma(w - 3.125, _ERFINV_W6),
+                 np.where(w < 16.0, _horner_fma(sw - 3.25, _ERFINV_W16),
+                          _horner_fma(sw - 5.0, _ERFINV_WBIG)))
+    return np.where(np.abs(x) == 1.0, x * np.inf, p * x)
 
 
 def normal_f64(seed: int, shape) -> np.ndarray:
@@ -151,6 +192,6 @@ def normal_f64(seed: int, shape) -> np.ndarray:
     mant = (bits >> np.uint64(12)) | np.array(1.0).view(np.uint64)
     f = mant.view(np.float64) - 1.0
     lo = float(np.nextafter(-1.0, 0.0))
-    span = 1.0 - lo
-    u = [max(lo, _fma(v, span, lo)) for v in f.tolist()]
-    return (math.sqrt(2.0) * np.array([erfinv(v) for v in u])).reshape(shape)
+    u = np.maximum(lo, _fma(f, 1.0 - lo, lo))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return (math.sqrt(2.0) * erfinv(u)).reshape(shape)
