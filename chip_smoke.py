@@ -115,6 +115,24 @@
    equal, with external uniforms and with Philox (the per-rank launch
    timed, with both shares); then ``VarState.sample`` of fluidpaper's
    flow on the mesh with 8192 chains: 2 launches on every rank.
+K. (after phase 20, in the same 4 rank processes: ``phase_mesh_k``) the
+   rest of the mesh path, fokkerPlanck32 at full width through
+   ``driver.run`` / ``driver.build_problem``: K1 the GSPMD statistics at
+   dp=2 x tp=2 (each rank contracts its ceil(P/2) of the Gram's rows) for
+   2 steps: theta bitwise across ranks, residual below 1e-3, exactly 2
+   sharded per-sample launches per step per rank, the dp-group reduction
+   of the moments exactly ceil(P/2) P 4 bytes per (P, P) moment, and the
+   statistics within 1e-4 of one rank's; K2 ``auto`` at dp2 x tp2 on the
+   depth-8 flow (P=17968 > 16384: GSPMD with tp row blocks), 1 step, each
+   rank's peak memory beside a shard_map step; K3 chunked GSPMD at dp=4,
+   sym2 + int8, N=131072 in chunks of 32768 for 2 steps (one plain-mode
+   launch per chunk a rank holds per RHS, no split or quant8 launch;
+   within 1e-4 of one rank), then 1 step at f64acc; K4 one RHS each on
+   4 ranks against one rank's on the same draws, the RHS times beside
+   each other: cg (1e-3 of the update's norm), minSR direct and streaming
+   (chunks of 256) on scripts/bench_minsr.py's flow (1e-3), the default
+   precision (statistics within 1e-4), the f64 precision and the host
+   solve (cholesky) with f64 statistics and an f64 solve (1e-3);
 21. (G) the steppers at full width, before phases 19-20:
    ``fokkerPlanck32`` at N=16384 with ``--stepper`` fixed_euler,
    fixed_rk3, adaptive_heun and adaptive_rk23 for 3 steps each (cholesky,
@@ -1359,7 +1377,10 @@ def _time_all_reduces(log):
         out = plain(tensor, *args, **kw)
         torch.cuda.synchronize()
         log["s"] += time.perf_counter() - t0
-        log["bytes"] += tensor.numel() * tensor.element_size()
+        nbytes = tensor.numel() * tensor.element_size()
+        log["bytes"] += nbytes
+        if "calls" in log:
+            log["calls"].append((nbytes, kw.get("group")))
         return out
 
     dist.all_reduce = timed
@@ -1400,12 +1421,14 @@ def _rank_drive(cfg, n_steps, label, log):
     if not all(same) or len(same) != n_steps:
         fail(f"{label}: theta differs across ranks after a step: {same}")
     if mesh.is_coordinator():
+        share = (f"share of steps 2-{n_steps} "
+                 f"{sum(ar_s[1:]) / steps[1:].sum():.3f}" if n_steps > 1
+                 else f"share {ar_s[0] / steps[0]:.3f}")
         print(f"[mesh] {label}: {n_steps} Heun steps per rank, wall s/step "
               f"{' '.join(f'{v:.3f}' for v in steps)} (first includes "
               f"set-up), all-reduce s/step "
               f"{' '.join(f'{v:.3f}' for v in ar_s)} (gloo through the host, "
-              f"{ar_bytes[-1] / 2 / 1e6:.1f} MB per RHS), share of steps "
-              f"2-{n_steps} {sum(ar_s[1:]) / steps[1:].sum():.3f}; "
+              f"{ar_bytes[-1] / 2 / 1e6:.1f} MB per RHS), {share}; "
               f"solver_res {' '.join(f'{r:.3e}' for r in a['solver_res'])};"
               f" launches on rank 0 {counts}", flush=True)
     return state, dict(step_s=steps.tolist(), all_reduce_s=ar_s,
@@ -1424,7 +1447,9 @@ def _sharded_vs_one_rank(ctx, cfg, ref_cfg, theta, n, label):
     params = state.flow.layout.unravel(theta_c)
     gen = torch.Generator(device=ctx.device).manual_seed(7)
     z = state.flow.latent_sample(gen, params, n, torch.float32)
-    x_loc = state.flow.push(params, ctx.local_rows(z))[0]
+    # the rank's rows: of the W sample shards (shard_map), or of the dp
+    # shards under GSPMD (tdvp.ctx)
+    x_loc = state.flow.push(params, tdvp.ctx.local_rows(z))[0]
     fn = tdvp._chunked_stats if chunked else tdvp._direct_stats
     st = fn(theta_c, 0.0, x_loc)
     del tdvp, x_loc
@@ -1651,10 +1676,253 @@ def phase_mesh_metropolis(ctx):
                 chains_per_rank=C_loc)
 
 
+# -- phase K: the rest of the mesh path, in the rank processes of phases
+# 19-20 (4 gloo ranks on the one card)
+
+
+def _rhs_vs_one_rank(ctx, cfg, theta, key, label, bar, keys=("update",)):
+    """One rhs() of ``cfg`` on the mesh at theta with key ``key`` (every
+    rank draws the same global block) against one rank's, computed by the
+    coordinator while the others wait: the update's distance over its
+    norm and each other output's max abs difference over its largest
+    value, each within ``bar`` (None: printed, not gated); the RHS times
+    of both; the per-sample launches of the mesh's RHS; whether every
+    rank holds the coordinator's update."""
+    state, tdvp = driver.build_problem(cfg)[:2]
+    theta_m = theta.to(device=ctx.device, dtype=state.precision.master)
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    upd, aux = tdvp.rhs(theta_m, 0.0, key)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = _counts()
+    same = bool(torch.equal(upd, mesh.broadcast_from_coordinator(upd)))
+    # the GSPMD route counts its launches in the sharded wrapper (whose
+    # kernel is per_sample_cuda's, counted there too)
+    out = dict(ms=ms, launches=counts["persample_sharded" if tdvp._gspmd
+                                      else "persample"],
+               same_on_every_rank=same, gspmd=tdvp._gspmd, rows=tdvp._rows)
+    got = {"update": upd, **{k: aux[k] for k in keys if k != "update"}}
+    del tdvp, state, aux
+    torch.cuda.synchronize()
+    if mesh.is_coordinator():
+        one = ParallelCtx.single_device(ctx.device)
+        rtdvp = driver.build_problem(cfg, ctx=one)[1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref_upd, ref_aux = rtdvp.rhs(theta_m, 0.0, key)
+        torch.cuda.synchronize()
+        out["one_rank_ms"] = (time.perf_counter() - t0) * 1e3
+        ref = {"update": ref_upd, **{k: ref_aux[k] for k in keys
+                                     if k != "update"}}
+        out["rel"] = {k: float((got[k].double() - ref[k].double()).norm()
+                               / ref[k].double().norm()) if k == "update"
+                      else _rel(got[k], ref[k], ref[k].abs().max())
+                      for k in got}
+        print(f"[mesh K] {label}: RHS {ms:.1f} ms on 4 ranks, "
+              f"{out['one_rank_ms']:.1f} ms on one; against one rank: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in out["rel"].items())
+              + f" (tol {bar}); per-sample launches on rank 0 "
+              f"{out['launches']}; update bitwise on every rank {same}",
+              flush=True)
+        if bar is not None and not all(v <= bar
+                                       for v in out["rel"].values()):
+            fail(f"{label} differs from one rank's: {out['rel']}")
+        del rtdvp, ref_aux, ref
+    if not same or not torch.isfinite(upd).all():
+        fail(f"{label}: the update is not finite or differs across ranks")
+    torch.cuda.synchronize()
+    mesh.sync_global_devices()
+    return out
+
+
+def _release():
+    """Hand this rank's cached device memory back before the next run:
+    four ranks share the card, and each one's allocator keeps what its
+    last run freed."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mesh.sync_global_devices()
+
+
+def _peaks(ctx):
+    """Every rank's peak device memory in GB (rank order)."""
+    peak = torch.tensor([torch.cuda.max_memory_allocated() / 1e9],
+                        dtype=torch.float64, device=ctx.device)
+    return mesh.all_gather_rows(ctx, peak).tolist()
+
+
+def phase_mesh_k(ctx, log):
+    """Phase K on this rank (4 gloo ranks on the one card), fokkerPlanck32
+    at full width through driver.run / driver.build_problem:
+
+    K1. GSPMD statistics at dp=2 x tp=2 for 2 Heun steps: theta bitwise
+        across ranks after each step, residual < 1e-3, 2 sharded
+        per-sample launches per step on each rank; against one rank's f32
+        statistics within 1e-4; the dp-group reduction of the moments
+        carries ceil(P/2) P 4 bytes per (P, P) moment.
+    K2. auto at dp=2 x tp=2 on the depth-8 flow (P > 16384): GSPMD with
+        tp row blocks, 1 step, each rank's peak memory beside a shard_map
+        step of the same flow.
+    K3. chunked GSPMD at dp=4, sym2 + int8, N=131072 in chunks of 32768,
+        2 steps: one plain-mode launch per chunk a rank holds per RHS, no
+        split or quant8 launch; against one rank within 1e-4; then one
+        f64acc step of the same.
+    K4. one RHS each on 4 ranks against one rank's on the same draws: cg
+        (1e-3), minSR direct and streaming (chunks of 256) on
+        scripts/bench_minsr.py's flow, the default and f64 precisions,
+        the host solve (cholesky), with each one's RHS time beside one
+        rank's."""
+    W = ctx.world
+    base = dict(device="cuda", verbose=False)
+    out = {}
+    _release()
+
+    # K1
+    n_steps = 2
+    cfg = preset("fokkerPlanck32", stats_partitioning="gspmd", mesh_dp=2,
+                 mesh_tp=2, **base)
+    log["calls"] = []
+    state, k1 = _rank_drive(cfg, n_steps, "K1 fokkerPlanck32 N=16384 GSPMD "
+                            "dp2 x tp2 (tp-row Gram)", log)
+    calls = log.pop("calls")
+    m22 = ParallelCtx.create(dp=2, tp=2, device="cuda")
+    dp_pg = mesh._process_group(m22.samples_over_dp())
+    P = state.flow.layout.size
+    b = -(-P // 2)
+    dp_bytes = max(nb for nb, g in calls if g is dp_pg)
+    want = (2 * b * P + P + 1) * 4
+    if k1["counts"]["persample_sharded"] != 2 * n_steps:
+        fail(f"K1: sharded per-sample launches {k1['counts']} on rank "
+             f"{ctx.rank}, expected {2 * n_steps}")
+    if dp_bytes != want:
+        fail(f"K1: the dp-group moments reduction carries {dp_bytes} B, "
+             f"expected {want} (S0 and A blocks of {b} x {P}, F0, the "
+             "E_loc variance)")
+    theta0 = state.get_parameters()
+    k1["dp_moments_bytes_per_rhs"] = dp_bytes
+    k1["bytes_per_moment"] = b * P * 4
+    if mesh.is_coordinator():
+        print(f"[mesh K] K1: the dp-group reduction of the moments carries "
+              f"{dp_bytes} B per RHS on each rank: {b} x {P} x 4 = "
+              f"{b * P * 4} B per (P, P) moment (S0, A), with F0 and the "
+              f"E_loc variance", flush=True)
+    k1["vs_one_rank"] = _sharded_vs_one_rank(
+        ctx, cfg, preset("fokkerPlanck32", device="cuda"), theta0, 16384,
+        "K1 GSPMD dp2 x tp2")
+    out["K1"] = k1
+    del state
+    _release()
+
+    # K2
+    flow_over = dict(depth=8)
+    peaks = {}
+    for route in ("auto", "shard_map"):
+        cfg = preset("fokkerPlanck32", stats_partitioning=route, mesh_dp=2,
+                     mesh_tp=2, **flow_over, **base)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if route == "auto":
+            _, tdvp = driver.build_problem(cfg)[:2]
+            P2 = tdvp.n_params
+            if not (P2 > 16384 and tdvp._gspmd
+                    and tdvp._rows == ParallelCtx(
+                        dp=2, tp=2, rank=ctx.rank).row_block(P2)):
+                fail(f"K2: auto at dp2 x tp2, P={P2}: GSPMD "
+                     f"{tdvp._gspmd}, rows {tdvp._rows}")
+            del tdvp
+        _, rec = _rank_drive(cfg, 1, f"K2 depth-8 flow (P={P2}) dp2 x tp2 "
+                             f"{route}", log)
+        torch.cuda.synchronize()
+        peaks[route] = _peaks(ctx)
+        rec["peak_gb_by_rank"] = peaks[route]
+        out[f"K2_{route}"] = rec
+        _release()
+    if mesh.is_coordinator():
+        print(f"[mesh K] K2: P={P2}, peak device memory by rank (GB): GSPMD "
+              f"tp rows {' '.join(f'{v:.2f}' for v in peaks['auto'])}; "
+              f"shard_map {' '.join(f'{v:.2f}' for v in peaks['shard_map'])}"
+              , flush=True)
+
+    # K3
+    n, c = 131072, 32768
+    over = dict(n_samples_tdvp=n, n_samples_obs=16384, chunk_size=c,
+                gram_backend="sym2", gram_cross="int8")
+    for prec, n_steps in (("high", 2), ("f64acc", 1)):
+        cfg = preset("fokkerPlanck32", stats_partitioning="gspmd", mesh_dp=W,
+                     gram_precision=prec, **over, **base)
+        label = (f"K3 fokkerPlanck32 N={n} chunks of {c} GSPMD dp={W} "
+                 f"sym2+int8 {prec}")
+        _, rec = _rank_drive(cfg, n_steps, label, log)
+        got = rec["counts"]
+        held = (n // W) // c or 1
+        if (got["persample_sharded"] != 2 * n_steps * held
+                or got["persample_split"] or got["quant8"]):
+            fail(f"K3 {prec}: launches {got} on rank {ctx.rank}, expected "
+                 f"{2 * n_steps * held} plain-mode, no split, no quant8")
+        if prec == "high":
+            rec["vs_one_rank"] = _sharded_vs_one_rank(
+                ctx, cfg, preset("fokkerPlanck32", device="cuda", **over),
+                theta0, n, "K3 chunked GSPMD sym2+int8, 4 ranks")
+        out[f"K3_{prec}"] = rec
+        _release()
+
+    # K4. f32 solves at fokkerPlanck32's condition (~1e5) amplify the
+    # sums' order: the default precision is held on its statistics and
+    # its update printed; the f64 precision and the host solve take f64
+    # statistics and an f64 solve
+    k4 = {}
+    bench = MINSR_FLOWS["bench_minsr d=32 depth 8 N=1024"]
+    for label, over, bar, keys in (
+            ("cg", dict(solver_method="cg"), 1e-3, ("update",)),
+            ("minsr direct (bench_minsr flow)",
+             dict(bench, solver_method="minsr"), 1e-3,
+             ("update", "ev")),
+            ("minsr streaming, chunks of 256 (bench_minsr flow)",
+             dict(bench, solver_method="minsr", chunk_size=256), 1e-3,
+             ("update", "ev")),
+            ("default precision", dict(gram_precision="default"), None,
+             ("update",)),
+            ("f64 precision", dict(gram_precision="f64",
+                                   precision="tpu_f64stats"), 1e-3,
+             ("update",)),
+            ("host solve (cholesky)", dict(
+                solve_on_device=False, gram_precision="f64",
+                precision="tpu_f64stats"), 1e-3, ("update",))):
+        cfg = preset("fokkerPlanck32", mesh_dp=W, **{**base, **over})
+        theta = theta0
+        if "depth" in over:
+            theta = driver.build_problem(cfg, ctx=ParallelCtx.single_device(
+                "cuda"))[0].get_parameters()
+        k4[label] = _rhs_vs_one_rank(ctx, cfg, theta, 77, f"K4 {label}",
+                                     bar, keys)
+        _release()
+        if label == "default precision":
+            k4[label]["vs_one_rank"] = _sharded_vs_one_rank(
+                ctx, cfg, preset("fokkerPlanck32", device="cuda",
+                                 gram_precision="default"), theta, 16384,
+                "K4 default precision statistics")
+    out["K4"] = k4
+    return out
+
+
+
+def _rank_allocator():
+    """Expandable segments for a rank's caching allocator, set before the
+    rank first touches the card: four ranks and the parent share its 80
+    GB, and phase K3's chunks (a (16, P, P) f32 block product, then
+    smaller blocks) left each rank ~6.7 GB reserved but unallocated, which
+    ran the card out of memory."""
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+
+
 def _mesh_rank(rank, world, rendezvous, results):
     """One rank of phases 19 and 20 (a spawned process): its outcome goes
     to the ``results`` queue, a traceback on failure."""
     try:
+        _rank_allocator()
         mesh.distributed_init(f"file://{rendezvous}", world, rank)
         ctx = ParallelCtx.create(dp=world, device="cuda")
         full_f32_matmuls()
@@ -1662,8 +1930,12 @@ def _mesh_rank(rank, world, rendezvous, results):
         _time_all_reduces(log)
         paths, ps_kernel = phase_mesh_stats(ctx, log)
         mc_kernel = phase_mesh_metropolis(ctx)
+        t0 = time.perf_counter()
+        mesh_k = phase_mesh_k(ctx, log)
+        mesh_k["seconds"] = time.perf_counter() - t0
         results.put((rank, True, dict(paths=paths, persample_sharded=ps_kernel,
-                                      metropolis_sharded=mc_kernel)))
+                                      metropolis_sharded=mc_kernel,
+                                      mesh_k=mesh_k)))
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
@@ -3251,9 +3523,22 @@ def main():
         launches[name] = results[name].pop("launches")
         results[name]["launches_by_rank"] = [r[name]["launches"]
                                              for r in ranks]
+    mesh_k = ranks[0]["mesh_k"]
+    k_launches = {
+        "K1 fokkerPlanck32 GSPMD dp2 x tp2 (2 steps), per rank":
+            mesh_k["K1"]["counts"]["persample_sharded"],
+        "K2 depth-8 flow GSPMD dp2 x tp2 (1 step), per rank":
+            mesh_k["K2_auto"]["counts"]["persample_sharded"],
+        "K3 chunked GSPMD dp=4 sym2+int8 N=131072 (2 steps), per rank":
+            mesh_k["K3_high"]["counts"]["persample_sharded"],
+        "K3 the same at f64acc (1 step), per rank":
+            mesh_k["K3_f64acc"]["counts"]["persample_sharded"]}
+    for label, rec in mesh_k["K4"].items():
+        k_launches[f"K4 {label} (1 RHS), rank 0; by rank"] = [
+            r["mesh_k"]["K4"][label]["launches"] for r in ranks]
     results["persample_sharded"]["launches_by_path"] = {
         "fokkerPlanck32 GSPMD counterpart (eloc_clip=2), per rank":
-            launches["persample_sharded"]}
+            launches["persample_sharded"], **k_launches}
     paths["fokkerPlanck32 shard_map direct, per rank"] = \
         ranks[0]["paths"]["direct"]["counts"]["persample"]
     mesh_paths = {name: {k: v for k, v in path.items() if k != "counts"}
@@ -3281,6 +3566,8 @@ def main():
     print(json.dumps({"steppers": steppers}))
     print(json.dumps({"solvers": solvers}))
     print(json.dumps({"mesh_paths": mesh_paths}))
+    print(f"phase K: {mesh_k['seconds']:.1f} s on rank 0")
+    print(json.dumps({"mesh_k": mesh_k}, default=str))
     print(json.dumps({"qmc_hessian_integrals": qhi}))
     print(json.dumps({"run_state": run_state}))
     print(json.dumps({"kernels": [

@@ -503,35 +503,36 @@ def test_syrk_refused_on_a_mesh(problems):
         _tdvp(problems, _ctx(2), gram_backend="syrk")
 
 
-@pytest.mark.parametrize("cfg,match", [
-    (dict(stats_partitioning="gspmd"), "GSPMD statistics on a mesh with "
-     r"tp > 1 .*ROADMAP\.md"),
-    (dict(eloc_clip=2.0), r"tp > 1 .*ROADMAP\.md")])
-def test_gspmd_with_tp_not_ported(cfg, match, problems):
-    with pytest.raises(NotImplementedError, match=match):
-        _tdvp(problems, _ctx(2, 2), **cfg)
+def test_tri2_under_gspmd_is_the_jax_packages_refusal(problems):
+    """gram_backend='tri2' on a mesh whose statistics are not shard_map
+    raises the JAX package's ValueError (tdvp.py:751-758)."""
+    for cfg in (dict(stats_partitioning="gspmd"), dict(eloc_clip=2.0)):
+        with pytest.raises(ValueError, match=(
+                "gram_backend='tri2' on a multi-device mesh needs the "
+                "shard_map stats path")):
+            _tdvp(problems, _ctx(2, 2), gram_backend="tri2", **cfg)
+    assert _tdvp(problems, _ctx(2, 2), gram_backend="tri2")._stats_shardmap
 
 
 def test_auto_keeps_gspmd_at_tp2_above_16384_params():
     """At tp > 1 and P > 16384 the JAX package's auto keeps its GSPMD
-    tp-row-sharded Gram; the port names it not ported."""
+    tp-row-sharded Gram, and so does the port: samples over dp (the
+    view's world is 2), rank 3's Gram rows the second half."""
     cfg = preset("fokkerPlanck32", depth=8)
     flow, theta = build_flow(1, 32, depth=8, hidden=cfg.hidden_resolved(),
                              variant="affine", dtype=torch.float32)
-    assert flow.layout.size > 16384
+    P = flow.layout.size
+    assert P > 16384
     spec = worker.spec_of(flow, cfg.equation, cfg.equation_params)
-    with pytest.raises(NotImplementedError, match="tp-row-sharded Gram"):
-        worker.tdvp_on(_ctx(2, 2), spec, theta.numpy(), "tpu", 2048, {})
+    ctx = ParallelCtx(dp=2, tp=2, rank=3, device=torch.device("cpu"))
+    tdvp = worker.tdvp_on(ctx, spec, theta.numpy(), "tpu", 2048, {})
+    assert tdvp._gspmd and not tdvp._stats_shardmap
+    assert (tdvp.ctx.world, tdvp.ctx.rank) == (2, 1)
+    assert tdvp.sampler.ctx is tdvp.ctx
+    assert tdvp._rows == (-(-P // 2), P)
     tdvp = worker.tdvp_on(_ctx(2, 2), spec, theta.numpy(), "tpu", 2048,
                           dict(stats_partitioning="shard_map"))
-    assert tdvp._stats_shardmap
-
-
-def test_chunked_gspmd_not_ported(problems):
-    with pytest.raises(NotImplementedError, match="chunked statistics "
-                       r"under stats_partitioning='gspmd' .*ROADMAP\.md"):
-        _tdvp(problems, _ctx(2), stats_partitioning="gspmd",
-              chunk_size=512)
+    assert tdvp._stats_shardmap and tdvp._rows is None
 
 
 def test_unknown_stats_partitioning(problems):

@@ -30,8 +30,8 @@ from vmc_pde_torch import driver
 from vmc_pde_torch.config import preset
 from vmc_pde_torch.models.state import VarState
 from vmc_pde_torch.ops import evolution
+from vmc_pde_torch.parallel import mesh as tparallel
 from vmc_pde_torch.sampling.sampler import Sampler
-from vmc_pde_torch.solver import tdvp as tdvp_mod
 from vmc_pde_torch.solver.steppers import FixedStepper
 from vmc_pde_torch.solver.tdvp import TDVP, TDVPConfig, fold_in
 from vmc_pde_torch.utils.dtypes import Precision
@@ -77,12 +77,14 @@ def test_eloc_matches_jax(name, params):
 
 
 def test_unported_paths_raise():
-    """What the port still refuses raises NotImplementedError naming
-    ROADMAP.md: cg, minsr, the host solve and the gram precisions beyond
-    the f32 product on a mesh (the gate itself, at a world of 2). The
-    adaptive steppers, minsr, cg, f64acc, the Hessian block mode and the
-    MC sphere integrals, refused before they were ported, now build and
-    give a finite step or RHS."""
+    """Nothing the JAX package accepts is refused as not ported any more.
+    The adaptive steppers, minsr, cg, f64acc, the Hessian block mode and
+    the MC sphere integrals, refused before they were ported, build and
+    give a finite step or RHS on one device; cg, minsr (direct and
+    streaming), the host solve and the gram precisions beyond the f32
+    product, refused on a mesh before, build at a world of 2 (the rank
+    processes of tests/test_torch_mesh_gspmd.py run them), on the dp-only
+    mesh and at dp 1 x tp 2, where they take the GSPMD route."""
     _, tdvp, stepper = driver.build_problem(preset(
         "mwe", device="cpu", stepper="adaptive_heun", n_samples_tdvp=256,
         n_samples_obs=256))[:3]
@@ -102,14 +104,23 @@ def test_unported_paths_raise():
         update, aux = TDVP(state, eq, cfg, n_samples=8).rhs(theta, 0.0, 3)
         assert torch.isfinite(update).all() and not bool(aux["nan"])
     assert torch.isfinite(aux["integral_0.5sigma"])
-    for cfg, method in ((TDVPConfig(), "cg"), (TDVPConfig(), "minsr"),
-                        (TDVPConfig(gram_precision="f64acc"), "eigh"),
-                        (TDVPConfig(gram_precision="f64"), "eigh"),
-                        (TDVPConfig(gram_precision="default"), "cholesky"),
-                        (TDVPConfig(solve_on_device=False), "eigh")):
-        tdvp_mod._check_single_device(cfg, method, 1)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdvp_mod._check_single_device(cfg, method, 2)
+    for dp, tp in ((2, 1), (1, 2)):
+        ctx = tparallel.ParallelCtx(dp=dp, tp=tp, rank=1)
+        mstate = VarState(flow, theta, sampler=Sampler(
+            DIM, dtype=torch.float64, ctx=ctx),
+            precision=Precision.f64_everywhere(), ctx=ctx)
+        for cfg in (TDVPConfig(solver_method="cg"),
+                    TDVPConfig(solver_method="minsr"),
+                    TDVPConfig(solver_method="minsr", chunk_size=4),
+                    TDVPConfig(gram_precision="f64acc", chunk_size=4),
+                    TDVPConfig(gram_precision="f64"),
+                    TDVPConfig(gram_precision="default"),
+                    TDVPConfig(solve_on_device=False),
+                    TDVPConfig(stats_partitioning="gspmd", chunk_size=4)):
+            tdvp = TDVP(mstate, eq, cfg, n_samples=8)
+            assert tdvp._gspmd != tdvp._stats_shardmap
+            assert tdvp.ctx.world == (dp if tdvp._gspmd else 2)
+            assert (tdvp._rows is not None) == (tdvp._gspmd and tp > 1)
 
 
 @pytest.mark.parametrize("latent_name,cfg,match", [

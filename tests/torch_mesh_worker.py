@@ -14,6 +14,7 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -51,6 +52,14 @@ def run_ranks(scenario, world, wdir, spec, inputs, timeout=240):
     """Run ``scenario`` in ``world`` rank processes of this file and
     return each rank's outputs; a rank that fails or outlives ``timeout``
     seconds fails the caller (every rank is killed)."""
+    return start_ranks(scenario, world, wdir, spec, inputs, timeout)()
+
+
+def start_ranks(scenario, world, wdir, spec, inputs, timeout=240):
+    """Start ``scenario`` in ``world`` rank processes of this file; returns
+    the function that waits for them and returns each rank's outputs
+    (run_ranks), so that the caller can work meanwhile. The time limit
+    counts from the start."""
     os.makedirs(wdir, exist_ok=True)
     with open(os.path.join(wdir, "spec.json"), "w") as f:
         json.dump(spec, f)
@@ -60,21 +69,27 @@ def run_ranks(scenario, world, wdir, spec, inputs, timeout=240):
         [sys.executable, os.path.abspath(__file__), scenario, str(r),
          str(world), str(wdir)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        if p.returncode != 0 or f"RANK_OK {r}" not in log:
-            raise RuntimeError(f"rank {r} of {scenario!r} failed "
-                               f"({p.returncode}):\n{log[-4000:]}")
-    return [dict(np.load(os.path.join(wdir, f"out{r}.npz")))
-            for r in range(world)]
+    deadline = time.monotonic() + timeout
+
+    def wait():
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=max(
+                    1.0, deadline - time.monotonic()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0 or f"RANK_OK {r}" not in log:
+                raise RuntimeError(f"rank {r} of {scenario!r} failed "
+                                   f"({p.returncode}):\n{log[-4000:]}")
+        return [dict(np.load(os.path.join(wdir, f"out{r}.npz")))
+                for r in range(world)]
+
+    return wait
 
 
 def flow_from_spec(spec):
@@ -261,6 +276,146 @@ def s_metric_outputs(ctx, spec, inp):
     return out
 
 
+# tests/test_torch_mesh_gspmd.py's cases: (label, (dp, tp) of the mesh,
+# precision, TDVPConfig fields, what runs). "stats": the direct or
+# chunked statistics on the rank's rows of the parent's x; "rhs": one
+# rhs() on the global draws of key 21; "minsr": _rhs_minsr on the rank's
+# rows of x. x is the parent's "x/<label>" where it gives one (the
+# chunks of 768 take 2304 rows), else "x" or "x64"; minSR takes its first
+# MINSR_N rows (every rank solves the N x N kernel). The solves run at
+# svd_tol 1e-4 (SOLVE), so that the Tikhonov shift, not the sums' order,
+# sets how far a mesh's update lies from one rank's.
+GSPMD = dict(stats_partitioning="gspmd")
+SYM2_INT8 = dict(GSPMD, gram_backend="sym2", gram_cross="int8")
+SOLVE = dict(svd_tol=1e-4)
+MINSR = dict(SOLVE, solver_method="minsr")
+MINSR_N = 512
+# CG converged (76 iterations at condition ~1e2): on this flow an
+# unconverged CG iterate moves by 4% when only the rows' order changes
+CG = dict(solver_method="cg", svd_tol=1e-2, cg_tol=1e-10)
+MESH4_CASES = (
+    ("f32", (2, 2), "tpu", GSPMD, "stats"),
+    ("sym2_int8", (2, 2), "tpu", SYM2_INT8, "stats"),
+    ("clip", (2, 2), "f64", dict(eloc_clip=2.0), "stats"),
+    ("tp4", (1, 4), "f64", GSPMD, "stats"),
+    ("chunked_span", (4, 1), "tpu", dict(SYM2_INT8, chunk_size=1024),
+     "stats"),
+    ("f64_gspmd", (2, 2), "tpu", dict(GSPMD, gram_precision="f64"),
+     "stats"),
+    ("f64_shardmap", (4, 1), "tpu", dict(gram_precision="f64"), "stats"),
+    ("default_gspmd", (2, 2), "tpu", dict(GSPMD, gram_precision="default"),
+     "stats"),
+    ("default_shardmap", (4, 1), "tpu", dict(gram_precision="default"),
+     "stats"),
+    ("f64acc_gspmd", (2, 2), "tpu",
+     dict(GSPMD, chunk_size=512, gram_precision="f64acc"), "stats"),
+    ("f64acc_shardmap", (4, 1), "tpu",
+     dict(chunk_size=512, gram_precision="f64acc"), "stats"),
+    ("cg", (4, 1), "f64", CG, "rhs"),
+    ("cg_tp", (2, 2), "f64", CG, "rhs"),
+    ("minsr_stream", (4, 1), "f64", dict(MINSR, chunk_size=64), "rhs"),
+    ("minsr_stream_span", (4, 1), "f64", dict(MINSR, chunk_size=192),
+     "rhs"),
+    ("chunked_mixed", (4, 1), "tpu", dict(SYM2_INT8, chunk_size=768),
+     "stats"),
+    ("host_eigh", (2, 2), "f64", dict(SOLVE, **GSPMD, solve_on_device=False),
+     "rhs"),
+    ("host_cholesky", (4, 1), "f64", dict(
+        SOLVE, solver_method="cholesky", solve_on_device=False), "rhs"),
+    # whole f32 RHS of the statistics routes above, at condition ~1e2
+    ("rhs_chunked_gspmd", (2, 2), "tpu",
+     dict(SYM2_INT8, chunk_size=512, svd_tol=1e-2), "rhs"),
+    ("rhs_default", (2, 2), "tpu",
+     dict(GSPMD, gram_precision="default", svd_tol=1e-2), "rhs"),
+    ("rhs_f64", (2, 2), "tpu",
+     dict(GSPMD, gram_precision="f64", svd_tol=1e-2), "rhs"),
+    ("rhs_f64acc", (4, 1), "tpu",
+     dict(chunk_size=512, gram_precision="f64acc", svd_tol=1e-2), "rhs"),
+)
+MESH2_CASES = (
+    ("chunked_inside", (2, 1), "tpu", dict(SYM2_INT8, chunk_size=512),
+     "stats"),
+    ("minsr", (2, 1), "f64", MINSR, "minsr"),
+)
+
+
+def mesh_case(ctx, spec, inp, label, precision, cfg, kind):
+    """One case of MESH4_CASES / MESH2_CASES on ``ctx`` (a mesh, or the
+    parent's one rank): its outputs by name."""
+    x = inp.get(f"x/{label}", inp["x64" if precision == "f64" else "x"])
+    if cfg.get("solver_method") == "minsr":
+        x = x[:MINSR_N]
+    n = x.shape[0]
+    tdvp = tdvp_on(ctx, spec["gauss"], inp["theta"], precision, n,
+                   dict(cfg, compute_snr=True))
+    theta_c = tdvp.state.theta
+    x_loc = tdvp.ctx.local_rows(torch.as_tensor(x))
+    if kind == "stats":
+        fn = (tdvp._chunked_stats if "chunk_size" in cfg
+              else tdvp._direct_stats)
+        return moments(fn(theta_c, 0.25, x_loc),
+                       ("S0", "F0", "A", "eloc_mean", "eloc_var"))
+    if kind == "minsr":
+        aux = tdvp._rhs_minsr(theta_c, 0.25, x_loc, n)[0]
+        return {k: aux[k].double().numpy() for k in ("update", "ev")}
+    upd, aux = tdvp.rhs(tdvp.state.get_parameters(), 0.25, 21)
+    return dict(update=upd.numpy(), iters=np.int64(aux.get("_cg_iters", 0)),
+                solver_res=np.float64(aux["solver_res"]),
+                tdvp_error=np.float64(aux["tdvp_error"]))
+
+
+def record_collectives():
+    """Record, from now on, every collective of parallel/mesh.py with the
+    shapes it packs and its process group ("world", "dp" or "tp"), and
+    every torch.distributed call with the elements it carries: returns
+    the (calls, raw) lists."""
+    calls, raw = [], []
+    for name in ("all_reduce_sum", "all_reduce_max", "all_gather_rows",
+                 "broadcast"):
+        def wrap(fn, name=name):
+            def rec(ctx, tensors, *args, **kw):
+                ts = tensors if isinstance(tensors, (list, tuple)) else [
+                    tensors]
+                calls.append((name, (ctx.group or ("world",))[0], [
+                    tuple(t.shape) for t in ts if t is not None]))
+                return fn(ctx, tensors, *args, **kw)
+            return rec
+        setattr(mesh, name, wrap(getattr(mesh, name)))
+    for name in ("all_reduce", "broadcast"):
+        def wrap_raw(fn, name=name):
+            def rec(tensor, *args, **kw):
+                raw.append((name, tensor.numel()))
+                return fn(tensor, *args, **kw)
+            return rec
+        setattr(torch.distributed, name, wrap_raw(getattr(
+            torch.distributed, name)))
+    return calls, raw
+
+
+def scenario_mesh_gspmd(ctx, spec, inp):
+    """Every case of MESH4_CASES (4 ranks) or MESH2_CASES (2 ranks) on
+    this rank's meshes; on 4 ranks then one direct GSPMD statistics
+    evaluation and one RHS at dp2 x tp2 with every collective recorded."""
+    out = {}
+    for label, (dp, tp), precision, cfg, kind in (
+            MESH4_CASES if ctx.world == 4 else MESH2_CASES):
+        mctx = ParallelCtx(dp=dp, tp=tp, rank=ctx.rank, device=ctx.device)
+        for k, v in mesh_case(mctx, spec, inp, label, precision, cfg,
+                              kind).items():
+            out[f"{label}/{k}"] = v
+    if ctx.world == 4:
+        mctx = ParallelCtx(dp=2, tp=2, rank=ctx.rank, device=ctx.device)
+        calls, raw = record_collectives()
+        mesh_case(mctx, spec, inp, "f32", "tpu", GSPMD, "stats")
+        out["layout/stats"] = np.asarray(json.dumps(calls))
+        n_stats = len(raw)
+        mesh_case(mctx, spec, inp, "f32", "tpu", GSPMD, "rhs")
+        out["layout/calls"] = np.asarray(json.dumps(calls))
+        out["layout/raw"] = np.asarray(json.dumps(raw))
+        out["layout/n_stats_raw"] = np.int64(n_stats)
+    return out
+
+
 def scenario_driver(ctx, spec, inp, rank, world, wdir):
     """The driver's CLI entry on the mesh: theta after every step, and
     whether it is bitwise the coordinator's."""
@@ -387,6 +542,7 @@ def main():
                               device=device)
         ctx = ParallelCtx.create(dp=world, device=device)
         out = {"stats": scenario_stats, "gspmd": scenario_gspmd,
+               "mesh_gspmd": scenario_mesh_gspmd,
                "cuda": scenario_cuda}[scenario](ctx, spec, inp)
     if "jax" in sys.modules or "vmc_pde_tpu" in sys.modules:
         raise RuntimeError("a rank process imported JAX")

@@ -487,8 +487,11 @@ def main(argv=None, callbacks=()):
     p.add_argument("--mesh-dp", type=int, default=None,
                    help="sample-parallel mesh size (-1 = all ranks)")
     p.add_argument("--mesh-tp", type=int, default=None,
-                   help="second mesh axis (flattened into sample shards "
-                        "on the shard_map statistics)")
+                   help="second mesh axis: more sample shards on the "
+                        "shard_map statistics; on the GSPMD ones the "
+                        "samples shard over dp only and each of a dp "
+                        "index's tp ranks contracts ceil(P/tp) of the "
+                        "Gram's rows")
     p.add_argument("--distributed", action="store_true",
                    help="one process per rank: initialize torch."
                         "distributed before building the mesh (NCCL with "

@@ -30,15 +30,30 @@ Conventions (every sharded module follows them):
    JAX package's hardware-PRNG rule (seed + dp_index * n_blocks) has no
    counterpart: the TPU's bits cannot be reproduced on the card anyway.
 4. Collectives. ``all_reduce_sum`` packs its tensors into one contiguous
-   flat buffer and makes one ``all_reduce(SUM)``: the statistics' moments
-   cross ranks so, once per evaluation, as the JAX package's one psum of
-   (F0, S0, A, SExp) does. The small reductions (global means, the pilot
-   shift, maxima) go separately. The backend is NCCL when every rank has
-   a card of its own and gloo otherwise (several ranks on one card, or
-   the CPU); it is chosen from that topology, printed by the coordinator,
-   and never swapped after a failure. gloo takes CUDA tensors only in
-   ``broadcast`` and ``all_reduce``, so the one gather here
-   (``all_gather_rows``) is an all-reduce into a zeroed global buffer.
+   flat buffer per dtype and makes one ``all_reduce(SUM)`` of each: the
+   statistics' moments cross ranks so, once per evaluation, as the JAX
+   package's one psum of (F0, S0, A, SExp) does (two buffers where f64
+   moments meet a compute-dtype scalar). The small reductions (global
+   means, the pilot shift, maxima) go separately. The backend is NCCL when
+   every rank has a card of its own and gloo otherwise (several ranks on
+   one card, or the CPU); it is chosen from that topology, printed by the
+   coordinator, and never swapped after a failure. gloo takes CUDA tensors
+   only in ``broadcast`` and ``all_reduce``, so the gathers here
+   (``all_gather_rows``, ``all_gather_row_blocks``) are all-reduces into
+   a zeroed global buffer.
+5. Axes. Rank r has the dp index r // tp and the tp index r % tp. Its dp
+   group is the dp ranks of its tp index (they hold other samples and the
+   same rows of the tp-sharded Gram), its tp group the tp ranks of its dp
+   index (the same samples, the other rows). The shard_map statistics
+   flatten the mesh into W sample shards and reduce over every rank. The
+   GSPMD statistics shard the samples over dp only, as the JAX package's
+   ``P("dp")`` places them, and split the Gram's result rows over tp
+   (``gram_spec``, ``P("tp", None)``): they run on ``samples_over_dp()``,
+   a view whose world is dp, whose rank is the dp index and whose
+   collectives run over the dp group, and gather the Gram's row blocks
+   over the tp group. Groups are made on first use, every group of a
+   (dp, tp) mesh at once and in one order (``new_group`` is itself
+   collective), and cached on the process group; one rank makes none.
 
 The JAX package's ``PartitionSpec`` roles have no counterpart: nothing
 here is placed by annotation, every rank holds its shard explicitly.
@@ -86,6 +101,10 @@ class ParallelCtx:
     tp: int = 1
     rank: int = 0
     device: torch.device = torch.device("cpu")
+    # the collectives' process group: None, every rank (the default
+    # group); ("dp" | "tp", mesh dp, mesh tp, index), one group of that
+    # mesh axis (a view's; convention 5)
+    group: Optional[tuple] = None
 
     @classmethod
     def create(cls, dp: int = -1, tp: int = 1,
@@ -111,11 +130,48 @@ class ParallelCtx:
     def world(self) -> int:
         return self.dp * self.tp
 
+    @property
+    def dp_index(self) -> int:
+        return self.rank // self.tp
+
+    @property
+    def tp_index(self) -> int:
+        return self.rank % self.tp
+
+    def samples_over_dp(self) -> "ParallelCtx":
+        """The GSPMD statistics' sample view (convention 5): a dp-only mesh
+        of the dp ranks of this rank's tp index, whose rank is the dp
+        index; the ctx itself when tp == 1."""
+        if self.tp == 1:
+            return self
+        return ParallelCtx(dp=self.dp, rank=self.dp_index,
+                           device=self.device,
+                           group=("dp", self.dp, self.tp, self.tp_index))
+
+    def over_tp(self) -> "ParallelCtx":
+        """The tp ranks of this rank's dp index as a mesh of their own,
+        whose rank is the tp index (the Gram's row blocks gather over
+        it)."""
+        if self.tp == 1:
+            return ParallelCtx.single_device(self.device)
+        return ParallelCtx(dp=self.tp, rank=self.tp_index,
+                           device=self.device,
+                           group=("tp", self.dp, self.tp, self.dp_index))
+
+    def row_block(self, n: int):
+        """(r0, r1): this rank's rows of an (n, ...) result split over tp
+        in blocks of ceil(n / tp) rows, the last one shorter (the JAX
+        package's ``gram_spec``); (0, n) at tp == 1."""
+        b = -(-n // self.tp)
+        r0 = min(self.tp_index * b, n)
+        return r0, min(r0 + b, n)
+
     def shard_samples(self, n: int, multiple_of: int = 1) -> int:
         """A global sample budget rounded UP to a multiple of lcm(world,
         multiple_of): the global count, of which each rank holds its
         ``local_rows``. (The JAX package rounds to dp: its tp replicas
-        share a shard under GSPMD; here every rank holds one.)"""
+        share a shard under GSPMD; here the shard_map statistics give every
+        rank one, so budgets round to the world on either route.)"""
         block = math.lcm(self.world, max(int(multiple_of), 1))
         return -(-int(n) // block) * block
 
@@ -128,6 +184,37 @@ class ParallelCtx:
                              "ranks")
         m = n // self.world
         return block[self.rank * m:(self.rank + 1) * m]
+
+
+# (dp, tp) -> (the default group they were made in, dp groups by tp index,
+# tp groups by dp index)
+_GROUPS = {}
+
+
+def _process_group(ctx: ParallelCtx):
+    """The process group of ctx's collectives (None: the default group).
+    The first call on a (dp, tp) mesh makes all of its groups, on every
+    rank in the same order, since ``new_group`` is collective."""
+    if ctx.group is None:
+        return None
+    axis, dp, tp, index = ctx.group
+    hit = _GROUPS.get((dp, tp))
+    if hit is None or hit[0] is not dist.group.WORLD:
+        hit = _GROUPS[dp, tp] = (
+            dist.group.WORLD,
+            [dist.new_group([j + k * tp for k in range(dp)])
+             for j in range(tp)],
+            [dist.new_group([i * tp + j for j in range(tp)])
+             for i in range(dp)])
+    return (hit[1] if axis == "dp" else hit[2])[index]
+
+
+def _global_rank(ctx: ParallelCtx, shard: int) -> int:
+    """The process rank of ``shard`` (a rank of ctx's own mesh)."""
+    if ctx.group is None:
+        return shard
+    axis, _, tp, index = ctx.group
+    return shard * tp + index if axis == "dp" else index * tp + shard
 
 
 def distributed_init(coordinator: str, num_processes: int = 1,
@@ -181,36 +268,52 @@ def sync_global_devices() -> None:
         dist.barrier()
 
 
-def all_reduce_sum(ctx: ParallelCtx, tensors: Sequence[Optional[torch.Tensor]]):
-    """Each tensor summed over the ranks, in ONE all-reduce of one flat
-    buffer (None entries pass through). The tensors share one dtype and
+def all_reduce_sum(ctx: ParallelCtx,
+                   tensors: Sequence[Optional[torch.Tensor]]):
+    """Each tensor summed over ctx's ranks, in ONE all-reduce of one flat
+    buffer per dtype (None entries pass through). The tensors share one
     device. On one rank the tensors come back as they are."""
     if ctx.world == 1:
         return list(tensors)
-    live = [t for t in tensors if t is not None]
-    if len({(t.dtype, t.device) for t in live}) > 1:
-        raise ValueError("all_reduce_sum packs tensors of one dtype and "
-                         "device")
-    flat = torch.cat([t.reshape(-1) for t in live])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
-    out, i = [], 0
-    for t in tensors:
-        if t is None:
-            out.append(None)
-            continue
-        out.append(flat[i:i + t.numel()].view(t.shape))
-        i += t.numel()
+    live = [i for i, t in enumerate(tensors) if t is not None]
+    if len({tensors[i].device for i in live}) > 1:
+        raise ValueError("all_reduce_sum packs tensors of one device")
+    by_dtype = {}
+    for i in live:
+        by_dtype.setdefault(tensors[i].dtype, []).append(i)
+    out = list(tensors)
+    for idx in by_dtype.values():
+        flat = torch.cat([tensors[i].reshape(-1) for i in idx])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                        group=_process_group(ctx))
+        off = 0
+        for i in idx:
+            t = tensors[i]
+            out[i] = flat[off:off + t.numel()].view(t.shape)
+            off += t.numel()
     return out
 
 
 def all_reduce_max(ctx: ParallelCtx, tensor: torch.Tensor) -> torch.Tensor:
-    """The elementwise maximum over the ranks (the tensor itself on one
+    """The elementwise maximum over ctx's ranks (the tensor itself on one
     rank)."""
     if ctx.world == 1:
         return tensor
     out = tensor.clone()
-    dist.all_reduce(out, op=dist.ReduceOp.MAX)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=_process_group(ctx))
     return out
+
+
+def broadcast(ctx: ParallelCtx, tensor: torch.Tensor, src: int):
+    """``tensor`` of ctx's rank ``src`` on every rank of ctx, in place
+    (every rank passes a contiguous tensor of the same shape and dtype:
+    the storage crosses as it lies)."""
+    if not tensor.is_contiguous():
+        raise ValueError("broadcast sends a contiguous tensor")
+    if ctx.world > 1:
+        dist.broadcast(tensor, _global_rank(ctx, src),
+                       group=_process_group(ctx))
+    return tensor
 
 
 def all_gather_rows(ctx: ParallelCtx, local: torch.Tensor) -> torch.Tensor:
@@ -222,5 +325,24 @@ def all_gather_rows(ctx: ParallelCtx, local: torch.Tensor) -> torch.Tensor:
     m = local.shape[0]
     full = local.new_zeros((m * ctx.world, *local.shape[1:]))
     full[ctx.rank * m:(ctx.rank + 1) * m] = local
-    dist.all_reduce(full, op=dist.ReduceOp.SUM)
+    dist.all_reduce(full, op=dist.ReduceOp.SUM, group=_process_group(ctx))
     return full
+
+
+def all_gather_row_blocks(ctx: ParallelCtx, blocks, n: int):
+    """The whole (n, ...) results from this rank's ``row_block(n)`` rows
+    of each (a list of blocks of one dtype; None entries pass through),
+    gathered over the tp group in one all-reduce; at tp == 1 the blocks
+    themselves."""
+    live = [i for i, t in enumerate(blocks) if t is not None]
+    if ctx.tp == 1 or not live:
+        return list(blocks)
+    r0, r1 = ctx.row_block(n)
+    first = blocks[live[0]]
+    local = first.new_zeros((-(-n // ctx.tp), len(live), *first.shape[1:]))
+    local[:r1 - r0] = torch.stack([blocks[i] for i in live], 1)
+    full = all_gather_rows(ctx.over_tp(), local)[:n].unbind(1)
+    out = list(blocks)
+    for i, t in zip(live, full):
+        out[i] = t
+    return out

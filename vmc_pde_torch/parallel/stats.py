@@ -245,8 +245,22 @@ def _cross_amax(hs, lo, cross_int8, amax_fn):
                                 lo.float().abs().amax(0)]))
 
 
+def _cross_rows(a, b, rows, int8=False, amax=None, n_rows=None):
+    """Rows ``rows`` (a slice) of the symmetric cross term a^T b + (a^T b)^T
+    of two (N, P) operands, (|rows|, P) in f32: a[:, rows]^T b + b[:, rows]^T
+    a, by _cross_sum's rule (int8 with per-column scales over the whole
+    columns, which factor out row by row, up to N = _INT8_CROSS_N_MAX)."""
+    n = a.shape[0] if n_rows is None else n_rows
+    if int8 and n <= _INT8_CROSS_N_MAX:
+        a8, sa = _quant_cols_int8(a, None if amax is None else amax[0])
+        b8, sb = _quant_cols_int8(b, None if amax is None else amax[1])
+        return (cross_from_q8(a8[:, rows].T, b8.T, sa[rows], sb)
+                + cross_from_q8(b8[:, rows].T, a8.T, sb[rows], sa))
+    return _mm_bf16(a[:, rows].T, b) + _mm_bf16(b[:, rows].T, a)
+
+
 def sym2_gram_sum(data, w=None, cross_int8=False, amax_fn=None,
-                  n_rows=None):
+                  n_rows=None, rows=None):
     """Unnormalized symmetric Gram X^T diag(w) X of (N, P) data in two
     bf16 products: H^T H + H^T L + (H^T L)^T. Weights of any sign fold in
     as X <- sqrt(|w|) X with the sign applied to one side's hi split
@@ -254,12 +268,16 @@ def sym2_gram_sum(data, w=None, cross_int8=False, amax_fn=None,
     one rank's rows of a sharded operand, ``amax_fn`` makes the int8 cross
     term's column scales global and ``n_rows`` is the whole length
     (_cross_sum), as the JAX package's GSPMD statistics quantize the
-    global operand."""
+    global operand. ``rows``: (r0, r1), only those rows of the Gram
+    (the tp-sharded layout), (r1 - r0, P)."""
     hs, hi, lo = _weighted_split(data, w)
+    amax = _cross_amax(hs, lo, cross_int8, amax_fn)
+    if rows is not None:
+        r = slice(*rows)
+        return _mm_bf16(hs[:, r].T, hi) + _cross_rows(
+            hs, lo, r, int8=cross_int8, amax=amax, n_rows=n_rows)
     m1 = _mm_bf16(hs.T, hi)
-    m2 = _cross_sum(hs, lo, int8=cross_int8,
-                    amax=_cross_amax(hs, lo, cross_int8, amax_fn),
-                    n_rows=n_rows)
+    m2 = _cross_sum(hs, lo, int8=cross_int8, amax=amax, n_rows=n_rows)
     return m1 + m2 + m2.T
 
 

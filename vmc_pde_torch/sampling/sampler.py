@@ -188,6 +188,18 @@ class Sampler:
                 device=x.device)
         return self._offsets[key]
 
+    def shard_over(self, ctx: ParallelCtx) -> None:
+        """Shard the draws over ``ctx``, the GSPMD statistics' sample view
+        of the sampler's mesh (parallel/mesh.py convention 5: samples and
+        chains over dp only, the tp ranks of a dp index running the same
+        ones). The chain count already divides by the mesh's world, hence
+        by its dp; the chains must not have started on the mesh's own
+        shards."""
+        if self._states is not None and (ctx.world, ctx.rank) != (
+                self.ctx.world, self.ctx.rank):
+            raise ValueError("the chains already run on another sharding")
+        self.ctx = ctx
+
     def _kernel_target(self) -> bool:
         return (not self.exact and self.name == "cos_dist"
                 and self.n_chains % (128 * self.ctx.world) == 0

@@ -35,29 +35,36 @@ and stage.
 On a mesh (``state.ctx``, parallel/mesh.py) every rank runs this class on
 its shard of the samples: the draws are global and sliced, the per-sample
 kernels run on the rank's rows, means and maxima are global, and the
-moments cross ranks in one all-reduce per statistics evaluation; the solve
-and the Heun update then run on every rank from the same reduced moments.
-cg, minsr, the host solve and the gram precisions ``default``, ``f64``
-and ``f64acc`` run on one device only (NotImplementedError naming
-ROADMAP.md on a mesh). ``stats_partitioning`` selects, as in the JAX
-package:
+moments cross ranks in one all-reduce per statistics evaluation (one per
+dtype: f64 moments reduce in f64); the solve and the Heun update then run
+on every rank from the same reduced moments, so theta stays bitwise equal
+across ranks. ``stats_partitioning`` selects, as in the JAX package:
 
 - "shard_map" (what "auto" takes where it may): the per-rank direct or
   chunked statistics with the plain-mode and split kernels and quant8 on
   each rank's rows, the chunked pilot shift averaged over ranks, and the
   assembled (P, P) moments summed once (the JAX package's _stats_sharded,
-  tdvp.py:1549-1598). It needs no eloc_clip, no is_gamma and budgets and
-  chunks divisible by the world (the JAX package's ValueError otherwise);
-  a dp x tp mesh flattens into W sample shards.
-- "gspmd" (and "auto" where shard_map may not run): the direct statistics
-  on a dp-only mesh with the per-sample kernel through
-  ``persample.per_sample_sharded``, the clip's global median and MAD, the
-  IS weights' global max and mean, and the Gram summed once. Its int8
-  cross term, where asked for, quantizes each rank's rows with the global
-  column scales (an all-reduce MAX of the column max), as the JAX
-  package quantizes its globally sharded operand. Its tp row-sharded Gram
-  layout and its chunked statistics are not ported (NotImplementedError
-  naming ROADMAP.md).
+  tdvp.py:1549-1598). It needs eigh or cholesky, no eloc_clip, no is_gamma
+  and budgets and chunks divisible by the world (the JAX package's
+  ValueError otherwise); a dp x tp mesh flattens into W sample shards.
+- "gspmd" (and "auto" where shard_map may not run, or at tp > 1 with
+  P > 16384): the JAX package's GSPMD layout. The samples shard over dp
+  only (``self.ctx`` is the mesh's ``samples_over_dp`` view; the tp ranks
+  of a dp index hold the same samples and run the same per-sample rows,
+  through ``persample.per_sample_sharded``), and at tp > 1 each rank
+  contracts only its ``row_block`` of every (P, P) moment: the
+  (ceil(P/tp), P) blocks and F0 cross the dp group in one reduction and
+  are then gathered over the tp group, so O is never gathered. The clip's
+  median and MAD, the IS weights' max and mean are global. The int8 cross
+  term of sym2 quantizes each rank's rows with the global column scales
+  (an all-reduce MAX), as the JAX package quantizes its globally sharded
+  operand. The chunked statistics run global chunks of chunk_size rows
+  (_chunked_stats). tri2 needs shard_map (the JAX package's ValueError).
+
+cg, minsr and the host solve run on either route (cg and minsr always
+take GSPMD): CG's matvecs reduce over the dp group, minSR gathers the
+centered rows (direct) or broadcasts each chunk's block (streaming), and
+the host solve runs on the coordinator, which broadcasts the update.
 """
 
 from __future__ import annotations
@@ -91,8 +98,7 @@ def fold_in(key: int, data: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TDVPConfig:
-    """Solver knobs; the JAX package's field names and defaults. Values
-    of paths not ported yet raise NotImplementedError in TDVP."""
+    """Solver knobs; the JAX package's field names and defaults."""
 
     use_snr: bool = False
     snr_tol: float = 2.0
@@ -162,10 +168,6 @@ class TDVPConfig:
     integral_T: float = 10.0
 
 
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md)")
-
-
 # the JAX package's per_sample_backend values and the port's names for them
 BACKEND_ALIASES = {"xla": "torch", "pallas": "cuda"}
 
@@ -195,21 +197,6 @@ def _check_config(cfg: TDVPConfig) -> None:
         raise ValueError(f"unknown per_sample_backend "
                          f"{cfg.per_sample_backend!r} (auto, torch, cuda; "
                          f"xla, pallas)")
-
-
-def _check_single_device(cfg: TDVPConfig, method: str, world: int) -> None:
-    """The paths that run on one device only: on a mesh (``world`` > 1)
-    the Gram-free solvers, the host solve and the gram precisions beyond
-    the f32 product raise. The JAX package's GSPMD forms of these are
-    ROADMAP.md queue 1 item 6."""
-    if world == 1:
-        return
-    if method in ("cg", "minsr"):
-        raise _not_ported(f"solver_method={method!r} on a mesh")
-    if cfg.gram_precision in ("default", "f64", "f64acc"):
-        raise _not_ported(f"gram_precision={cfg.gram_precision!r} on a mesh")
-    if not cfg.solve_on_device:
-        raise _not_ported("the host solve on a mesh")
 
 
 def _soft_cutoff(x, tol):
@@ -327,23 +314,30 @@ def _cg(A, b, M, tol: float, maxiter: int, check_every=CG_CHECK_EVERY):
     return x, iters
 
 
-def _solve_cg(O_c, e_c, cfg: TDVPConfig, mode: str):
+def _solve_cg(O_c, e_c, cfg: TDVPConfig, mode: str, n=None, reduce=None):
     """Matrix-free Tikhonov solve (O_c^T O_c / N + lam I) u = F with
     Jacobi preconditioning: every operation is an (N, P) matvec, the Gram
     is never formed. ``mode``: the gram_precision of the matvecs
-    (stats.contract). Returns (update, F, lam_max, matvec, iterations)."""
-    n = O_c.shape[0]
-    diag_s = (O_c * O_c).mean(0)
+    (stats.contract). On a mesh O_c and e_c are a rank's rows, ``n`` the
+    global count and ``reduce`` sums a list of tensors over the ranks:
+    the diagonal and F cross them in one reduction, and every matvec in
+    one of P values. Returns (update, F, lam_max, matvec, iterations)."""
+    n = O_c.shape[0] if n is None else n
+    if reduce is None:
+        reduce = list
+    diag_s, F = reduce([(O_c * O_c).sum(0),
+                        stats.contract(e_c, O_c, mode)])
+    diag_s, F = diag_s / n, F / n
 
     def sv(v):
         # (O_c v)^T O_c == O_c^T (O_c v)
-        out = stats.contract(stats.contract(O_c, v, mode), O_c, mode) / n
+        out = reduce([stats.contract(stats.contract(O_c, v, mode), O_c,
+                                     mode)])[0] / n
         if cfg.diagonal_shift > 1e-10:
             # the shift S += shift * diag(S), matvec form
             out = out + cfg.diagonal_shift * diag_s * v
         return out
 
-    F = stats.contract(e_c, O_c, mode) / n
     # power iteration for lambda_max (matvecs only)
     v = torch.ones_like(F) / math.sqrt(F.shape[0])
     for _ in range(12):
@@ -446,6 +440,23 @@ def sphere_integrals(ctx, flow, params, ball, integral_T: float):
     return out
 
 
+def _chunk_spans(k: int, c: int, n_loc: int) -> bool:
+    """Whether the global chunk k of c rows spans the rows of more than
+    one shard of n_loc rows."""
+    return (k * c) // n_loc != ((k + 1) * c - 1) // n_loc
+
+
+def _chunk_pieces(n_loc: int, shard: int, c: int):
+    """The global chunks [k c, (k+1) c) that meet shard ``shard``'s rows
+    [shard n_loc, (shard+1) n_loc), in order: (k, lo, hi, spans) with the
+    shard's rows of chunk k at [lo, hi) of its own, and whether the chunk
+    spans shards. One shard: the chunks themselves."""
+    base = shard * n_loc
+    return [(k, max(k * c, base) - base,
+             min((k + 1) * c, base + n_loc) - base, _chunk_spans(k, c, n_loc))
+            for k in range(base // c, -(-(base + n_loc) // c))]
+
+
 class TDVP:
     """Fused TDVP right-hand side on one device, or on one rank of a mesh.
 
@@ -467,9 +478,11 @@ class TDVP:
         self.precision = precision or state.precision
         self.sampler = state.sampler
         self.device = state.device
-        self.ctx = ctx = state.ctx
-        if (self.sampler.ctx.world, self.sampler.ctx.rank) != (ctx.world,
-                                                              ctx.rank):
+        # the mesh, and (below) self.ctx, the sharding of the samples
+        self.mesh_ctx = ctx = state.ctx
+        if not any((self.sampler.ctx.world, self.sampler.ctx.rank)
+                   == (c.world, c.rank)
+                   for c in (ctx, ctx.samples_over_dp())):
             raise ValueError("the sampler and the state sit on different "
                              "meshes")
         self.n_samples = self.sampler.rounded_budget(n_samples)
@@ -599,7 +612,6 @@ class TDVP:
         # except at tp > 1 with P > 16384, where the JAX package keeps its
         # memory-scaling GSPMD layout), else the GSPMD counterpart
         W = ctx.world
-        _check_single_device(cfg, method, W)
         smap_ok = (
             W > 1
             and method in ("eigh", "cholesky")
@@ -623,13 +635,13 @@ class TDVP:
             or (cfg.stats_partitioning == "auto"
                 and (ctx.tp == 1 or state.numParameters <= 16384)))
         self._gspmd = W > 1 and not self._stats_shardmap
-        if self._gspmd and ctx.tp > 1:
-            raise _not_ported(
-                "the GSPMD statistics on a mesh with tp > 1 (the JAX "
-                "package's tp-row-sharded Gram)")
-        if self._gspmd and 0 < cfg.chunk_size < self.n_samples:
-            raise _not_ported(
-                "chunked statistics under stats_partitioning='gspmd'")
+        # GSPMD: the samples over dp, and at tp > 1 this rank's rows of
+        # every (P, P) moment (None: all of them)
+        self.ctx = ctx.samples_over_dp() if self._gspmd else ctx
+        if self.sampler.ctx is not self.ctx:
+            self.sampler.shard_over(self.ctx)
+        self._rows = (ctx.row_block(state.numParameters)
+                      if self._gspmd and ctx.tp > 1 else None)
 
         # Gram backend: "auto" resolves as the JAX package resolves it off
         # a TPU, to the plain f32 product; only an explicit syrk/sym2/tri2
@@ -651,6 +663,14 @@ class TDVP:
             )
         self._use_sym2 = cfg.gram_backend == "sym2"
         self._use_tri2 = cfg.gram_backend == "tri2"
+        if self._use_tri2 and self._gspmd:
+            raise ValueError(
+                "gram_backend='tri2' on a multi-device mesh needs the "
+                "shard_map stats path (its K+1 split dot_generals "
+                "would each all-reduce separately under GSPMD); this "
+                "configuration is ineligible for it -- use "
+                "gram_backend='auto'/'sym2'"
+            )
         self._cross_int8 = cfg.gram_cross == "int8"
         self._tri2_bounds = (stats.tri2_bounds(
             state.numParameters, cfg.tri2_target_block or 512)
@@ -704,11 +724,11 @@ class TDVP:
             and kernel_ok)
         # the wrapper launches the kernel for CUDA tensors and takes the
         # plain pipeline for CPU tensors; the GSPMD counterpart goes
-        # through the sharded wrapper, as the JAX package's GSPMD path
-        # takes make_per_sample_sharded
+        # through the sharded wrapper on the dp shards, as the JAX
+        # package's GSPMD path takes make_per_sample_sharded
         if use_kernel and self._gspmd:
             self._per_sample = functools.partial(
-                persample.per_sample_sharded, ctx)
+                persample.per_sample_sharded, self.ctx)
         else:
             self._per_sample = (persample.per_sample if use_kernel
                                 else persample.per_sample_plain)
@@ -783,7 +803,9 @@ class TDVP:
         normalizers and every mean are global, each rank contracts its
         rows against the global means, and F0, S0, A and the E_loc
         variance cross ranks in ONE all-reduce of the assembled moments
-        (the JAX package's _direct_stats with axis / n_global).
+        (the JAX package's _direct_stats with axis / n_global). Under
+        GSPMD at tp > 1 the Gram moments are this rank's row blocks until
+        that reduction (over the dp group), then gathered over tp.
 
         Under gram_precision="f64" the centered O, E_loc, logp and the
         weights are cast to f64 before the contractions; every product
@@ -813,7 +835,14 @@ class TDVP:
         if gdt is not None:
             O_c, e_c, lp = O_c.to(gdt), e_c.to(gdt), lp.to(gdt)
             w = None if w is None else w.to(gdt)
-        gram_sum, _, gram_fin = self._gram_backend()
+        # GSPMD: the rank's rows of a globally sharded operand, so the
+        # int8 cross term takes the global column scales and row count (the
+        # shard_map path keeps per-shard scales, as the JAX package does)
+        glob = {}
+        if self._gspmd and self._cross_int8:
+            glob = dict(amax_fn=functools.partial(mesh.all_reduce_max, ctx),
+                        n_rows=self.n_samples)
+        gram_sum, _, gram_fin = self._gram_backend(**glob)
         A = SExp = None
         if self.cfg.compute_snr or self.cfg.use_snr:
             A = gram_fin(gram_sum(O_c, wtimes(e_c**2))) / n
@@ -823,6 +852,7 @@ class TDVP:
         F0 = stats.contract(wtimes(e_c), O_c, self.cfg.gram_precision) / n
         F0, S0, A, SExp, eloc_var = mesh.all_reduce_sum(ctx, [
             F0, gram_fin(gram_sum(O_c, w)) / n, A, SExp, eloc_var])
+        S0, A, SExp = self._gather_rows([S0, A, SExp])
         return dict(
             O=O if self._sexp_matfree else None,
             SExp=SExp,
@@ -839,7 +869,7 @@ class TDVP:
                           1.0 / stats.global_means(ctx, [w**2], n)[0]),
         )
 
-    def _gram_backend(self, acc_dtype=None):
+    def _gram_backend(self, acc_dtype=None, amax_fn=None, n_rows=None):
         """(gram_sum, gram_zero, gram_fin) of the configured backend:
         gram_sum(Os, w=None) the unnormalized chunk moment Os^T diag(w) Os,
         gram_zero() its accumulator (in ``acc_dtype``, default the compute
@@ -847,18 +877,16 @@ class TDVP:
         raw triangle strips and cross term and mirrors them once; the
         other backends the matrix itself (syrk: one kernel launch per
         moment, mirrored inside; the f32 product at the gram_precision
-        otherwise)."""
+        otherwise). At tp > 1 under GSPMD the f32 and sym2 moments are
+        this rank's (r1 - r0, P) row block (``self._rows``).
+        ``amax_fn``, ``n_rows``: the int8 cross term's global column max
+        and row count, where Os holds a rank's rows of a sharded operand
+        (stats.sym2_gram_sum)."""
         P = self.n_params
         cdt = acc_dtype or self.precision.compute
         dev, cross = self.device, self._cross_int8
-        # GSPMD: the rank's rows of a globally sharded operand, so the int8
-        # cross term takes the global column scales and row count (the
-        # shard_map path keeps per-shard scales, as the JAX package does)
-        glob = {}
-        if self._gspmd and cross:
-            glob = dict(amax_fn=functools.partial(mesh.all_reduce_max,
-                                                  self.ctx),
-                        n_rows=self.n_samples)
+        rows = self._rows
+        n_out = P if rows is None else rows[1] - rows[0]
         if self._use_tri2:
             bounds = self._tri2_bounds
 
@@ -870,21 +898,31 @@ class TDVP:
                         "m2": torch.zeros((P, P), dtype=cdt, device=dev)}
 
             return (lambda Os, w=None: stats.tri2_gram_sum_raw(
-                        Os, w, bounds, cross_int8=cross, **glob),
+                        Os, w, bounds, cross_int8=cross),
                     gram_zero,
                     lambda acc: stats.tri2_gram_finalize(acc, bounds))
         if self._use_syrk:
             gram_sum = syrk.syrk
         elif self._use_sym2:
             gram_sum = lambda Os, w=None: stats.sym2_gram_sum(  # noqa: E731
-                Os, w, cross_int8=cross, **glob)
+                Os, w, cross_int8=cross, amax_fn=amax_fn, n_rows=n_rows,
+                rows=rows)
         else:
             mode = self.cfg.gram_precision
+            r = slice(None) if rows is None else slice(*rows)
             gram_sum = lambda Os, w=None: stats.contract(  # noqa: E731
-                Os.T, Os if w is None else Os * w[:, None], mode)
+                Os[:, r].T, Os if w is None else Os * w[:, None], mode)
         return (gram_sum,
-                lambda: torch.zeros((P, P), dtype=cdt, device=dev),
+                lambda: torch.zeros((n_out, P), dtype=cdt, device=dev),
                 lambda acc: acc)
+
+    def _gather_rows(self, mats):
+        """The whole (P, P) moments from this rank's row blocks (None
+        entries pass through); the moments themselves off the tp-sharded
+        layout."""
+        if self._rows is None:
+            return list(mats)
+        return mesh.all_gather_row_blocks(self.mesh_ctx, mats, self.n_params)
 
     def _chunked_stats(self, theta_c, t, x):
         """Streaming statistics, the counterpart of the JAX package's
@@ -904,15 +942,29 @@ class TDVP:
         shift by the same constants. Without it, chunk 0 is the pilot and
         the split, if any, happens in the Gram (stats.py).
 
-        On a mesh x is this rank's shard, scanned in local chunks of
-        chunk_size / W rows (the same per-rank work as one device's scan at
-        the global chunk); the pilot shift is averaged over the ranks, so
-        that every rank un-shifts by the same constants; each rank
-        assembles its tri2 strips, quantizes its int8 cross terms with its
-        own column scales and de-scales them before the reduce; and every
-        accumulated moment crosses ranks in ONE all-reduce after the scan,
-        per statistics evaluation, not per chunk (the JAX package's
-        _chunked_stats with axis / n_global).
+        On a mesh x is this rank's shard. Under shard_map it is scanned in
+        local chunks of chunk_size / W rows (the same per-rank work as one
+        device's scan at the global chunk); the pilot shift is averaged
+        over the ranks, so that every rank un-shifts by the same
+        constants; each rank assembles its tri2 strips, quantizes its int8
+        cross terms with its own column scales and de-scales them before
+        the reduce. Under GSPMD the chunks are the JAX package's global
+        ones (its _chunked_stats with axis=None): chunk k is the global
+        rows [k c, (k+1) c), of which each rank takes its own (a chunk may
+        lie inside one rank's rows or span several: _chunk_pieces); the
+        pilot shift is chunk 0's mean, sent from the rank that holds it
+        (summed over its holders where it spans ranks), and chunk 0 is
+        reused as the first accumulated chunk; the chunks run the
+        plain-mode kernel (no split pair and no quant8: the JAX package
+        takes those on one device or under shard_map only); sym2's int8
+        column scales are each global chunk's, reduced over the dp group
+        where the chunk spans ranks (the ranks without rows in it join
+        with zeros, so every rank steps through those reductions in the
+        chunks' order); at tp > 1 the Gram accumulators are this rank's
+        row blocks. Either way every accumulated moment crosses ranks in
+        ONE all-reduce after the scan (per dtype), per statistics
+        evaluation, not per chunk (the JAX package's _chunked_stats with
+        axis / n_global); the row blocks are then gathered over tp.
 
         The accumulators take the gram_precision's dtype (f64 under
         "f64" and "f64acc": each chunk's f32 moments add into f64). Under
@@ -924,31 +976,69 @@ class TDVP:
         ctx = self.ctx
         n_loc, d = x.shape
         n = n_loc * ctx.world
-        c = cfg.chunk_size // ctx.world
-        if n_loc % c:
-            raise ValueError(f"sample budget {n_loc} is not a multiple of "
-                             f"chunk size {c} (TDVP.__init__ rounds its own "
-                             "budgets; a hand-built call must do the same)")
+        if self._stats_shardmap:
+            c = cfg.chunk_size // ctx.world
+            if n_loc % c:
+                raise ValueError(
+                    f"sample budget {n_loc} is not a multiple of chunk size "
+                    f"{c} (TDVP.__init__ rounds its own budgets; a "
+                    "hand-built call must do the same)")
+            pieces = [(i // c, i, i + c, False) for i in range(0, n_loc, c)]
+        else:
+            c = cfg.chunk_size
+            if n % c:
+                raise ValueError(
+                    f"sample budget {n} is not a multiple of chunk size {c} "
+                    "(TDVP.__init__ rounds its own budgets; a hand-built "
+                    "call must do the same)")
+            pieces = _chunk_pieces(n_loc, ctx.rank, c)
         P = self.n_params
         mode = cfg.gram_precision
         gdt = stats.GRAM_OPERAND_DTYPE.get(mode)
         acc_dt = stats.GRAM_ACC_DTYPE.get(mode, theta_c.dtype)
-        use_pair = self._ps_split is not None and gdt is None
+        use_pair = (self._ps_split is not None and gdt is None
+                    and not self._gspmd)
         use_q8 = (use_pair and self._cross_int8 and c % 8 == 0
                   and c <= stats._INT8_CROSS_N_MAX)
         want_A = cfg.compute_snr or cfg.use_snr
         want_l2 = cfg.compute_sexp
         gram_sum, gram_zero, gram_fin = self._gram_backend(acc_dt)
+        # a chunk that spans ranks under GSPMD quantizes its int8 cross
+        # terms with the column scales of all of its rows: one all-reduce
+        # MAX per Gram moment of the chunk, which every rank joins
+        span_q8 = self._gspmd and self._cross_int8
+        n_grams = 1 + 2 * want_A + want_l2
+        if span_q8:
+            span_gram_sum = self._gram_backend(
+                acc_dt, amax_fn=functools.partial(mesh.all_reduce_max, ctx),
+                n_rows=c)[0]
 
-        c_pilot = min(c, 8 * cfg.per_sample_tile) if use_pair else c
-        pilot = self._per_sample_batch(theta_c, x[:c_pilot], t)
-        c_O = pilot[2].mean(0)
-        c_E = pilot[1].mean()
-        if ctx.world > 1:
-            # every rank must shift by the SAME constants, or the summed
-            # raw moments could not be un-shifted: one small (P,) mean
-            c_O, c_E = (v / ctx.world
-                        for v in mesh.all_reduce_sum(ctx, [c_O, c_E]))
+        first = pieces[0]
+        if use_pair:
+            c_pilot = min(c, 8 * cfg.per_sample_tile)
+            pilot = self._per_sample_batch(theta_c, x[:c_pilot], t)
+        else:
+            pilot = self._per_sample_batch(theta_c, x[first[1]:first[2]], t)
+        if self._gspmd:
+            # chunk 0's mean: every rank shifts by the same constants
+            if _chunk_spans(0, c, n_loc):
+                held = first[0] == 0
+                c_O, c_E = (v / c for v in mesh.all_reduce_sum(ctx, [
+                    pilot[2].sum(0) if held else pilot[2].new_zeros(P),
+                    pilot[1].sum() if held else pilot[1].new_zeros(())]))
+            else:
+                c_O = torch.cat([pilot[2].mean(0), pilot[1].mean()[None]])
+                mesh.broadcast(ctx, c_O, 0)
+                c_O, c_E = c_O[:P], c_O[P]
+        else:
+            c_O = pilot[2].mean(0)
+            c_E = pilot[1].mean()
+            if ctx.world > 1:
+                # every rank must shift by the SAME constants, or the
+                # summed raw moments could not be un-shifted: one small (P,)
+                # mean
+                c_O, c_E = (v / ctx.world
+                            for v in mesh.all_reduce_sum(ctx, [c_O, c_E]))
 
         def zeros(*shape):
             return torch.zeros(shape, dtype=acc_dt, device=x.device)
@@ -978,7 +1068,7 @@ class TDVP:
             add("sum_E2", (es**2).sum())
             add("sum_rawE2", (eloc**2).sum())
 
-        def chunk_plain(logp, eloc, O):
+        def chunk_plain(logp, eloc, O, gsum=gram_sum):
             Os = O - c_O
             es = eloc - c_E
             if gdt is not None:
@@ -987,19 +1077,18 @@ class TDVP:
             add_scalars(eloc, es)
             add("sum_O", Os.sum(0))
             add("sum_EO", stats.contract(es, Os, mode))
-            add("sum_OO", gram_sum(Os))
+            add("sum_OO", gsum(Os))
             if want_A:
                 w = es**2
                 add("sum_E2O", stats.contract(w, Os, mode))
-                add("sum_E2OO", gram_sum(Os, w))
-                add("sum_EOO", gram_sum(Os, es))
+                add("sum_E2OO", gsum(Os, w))
+                add("sum_EOO", gsum(Os, es))
             if want_l2:
                 w = logp**2
                 add("sum_l2", w.sum())
                 add("sum_l2O", stats.contract(w, Os, mode))
-                add("sum_l2OO", gram_sum(Os, w))
+                add("sum_l2OO", gsum(Os, w))
             return logp, eloc
-
         def chunk_pair(xc):
             logp, g, quad, pair, colsum, omax = self._ps_split(
                 self.flow, theta_c, xc, self._hess_dirs, c_O)
@@ -1048,25 +1137,44 @@ class TDVP:
             return logp, eloc
 
         if use_pair:
-            out = [chunk_pair(x[i:i + c]) for i in range(0, n_loc, c)]
+            out = [chunk_pair(x[lo:hi]) for _, lo, hi, _ in pieces]
+        elif span_q8:
+            # every global chunk in order on every rank, so that the ranks
+            # meet in the column-max reductions of the chunks that span
+            # them
+            mine = {k: (lo, hi, spans) for k, lo, hi, spans in pieces}
+            out = []
+            for k in range(n // c):
+                if k in mine:
+                    lo, hi, spans = mine[k]
+                    batch = (pilot if k == first[0] else
+                             self._per_sample_batch(theta_c, x[lo:hi], t))
+                    out.append(chunk_plain(
+                        *batch, gsum=span_gram_sum if spans else gram_sum))
+                elif _chunk_spans(k, c, n_loc):
+                    for _ in range(n_grams):
+                        mesh.all_reduce_max(ctx, torch.zeros(
+                            (2, P), dtype=torch.float32, device=x.device))
         else:
             out = [chunk_plain(*pilot)]
-            for i in range(c, n_loc, c):
+            for _, lo, hi, _ in pieces[1:]:
                 out.append(chunk_plain(*self._per_sample_batch(
-                    theta_c, x[i:i + c], t)))
+                    theta_c, x[lo:hi], t)))
         logp = torch.cat([o[0] for o in out])
         eloc = torch.cat([o[1] for o in out])
 
+        grams = [k for k in ("sum_OO", "sum_E2OO", "sum_EOO", "sum_l2OO")
+                 if k in acc]
         if ctx.world > 1:
             # assemble the tri2 strips per rank (the finish commutes with
             # the sum), then ONE all-reduce of every accumulated moment
-            for key in ("sum_OO", "sum_E2OO", "sum_EOO", "sum_l2OO"):
-                if key in acc:
-                    acc[key] = gram_fin(acc[key])
+            for key in grams:
+                acc[key] = gram_fin(acc[key])
             keys = sorted(acc)
             acc = dict(zip(keys, mesh.all_reduce_sum(
                 ctx, [acc[k] for k in keys])))
             gram_fin = lambda m: m  # noqa: E731
+        acc.update(zip(grams, self._gather_rows([acc[k] for k in grams])))
 
         # Un-shift. With y = O - c_O and f = E - c_E: m_y = E[y],
         # S0 = E[y^T y] - m_y^T m_y, F0 = E[f y] - m_f m_y
@@ -1214,10 +1322,15 @@ class TDVP:
         return aux
 
     def _eloc_moments(self, eloc):
-        """The E_loc diagnostics of the Gram-free solvers (one device)."""
-        mean = eloc.mean()
-        return dict(eloc_mean=mean, eloc_abs_mean=eloc.abs().mean(),
-                    eloc_var=((eloc - mean)**2).mean(), max_grad=eloc.max())
+        """The E_loc diagnostics of the Gram-free solvers, over every
+        sample (this rank's rows on a mesh), and E[E_loc^2]."""
+        ctx = self.ctx
+        n = eloc.shape[0] * ctx.world
+        mean, abs_mean, sq_mean = stats.global_means(
+            ctx, [eloc, eloc.abs(), eloc**2], n)
+        (var,) = stats.global_means(ctx, [(eloc - mean)**2], n)
+        return dict(eloc_mean=mean, eloc_abs_mean=abs_mean, eloc_var=var,
+                    max_grad=mesh.all_reduce_max(ctx, eloc.max())), sq_mean
 
     def _rhs_stats(self, theta_c, t, x, n, log_w, k_spec):
         """The Gram-based RHS (eigh, cholesky): the statistics, then the
@@ -1300,31 +1413,42 @@ class TDVP:
         """Matrix-free RHS: the per-sample batch, then Jacobi-preconditioned
         CG on the Tikhonov normal equations (_solve_cg); S is never formed.
         The residual and the TDVP error come from matvecs against the
-        unregularized S, as on the other paths. Returns (aux, logp, O)."""
-        cfg = self.cfg
+        unregularized S, as on the other paths. On a mesh the centering is
+        global and every matvec is one all-reduce of P values over the
+        ranks that hold other samples; the reduced values are the same
+        bits on every rank, so every rank reads the same stopping flag.
+        Returns (aux, logp, O)."""
+        cfg, ctx = self.cfg, self.ctx
+        n = x.shape[0] * ctx.world
         logp, eloc, O = self._per_sample_batch(theta_c, x, t)
         eloc = self._maybe_clip_eloc(eloc)
-        e_c = eloc - eloc.mean()
-        O_c = O - O.mean(0)
+        e_mean, o_mean = stats.global_means(ctx, [eloc, O], n)
+        e_c = eloc - e_mean
+        O_c = O - o_mean
         gdt = stats.GRAM_OPERAND_DTYPE.get(cfg.gram_precision)
         if gdt is not None:
             O_c, e_c = O_c.to(gdt), e_c.to(gdt)
-        update, F0, lam_max, sv, iters = _solve_cg(O_c, e_c, cfg,
-                                                   cfg.gram_precision)
+        update, F0, lam_max, sv, iters = _solve_cg(
+            O_c, e_c, cfg, cfg.gram_precision, n=n,
+            reduce=functools.partial(mesh.all_reduce_sum, ctx))
         s_u = sv(update)
+        moments, sq_mean = self._eloc_moments(eloc)
         aux = dict(
             update=update,
             solver_res=torch.linalg.norm(s_u - F0) / torch.linalg.norm(F0),
-            tdvp_error=1.0 + (update @ s_u - 2.0 * F0 @ update)
-            / (eloc**2).mean(),
-            lambda_max=lam_max, _cg_iters=iters, **self._eloc_moments(eloc))
+            tdvp_error=1.0 + (update @ s_u - 2.0 * F0 @ update) / sq_mean,
+            lambda_max=lam_max, _cg_iters=iters, **moments)
         return aux, logp, O
 
     def _rhs_minsr(self, theta_c, t, x, n):
         """Kernel-space RHS: the per-sample batch (or the streaming passes
         of _minsr_chunked when 0 < chunk_size < n), the N x N kernel's
         eigh and the minimum-norm update; the (P, P) Gram never exists.
-        Returns (aux, logp, O), O None when streamed."""
+        On a mesh the direct form gathers every rank's O rows and E_loc
+        (T is N x N over all samples, as in the JAX package, where XLA
+        gathers across the contraction) and every rank solves the same
+        kernel system. Returns (aux, logp, O), O this rank's rows (None
+        when streamed)."""
         cfg = self.cfg
         sdt = self.precision.solve
         O = None
@@ -1334,19 +1458,23 @@ class TDVP:
         else:
             logp, eloc, O = self._per_sample_batch(theta_c, x, t)
             eloc = self._maybe_clip_eloc(eloc)
-            e_c = eloc - eloc.mean()
-            O_c = O - O.mean(0)
+            e_all = mesh.all_gather_rows(self.ctx, eloc)
+            O_all = mesh.all_gather_rows(self.ctx, O)
+            e_c = e_all - e_all.mean()
+            O_c = O_all - O_all.mean(0)
+            del O_all
             gdt = stats.GRAM_OPERAND_DTYPE.get(cfg.gram_precision)
             if gdt is not None:
                 O_c, e_c = O_c.to(gdt), e_c.to(gdt)
             update, ev, snr, residual, tdvp_quad = _solve_minsr(
                 O_c, e_c, cfg, cfg.gram_precision, sdt,
                 use_sym2=self._use_sym2 or self._use_tri2)
+        moments, sq_mean = self._eloc_moments(eloc)
         aux = dict(
             update=update, solver_res=residual,
-            tdvp_error=1.0 + tdvp_quad / (eloc**2).mean().to(sdt),
+            tdvp_error=1.0 + tdvp_quad / sq_mean.to(sdt),
             ev=ev, snr=snr if snr is not None else torch.zeros_like(ev),
-            **self._eloc_moments(eloc))
+            **moments)
         return aux, logp, O
 
     def _minsr_chunked(self, theta_c, t, x):
@@ -1356,19 +1484,31 @@ class TDVP:
 
         1. the mean of O and the per-sample logp and E_loc;
         2. the kernel blocks T[i, j] = G_i G_j^T for chunk pairs j <= i,
-           G_k = O_k - mean(O) made again for each pair, G_i kept through
-           the inner loop (the diagonal blocks by sym2_outer_sum where the
-           sym2/tri2 backends are configured);
+           G_k = O_k - mean(O): G_j made once and kept through the inner
+           loop, G_i made again for each pair (the diagonal blocks by
+           sym2_outer_sum where the sym2/tri2 backends are configured);
         3. u = sum_i G_i^T alpha_i.
 
         That is n_c (n_c + 3) / 2 + n_c per-sample evaluations for n_c
         chunks, against 1 for the direct path; passes 2 and 3 need only O
         and take no trace directions. The solver's diagnostics are
         kernel-space (_minsr_kernel_solve), so apart from mean(O) and u no
-        P-sized array lives longer than two blocks. Returns (logp, eloc,
-        update, ev, snr, residual, tdvp_quad)."""
-        cfg = self.cfg
-        n = x.shape[0]
+        P-sized array lives longer than two blocks.
+
+        On a mesh the chunks are the global ones (_chunk_pieces: a rank
+        takes its rows of each), in the order of the global rows. In pass
+        2 each chunk's G_j is made by its rank and broadcast to the others
+        in turn, and each rank fills T's blocks of its own chunks at or
+        after j; the disjoint blocks then cross ranks in one all-reduce of
+        N^2 values, so every rank holds the same T and solves the same
+        kernel system. Collectives per RHS: the sums of pass 1 (O's, then
+        E_loc's), a gather of the N centered E_loc, n_c broadcasts of a
+        (chunk, P) block, the all-reduce of T and the one of u (P values):
+        n_c + 5. Returns (logp, eloc, update, ev, snr, residual,
+        tdvp_quad)."""
+        cfg, ctx = self.cfg, self.ctx
+        n_loc = x.shape[0]
+        n = n_loc * ctx.world
         c = cfg.chunk_size
         if n % c:
             raise ValueError(
@@ -1376,44 +1516,63 @@ class TDVP:
         mode = cfg.gram_precision
         cdt = stats.GRAM_OPERAND_DTYPE.get(mode, self.precision.compute)
         sdt = self.precision.solve
-        xs = [x[i:i + c] for i in range(0, n, c)]
+        mine = _chunk_pieces(n_loc, ctx.rank, c)
 
         sum_O = torch.zeros(self.n_params, dtype=cdt, device=x.device)
         logps, elocs = [], []
-        for xc in xs:
-            logp, eloc, O = self._per_sample_batch(theta_c, xc, t)
+        for _, lo, hi, _ in mine:
+            logp, eloc, O = self._per_sample_batch(theta_c, x[lo:hi], t)
             sum_O += O.sum(0)
             logps.append(logp)
             elocs.append(eloc)
         del O
+        (sum_O,) = mesh.all_reduce_sum(ctx, [sum_O])
         o_mean = sum_O / n
         logp, eloc = torch.cat(logps), torch.cat(elocs)
-        e_c = eloc - eloc.mean()
+        (e_mean,) = stats.global_means(ctx, [eloc], n)
+        e_c = mesh.all_gather_rows(ctx, eloc - e_mean)
 
-        def centered(xc):
+        def centered(lo, hi):
             # O - mean(O), promoted to f64 through o_mean under "f64"
-            return self._per_sample(self.flow, theta_c, xc, None)[3] - o_mean
+            return self._per_sample(self.flow, theta_c, x[lo:hi],
+                                    None)[3] - o_mean
 
         use_s2 = self._use_sym2 or self._use_tri2
         T = torch.zeros((n, n), dtype=cdt, device=x.device)
-        for i, xi in enumerate(xs):
-            G_i = centered(xi)
-            bi = slice(i * c, (i + 1) * c)
-            T[bi, bi] = (stats.sym2_outer_sum(G_i) if use_s2
-                         else stats.contract(G_i, G_i.T, mode))
-            for j in range(i):
-                bj = slice(j * c, (j + 1) * c)
-                blk = stats.contract(G_i, centered(xs[j]).T, mode)
-                T[bi, bj] = blk
-                T[bj, bi] = blk.T
-        del G_i
+        for shard in range(ctx.world):
+            q0 = shard * n_loc
+            for _, lq, hq, _ in _chunk_pieces(n_loc, shard, c):
+                bq = slice(q0 + lq, q0 + hq)
+                if shard == ctx.rank:
+                    # the kernel's O rows are a transposed view: broadcast
+                    # sends the storage as it lies
+                    G_q = centered(lq, hq).contiguous()
+                else:
+                    G_q = torch.empty((hq - lq, self.n_params), dtype=cdt,
+                                      device=x.device)
+                mesh.broadcast(ctx, G_q, shard)
+                for _, lp, hp, _ in mine:
+                    bp = slice(ctx.rank * n_loc + lp, ctx.rank * n_loc + hp)
+                    if bp.start < bq.start:
+                        continue
+                    if bp == bq:
+                        T[bq, bq] = (stats.sym2_outer_sum(G_q) if use_s2
+                                     else stats.contract(G_q, G_q.T, mode))
+                        continue
+                    blk = stats.contract(centered(lp, hp), G_q.T, mode)
+                    T[bp, bq] = blk
+                    T[bq, bp] = blk.T
+        del G_q
+        (T,) = mesh.all_reduce_sum(ctx, [T])
         alpha, ev, snr, residual, tdvp_quad = _minsr_kernel_solve(
             T, e_c, cfg, sdt)
         del T
         u = torch.zeros(self.n_params, dtype=cdt, device=x.device)
-        for i, xi in enumerate(xs):
-            u += stats.contract(alpha[i * c:(i + 1) * c].to(cdt),
-                                centered(xi), mode)
+        for _, lo, hi, _ in mine:
+            g = ctx.rank * n_loc
+            u += stats.contract(alpha[g + lo:g + hi].to(cdt),
+                                centered(lo, hi), mode)
+        (u,) = mesh.all_reduce_sum(ctx, [u])
         return logp, eloc, u.to(sdt), ev, snr, residual, tdvp_quad
 
     def _host_solve(self, aux):
@@ -1422,13 +1581,44 @@ class TDVP:
         numpy's eigh with the regularizers, or the Tikhonov solve by
         np.linalg.solve with lambda_max from np.linalg.norm(S, 2) up to
         P = 512 and from power iteration above. The update goes back to
-        the device; the diagnostics stay on the host."""
-        def host(key):
-            v = aux.pop(key)
-            return None if v is None else v.detach().to("cpu", torch.float64)
+        the device; the diagnostics stay on the host. On a mesh, where
+        every rank holds the same reduced moments, the coordinator alone
+        solves and broadcasts the update with its diagnostics in one f64
+        buffer, so theta stays bitwise equal across ranks."""
+        moments = [aux.pop(k) for k in ("S", "S0", "F0", "A")]
+        e2 = aux.pop("eloc_sq_mean")
+        eigh = self.solver_method == "eigh"
+        if self.mesh_ctx.world == 1:
+            out = self._host_solve_numpy(moments, e2)
+            out["update"] = out["update"].to(self.device)
+            out["nan"] = torch.isnan(out["update"]).any()
+            return out
+        P = self.n_params
+        sizes = dict(update=P, ev=P, snr=P) if eigh else dict(
+            update=P, lambda_max=1)
+        sizes.update(solver_res=1, tdvp_error=1)
+        if mesh.is_coordinator():
+            out = self._host_solve_numpy(moments, e2)
+            flat = torch.cat([out[k].reshape(-1) for k in sizes])
+        else:
+            flat = torch.zeros(sum(sizes.values()), dtype=torch.float64)
+        flat = mesh.broadcast_from_coordinator(flat.to(self.device))
+        out, i = {}, 0
+        for k, m in sizes.items():
+            v = flat[i:i + m]
+            out[k] = v if k == "update" else (
+                v.cpu() if m > 1 else v.cpu()[0])
+            i += m
+        out["nan"] = torch.isnan(out["update"]).any()
+        return out
 
-        S, S0, F0, A = host("S"), host("S0"), host("F0"), host("A")
-        e2 = float(aux.pop("eloc_sq_mean"))
+    def _host_solve_numpy(self, moments, e2):
+        """_host_solve's numpy f64 solve of the (S, S0, F0, A) moments;
+        every output on the host."""
+        S, S0, F0, A = (None if v is None
+                        else v.detach().to("cpu", torch.float64)
+                        for v in moments)
+        e2 = float(e2)
         out = {}
         if self.solver_method == "eigh":
             update, ev, snr, _ = _solve_regularized(
@@ -1447,8 +1637,7 @@ class TDVP:
                              / torch.linalg.norm(F0))
         out["tdvp_error"] = 1.0 + (update @ S0 @ update
                                    - 2.0 * F0 @ update) / e2
-        out["update"] = update.to(self.device)
-        out["nan"] = torch.isnan(out["update"]).any()
+        out["update"] = update
         return out
 
     @property
