@@ -228,6 +228,43 @@ stand-in for h5py (a card's host may have none), read back from it:
    residual (this flow's Tikhonov bias, ~3.3e-3) within 10% of an f64
    solve of the same system.
 
+Phase L (41-47, after the mesh): the ground-truth oracles, SanityFlow,
+the plots and the examples, against the d=32 Fokker-Planck main path at
+scripts/evolve_d32_fp.py's shape (alone: ``python3 -c "import chip_smoke
+as c; c.phase_device(); c.full_f32_matmuls(); c.phase_build();
+c.phase_oracles()"``):
+41. (L1) the SDE oracle on the card in f64: 20000 particles, d=32,
+   phase_space at T=10, dt 2e-3, 49 records, its covariance diagonal
+   within 5 sqrt(2/n) of the Lyapunov ODE at every record; timed, with
+   its host waits;
+42. (L2) evolve_d32_fp.py's RunConfig through ``driver.run`` at N=16384
+   for 48 fixed-Heun steps (steps_per_dispatch 8, precision tpu, P=9264):
+   exactly 96 plain-mode launches, no NaN, residual below 1e-3; the
+   script's summary against L1's cloud and the Lyapunov ODE, the latter
+   within the model's Monte Carlo bound 5 sqrt(2/N) at every record;
+43. (L3) ``python -m vmc_pde_torch.oracle fluidpaper`` at its defaults
+   (10000 particles, dt 1e-2, t_end 12): one Metropolis launch for the
+   cloud, the cloud's mean radius within 5% of the bump's, and the same
+   cloud integrated on the CPU in f64 within 1e-10 of the card's after
+   100 steps (the gap at t_end printed);
+44. (L4) ``hamiltonian`` through the CLI with ``--workdir``: infos.hdf5
+   with the JAX CLI's keys and shapes, read back by ``load_infos`` (through
+   phase J's h5py stand-in, which also reads), the final variances within
+   5 SE of T;
+45. (L5) ``double_well_init_cloud`` at 100000 particles (x against the
+   quadrature CDF, KS below 5/sqrt(n); var p within 5 SE of DW_T0), then
+   1001 phase_space steps, timed;
+46. (L6) ``evolve_radial`` on the card: the Gaussian grid against its
+   closed forms, the graded Student-t grid's t=0 entropy, card against
+   CPU within 1e-12, ms a step eager and graphed, the graded grid to a
+   cut t_end 0.5 (the script's 5 projected), host waits;
+47. (L7) one TDVP RHS with SanityFlow(dim=3) (no kernel launch; card vs
+   CPU within 1e-5), the plots' grid density of fluidpaper's flow card vs
+   CPU (and ``plot_data_diff`` and ``minimal_demo`` where matplotlib
+   imports; the card's host has none), and
+   ``vmc_pde_torch.examples.custom_equation`` on the card, PASS with its
+   own gates.
+
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -3073,10 +3110,11 @@ def phase_qmc_hessian_integrals(dev, theta5):
 
 class _H5Store:
     """An in-memory stand-in for h5py (a card's host may have none):
-    ``File(path, "w")`` as a context manager with ``create_dataset``; the
-    datasets stay in ``files[path]``, where the phases read them back.
-    store_infos (utils/infos.py), which every driver run with a workdir
-    ends in, is the only user; the CPU tests hold the real HDF5 path."""
+    ``File(path, "w")`` as a context manager with ``create_dataset``, and
+    ``File(path, "r")`` with ``keys()`` and ``[key]``; the datasets stay
+    in ``files[path]``, where the phases read them back. store_infos and
+    load_infos (utils/infos.py) are its users: every driver run with a
+    workdir ends in store_infos; the CPU tests hold the real HDF5 path."""
 
     def __init__(self):
         self.files = {}
@@ -3084,9 +3122,12 @@ class _H5Store:
 
         class File:
             def __init__(self, path, mode="r"):
-                if mode != "w":
-                    raise ValueError("the stand-in only writes")
-                self.data = store.files[os.path.abspath(path)] = {}
+                path = os.path.abspath(path)
+                if mode == "w":
+                    store.files[path] = {}
+                elif mode != "r":
+                    raise ValueError(f"the stand-in has no mode {mode!r}")
+                self.data = store.files[path]
 
             def __enter__(self):
                 return self
@@ -3096,6 +3137,12 @@ class _H5Store:
 
             def create_dataset(self, key, data):
                 self.data[key] = np.array(data)
+
+            def keys(self):
+                return self.data.keys()
+
+            def __getitem__(self, key):
+                return self.data[key]
 
         self.File = File
 
@@ -3460,6 +3507,486 @@ def phase_run_state():
     return out, paths
 
 
+# -- phase L: the ground-truth oracles, SanityFlow, the plots and the
+# examples (oracle/, models/sanity.py, viz/, examples/), against the d=32
+# Fokker-Planck main path at scripts/evolve_d32_fp.py's shape
+
+D32 = dict(n_oracle=20000, n_model=16384, dim=32, T=10.0, dt=2e-3,
+           steps=48)
+D32_PARAMS = {"m": 1.0, "omega": 1.0, "gamma": 1.0, "T": 10.0, "lam": 0.0}
+
+
+def _gen(dev, seed):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return gen
+
+
+def _lyapunov_diag(times, T, gamma=1.0, n_sub=4000):
+    """(len(times), 2) diagonal of the exact covariance of one (q, p) pair
+    from C(0) = I: dC/dt = A C + C A^T + B, A = [[0, 1], [-1, -gamma]],
+    B = diag(0, 2 gamma T), RK4 at h = t / n_sub for every record at once
+    (scripts/evolve_d32_fp.py:93-113, exact to ~1e-13)."""
+    A = np.array([[0.0, 1.0], [-1.0, -gamma]])
+    B = np.diag([0.0, 2.0 * gamma * T])
+    h = (np.asarray(times, dtype=np.float64) / n_sub)[:, None, None]
+    C = np.tile(np.eye(2), (len(times), 1, 1))
+
+    def f(C):
+        return A @ C + C @ A.T + B
+
+    for _ in range(n_sub):
+        k1 = f(C)
+        k2 = f(C + h / 2 * k1)
+        k3 = f(C + h / 2 * k2)
+        k4 = f(C + h * k3)
+        C = C + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+    return np.diagonal(C, axis1=1, axis2=2)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_oracle_d32(dev):
+    """L1: the SDE oracle at evolve_d32_fp.py's shape on the card in f64:
+    20000 particles, d=32, phase_space at T=10, dt 2e-3, 49 records; the
+    covariance diagonal against the Lyapunov ODE at every record, within
+    5 sqrt(2/n) relative (n the particles)."""
+    from vmc_pde_torch.oracle import sde
+
+    n, d = D32["n_oracle"], D32["dim"]
+    cloud = torch.randn((n, d), generator=_gen(dev, 5), dtype=torch.float64,
+                        device=dev)
+    (_, inf), sec = _timed(lambda: sde.evolve(
+        cloud, 0.0, D32["dt"], D32["steps"] + 1, drift_name="phase_space",
+        params=D32_PARAMS, gen=_gen(dev, 6)))
+    od = np.diagonal(inf["covar"], axis1=1, axis2=2)
+    ed = np.tile(_lyapunov_diag(inf["times"], D32["T"]), (1, d // 2))
+    rel = np.abs(od - ed) / ed
+    bound = 5 * math.sqrt(2 / n)
+    print(f"L1 SDE oracle d={d}, n={n}, {D32['steps'] + 1} records in f64: "
+          f"{sec:.3f} s; covariance diagonal vs Lyapunov: max rel "
+          f"{rel.max():.3e}, mean {rel.mean():.3e} (bound 5 sqrt(2/n) = "
+          f"{bound:.3e}); momentum variance {od[0, 1::2].mean():.3f} -> "
+          f"{od[-1, 1::2].mean():.3f} (exact {ed[-1, 1]:.3f})")
+    if not (rel <= bound).all():
+        fail(f"L1: the oracle's covariance leaves the Lyapunov solution by "
+             f"{rel.max():.3e} > {bound:.3e}")
+    sites = _sync_sites(lambda: sde.evolve(
+        cloud, 0.0, D32["dt"], 3, drift_name="phase_space",
+        params=D32_PARAMS, gen=_gen(dev, 6)))
+    print(f"L1 host waits in a 3-step evolve: {len(sites)} "
+          f"{sorted(set(sites))}")
+    return inf, dict(seconds=sec, cov_diag_lyapunov_rel_err_max=rel.max(),
+                     cov_diag_lyapunov_rel_err_mean=rel.mean(), bound=bound,
+                     host_waits=sorted(set(sites)))
+
+
+def phase_model_d32(oracle_infos):
+    """L2: evolve_d32_fp.py's RunConfig through driver.run at N=16384 for
+    48 fixed-Heun steps, steps_per_dispatch 8, precision tpu: exactly 2
+    plain-mode launches a step, no NaN, residual below 1e-3; the script's
+    summary against L1's cloud and the Lyapunov ODE, the latter gated at
+    the model's own Monte Carlo bound 5 sqrt(2/N) relative."""
+    from vmc_pde_torch.config import RunConfig
+
+    N, d, steps = D32["n_model"], D32["dim"], D32["steps"]
+    cfg = RunConfig(
+        name="d32_fp", dim=d, offset=(0.0,) * d,
+        equation="advection_hamiltonian_wDiss",
+        equation_params={"T": D32["T"]}, variant="affine",
+        latent_name="Gauss", dt0=D32["dt"], max_step=D32["dt"],
+        t_end=D32["dt"] * (steps + 1), n_samples_tdvp=N, n_samples_obs=N,
+        precision="tpu", verbose=False, steps_per_dispatch=8,
+        device="cuda")
+    label = f"L2 evolve_d32_fp N={N}"
+    t0 = time.perf_counter()
+    state, arrays, counts = _drive(None, label, steps, cfg=cfg)
+    wall = time.perf_counter() - t0
+    print(f"{label}: P = {state.numParameters}, {wall:.1f} s for "
+          f"{steps} steps")
+    if counts["persample"] != 2 * steps:
+        fail(f"L2: {counts['persample']} plain-mode launches, expected "
+             f"{2 * steps}")
+    m_t = arrays["times"]
+    n_rec = min(len(m_t), len(oracle_infos["covar"]))
+    md = np.diagonal(arrays["covar"][:n_rec], axis1=1, axis2=2)
+    od = np.diagonal(oracle_infos["covar"][:n_rec], axis1=1, axis2=2)
+    ed = np.tile(_lyapunov_diag(m_t[:n_rec], D32["T"]), (1, d // 2))
+    rel = np.abs(md - od) / np.maximum(np.abs(od), 1e-9)
+    rel_exact = np.abs(md - ed) / np.maximum(np.abs(ed), 1e-9)
+    bound = 5 * math.sqrt(2 / N)
+    summary = dict(
+        steps=int(len(m_t)), wall_s=wall, P=state.numParameters,
+        residual_median=float(np.median(arrays["solver_res"])),
+        cov_diag_rel_err_max=float(rel.max()),
+        cov_diag_rel_err_mean=float(rel.mean()),
+        cov_diag_exact_rel_err_max=float(rel_exact.max()),
+        cov_diag_exact_rel_err_mean=float(rel_exact.mean()),
+        momentum_var_growth=float(md[-1, 1::2].mean() / md[0, 1::2].mean()),
+        entropy_finite=bool(np.isfinite(arrays["entropy"]).all()),
+        exact_bound=bound, launches=counts["persample"])
+    print(f"{label} summary: {json.dumps(summary)}")
+    if not (rel_exact <= bound).all():
+        fail(f"L2: the model's covariance diagonal leaves the Lyapunov "
+             f"solution by {rel_exact.max():.3e} > 5 sqrt(2/N) = {bound:.3e}")
+    return summary
+
+
+def phase_oracle_fluidpaper(dev):
+    """L3: ``python -m vmc_pde_torch.oracle fluidpaper`` at the CLI's
+    defaults (10000 particles, dt 1e-2, t_end 12): the Metropolis kernel
+    launched for the cloud, the cloud's mean radius within 5% of the
+    bump's, and the same cloud integrated by the port on the CPU in f64:
+    within 1e-10 of the card's after 100 steps; the gap at t_end
+    reported."""
+    from vmc_pde_torch.oracle import sde
+    from vmc_pde_torch.oracle.__main__ import main as oracle_main
+
+    _zero_counts()
+    (final, inf), sec = _timed(lambda: oracle_main(["fluidpaper"]))
+    counts = _counts()
+    print(f"L3 oracle fluidpaper (10000 particles, 1200 steps): {sec:.3f} s,"
+          f" kernel launches {counts}")
+    if counts["metropolis"] != 1:
+        fail(f"L3: the Metropolis kernel launched {counts['metropolis']} "
+             "times for the cloud, expected 1")
+    # the CLI's cloud again (the same generator seed: the same draws)
+    cloud = sde.mcmc_init_cloud(_gen(dev, 0), 10000, BUMP_OFFSET)
+    same = np.array_equal(cloud.mean(dim=0).cpu().numpy(), inf["x1"][0])
+    r = torch.linalg.vector_norm(cloud - torch.tensor(
+        BUMP_OFFSET, dtype=cloud.dtype, device=dev), dim=-1)
+    mean_r, want_r = float(r.mean()), _bump_mean_radius(0.25)
+    print(f"L3 cloud: the CLI's first record again {same}; mean radius "
+          f"{mean_r:.5f} vs the bump's {want_r:.5f} "
+          f"({abs(mean_r / want_r - 1):.2%}, bound 5%)")
+    if not same or abs(mean_r / want_r - 1) > 0.05:
+        fail("L3: the Metropolis cloud is not the CLI's, or not the bump's")
+    kw = dict(drift_name="advection_paper", params={"T": 5.0},
+              integral_T=5.0)
+    c100, _ = sde.evolve(cloud, 0.0, 1e-2, 100, **kw)
+    (c100_cpu, _), cpu_sec = _timed(lambda: sde.evolve(cloud.cpu(), 0.0,
+                                                       1e-2, 100, **kw))
+    gap100 = float((c100.cpu() - c100_cpu).abs().max())
+    c_end, _ = sde.evolve(c100_cpu, 1.0, 1e-2, 1100, **kw)
+    gap_end = float((final.cpu() - c_end).abs().max())
+    print(f"L3 card vs the CPU's f64 integration of the same cloud: "
+          f"{gap100:.3e} after 100 steps (bound 1e-10), {gap_end:.3e} at "
+          f"t_end 12; the CPU's 100 steps {cpu_sec:.3f} s")
+    if not gap100 <= 1e-10:
+        fail(f"L3: card and CPU apart by {gap100:.3e} after 100 steps")
+    return dict(seconds=sec, launches=counts["metropolis"],
+                mean_radius=mean_r, bump_mean_radius=want_r,
+                gap_100_steps=gap100, gap_t_end=gap_end), cloud
+
+
+def phase_oracle_cli_workdir(root):
+    """L4: ``hamiltonian`` through the CLI with --workdir: infos.hdf5 with
+    the JAX CLI's keys and shapes, read back by load_infos; the final
+    variances within 5 SE of the stationary T."""
+    from vmc_pde_torch.oracle.__main__ import main as oracle_main
+    from vmc_pde_torch.utils.infos import load_infos
+
+    wdir = os.path.join(root, "oracle_hamiltonian")
+    _, sec = _timed(lambda: oracle_main(["hamiltonian", "--workdir", wdir]))
+    inf = load_infos(os.path.join(wdir, "infos.hdf5"))
+    shapes = {k: v.shape for k, v in inf.items()}
+    want = {"times": (1200,), "x1": (1200, 6), "covar": (1200, 6, 6),
+            "integral_1sigma": (1200,), "integral_0.5sigma": (1200,),
+            "integral_0.1sigma": (1200,)}
+    var = np.diag(inf["covar"][-1])
+    se = math.sqrt(2 / 10000) * 10.0
+    print(f"L4 oracle hamiltonian --workdir: {sec:.3f} s; infos.hdf5 "
+          f"{shapes}; final variances {np.round(var, 3)} vs T = 10 "
+          f"(5 SE = {5 * se:.3f})")
+    if shapes != want:
+        fail(f"L4: infos.hdf5 has {shapes}, the JAX CLI's are {want}")
+    if not (np.abs(var - 10.0) < 5 * se).all():
+        fail(f"L4: final variances {var} leave T = 10 by more than 5 SE")
+    return dict(seconds=sec, final_var=var.tolist(), five_se=5 * se)
+
+
+def phase_oracle_double_well(dev):
+    """L5: double_well_init_cloud at evolve_doublewell.py's 100000
+    particles: x against the quadrature CDF (Kolmogorov-Smirnov distance
+    below 5/sqrt(n)), the variance of p within 5 SE of DW_T0; then 1001
+    phase_space steps at T=0.5, lam=1, v2=-4, timed."""
+    from vmc_pde_torch.models.latent import DW_T0, dw_x_quadrature
+    from vmc_pde_torch.oracle import sde
+
+    n = 100000
+    cloud, init_sec = _timed(lambda: sde.double_well_init_cloud(
+        _gen(dev, 3), n))
+    xs, pdf = dw_x_quadrature()
+    cdf = np.cumsum(pdf)
+    cdf /= cdf[-1]
+    x = np.sort(cloud[:, 0].cpu().numpy())
+    F = np.interp(x, xs, cdf)
+    ks = max((np.arange(1, n + 1) / n - F).max(), (F - np.arange(n) / n).max())
+    var_p = float(cloud[:, 1].var(unbiased=False))
+    se = math.sqrt(2 / n) * DW_T0
+    params = {"m": 1.0, "omega": 1.0, "gamma": 1.0, "T": 0.5, "lam": 1.0,
+              "v2": -4.0}
+    (final, inf), sec = _timed(lambda: sde.evolve(
+        cloud, 0.0, 2e-3, 1001, drift_name="phase_space", params=params,
+        gen=_gen(dev, 4)))
+    finite = bool(torch.isfinite(final).all()) and all(
+        np.isfinite(v).all() for v in inf.values())
+    var_end = np.diag(inf["covar"][-1])
+    print(f"L5 double-well cloud n={n}: {init_sec:.3f} s, KS {ks:.2e} "
+          f"(bound {5 / math.sqrt(n):.2e}), var p {var_p:.4f} vs DW_T0 "
+          f"{DW_T0} (5 SE {5 * se:.4f}); 1001 steps {sec:.3f} s, finite "
+          f"{finite}, var (x, p) at t=2 {np.round(var_end, 4)}")
+    if ks >= 5 / math.sqrt(n) or abs(var_p - DW_T0) >= 5 * se:
+        fail("L5: the double-well cloud misses its density")
+    if not finite:
+        fail("L5: the double-well evolution went non-finite")
+    return dict(init_seconds=init_sec, ks=ks, var_p=var_p, seconds=sec)
+
+
+def _radial_steps(faces, t_end, n_record, d=8, cfl=0.2):
+    """(steps, dt) of radial.evolve_radial on ``faces`` (its rule: the
+    explicit bound's step count rounded up to whole recording chunks)."""
+    dr = float(np.diff(faces).min())
+    n = math.ceil(t_end / (cfl * dr * dr / (2.0 * d)))
+    every = max(n // n_record, 1)
+    n = -(-n // every) * every
+    return n, t_end / n
+
+
+def phase_radial(dev):
+    """L6: evolve_radial on the card in f64. The Gaussian grid of
+    tests/test_oracle_and_e2e.py:337 (d=8, r_max 30, n_r 1200, t_end 0.5)
+    against the closed-form entropy (5e-3) and variance (2e-3), mass drift
+    below 1e-10; compare_student_grid.py's graded grid: the t=0 entropy
+    within 5e-3 of student_t_entropy(2, 8), eager and graphed runs on the
+    card against the CPU's to t_end 0.01 (2500 steps) within 1e-12
+    relative, and a graphed run of the same t_end as a single recording
+    chunk (2001 steps; the captured graphs hold at most 256 steps however
+    long the chunk) against the eager run of those steps, the eager one's
+    ms a step; then the graded grid to a cut
+    t_end of 0.5 (100400 steps), not the script's 5, graphed, its ms a step
+    and the projection to t_end 5: 10^6 steps would take 31-33 s
+    (0.031-0.033 ms a step on an H100 80GB HBM3 at 700 W), so the t_end=5
+    run waits for a
+    single-block kernel of the chunk (ROADMAP.md)."""
+    from functools import partial
+
+    from vmc_pde_torch.oracle import radial
+
+    gauss = partial(radial.gauss_radial, d=8)
+    out, gauss_sec = _timed(lambda: radial.evolve_radial(
+        gauss, d=8, r_max=30.0, n_r=1200, t_end=0.5, n_record=50,
+        device=dev))
+    t = out["times"]
+    ent_err = np.abs(out["entropy"] - 4 * np.log(2 * math.pi * math.e
+                                                 * (1 + 2 * t))).max()
+    var_err = np.abs(out["var"] - (1 + 2 * t)).max()
+    drift = np.abs(out["mass"] - out["mass"][0]).max()
+    print(f"L6 radial Gaussian grid (n_r 1200, t_end 0.5) on the card: "
+          f"{gauss_sec:.3f} s; entropy err {ent_err:.2e} (5e-3), var err "
+          f"{var_err:.2e} (2e-3), mass drift {drift:.2e} (1e-10)")
+    if not (ent_err < 5e-3 and var_err < 2e-3 and drift < 1e-10):
+        fail("L6: the radial oracle misses the Gaussian closed forms")
+
+    faces = radial.radial_faces(1500.0, dr0=0.02, r_core=12.0, growth=1.02)
+    student = partial(radial.student_t_radial, nu=2.0, d=8)
+    kw = dict(d=8, faces=faces)
+    runs = {}
+    for label, extra in (
+            ("eager", dict(device=dev, cuda_graph=False, n_record=4)),
+            ("graphed", dict(device=dev, n_record=4)),
+            ("cpu", dict(device="cpu", n_record=4)),
+            # one recording chunk of all 2001 steps: 7 replays of the
+            # 256-step graph, then the 209-step tail with the diagnostics,
+            # against the eager run of the same steps on the card
+            ("one record", dict(device=dev, n_record=1)),
+            ("one record eager", dict(device=dev, cuda_graph=False,
+                                      n_record=1))):
+        runs[label] = _timed(lambda: radial.evolve_radial(
+            student, t_end=0.01, **kw, **extra))
+
+    def rel_gap(a, b):
+        return max(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max()
+                   for k in ("entropy", "mass", "var", "f_final"))
+
+    gap = max(rel_gap(runs["eager"][0], runs["cpu"][0]),
+              rel_gap(runs["graphed"][0], runs["cpu"][0]),
+              rel_gap(runs["one record"][0], runs["one record eager"][0]))
+    n_short, dt = _radial_steps(faces, 0.01, 4)
+    eager_ms = 1e3 * runs["eager"][1] / n_short
+    s0 = radial.student_t_entropy(2.0, 8)
+    t0_ent = runs["graphed"][0]["entropy"][0]
+    print(f"L6 graded grid ({len(faces) - 1} cells, dt {dt:.2e}): t=0 "
+          f"entropy {t0_ent:.5f} vs {s0:.5f}; card (eager and graphed) vs "
+          f"CPU to t_end 0.01, and as one record against eager: {gap:.2e} "
+          f"relative (1e-12); eager "
+          f"{eager_ms:.4f} ms a step; CPU {runs['cpu'][1]:.2f} s for "
+          f"{n_short} steps; graphed as one record {runs['one record'][1]:.3f}"
+          f" s with its capture (n_record 4: {runs['graphed'][1]:.3f} s)")
+    if abs(t0_ent - s0) >= 5e-3 or not gap <= 1e-12:
+        fail("L6: the graded grid misses its t=0 entropy or the CPU path")
+    t_run = 0.5
+    out, sec = _timed(lambda: radial.evolve_radial(
+        student, t_end=t_run, n_record=250, device=dev, **kw))
+    graph_ms = 1e3 * sec / _radial_steps(faces, t_run, 250)[0]
+    projected = graph_ms * _radial_steps(faces, 5.0, 250)[0] / 1e3
+    drift = np.abs(out["mass"] - out["mass"][0]).max()
+    rising = bool((np.diff(out["entropy"]) > 0).all())
+    print(f"L6 graded grid to t_end {t_run}, graphed (cut from the "
+          f"script's 5): {sec:.2f} s, {graph_ms:.4f} ms a step, t_end 5 "
+          f"projected at {projected:.1f} s; entropy {out['entropy'][0]:.4f}"
+          f" -> {out['entropy'][-1]:.4f} rising {rising}, mass drift "
+          f"{drift:.2e}")
+    if drift >= 1e-10 or not rising:
+        fail("L6: the graded run lost mass or entropy")
+    sites = _sync_sites(lambda: radial.evolve_radial(
+        student, t_end=0.002, n_record=4, device=dev, **kw))
+    print(f"L6 host waits in a graphed run: {len(sites)} "
+          f"{sorted(set(sites))}")
+    return dict(gauss_seconds=gauss_sec, eager_ms_per_step=eager_ms,
+                graph_ms_per_step=graph_ms, card_vs_cpu=gap, t_end=t_run,
+                t_end_seconds=sec, projected_t5_seconds=projected,
+                host_waits=sorted(set(sites)))
+
+
+def phase_sanity_plots_examples(dev, cloud):
+    """L7: one TDVP RHS with SanityFlow(dim=3) on the card (the per-sample
+    kernel refuses the flow: no launch; the update within 1e-5 of the
+    CPU's on the same draws); plot_data_diff's grid density of
+    fluidpaper's flow, card against CPU (and the figure's integrated
+    |diff| where matplotlib imports); the custom_equation example on the
+    card with its own gates (f64 as on the CPU if the tpu precision misses
+    one); minimal_demo where matplotlib imports."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from vmc_pde_torch.examples import custom_equation, minimal_demo
+    from vmc_pde_torch.models.sanity import SanityFlow
+    from vmc_pde_torch.utils.dtypes import resolve
+    from vmc_pde_torch.viz import plots
+
+    out = {}
+    flow = SanityFlow(3)
+    params = flow.init()
+    params["scale"] = np.array([1.25])
+    params["latent"]["mu"] = np.array([0.1, -0.2, 0.3])
+    z = torch.randn((16384, 3), generator=_gen(dev, 8), device=dev)
+    updates = {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        theta = torch.as_tensor(flow.layout.ravel(params),
+                                dtype=torch.float32, device=where)
+        prec = resolve("f32")
+        state = VarState(flow, theta, precision=prec,
+                         sampler=sampling.Sampler(3, dtype=torch.float32))
+        tdvp = TDVP(state, make_equation("diffusion", 3),
+                    tdvp_mod.TDVPConfig(), n_samples=16384, precision=prec)
+        _zero_counts()
+        aux = tdvp._rhs_impl(theta, 0.0, 0, z.to(where))
+        updates[label] = aux["update"].double().cpu()
+        if label == "card":
+            counts = _counts()
+            if tdvp.uses_kernel or counts["persample"]:
+                fail(f"L7: SanityFlow launched the per-sample kernel "
+                     f"({counts})")
+    sane = _rel(updates["card"], updates["cpu"])
+    print(f"L7 SanityFlow(dim=3) RHS at N=16384, f32: card vs CPU update "
+          f"{sane:.2e} (1e-5), per-sample launches 0")
+    if not sane <= 1e-5:
+        fail(f"L7: SanityFlow's RHS differs between card and CPU: {sane}")
+    out["sanity_rhs_card_vs_cpu"] = sane
+
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    fp_state = driver.build_problem(preset("fluidpaper", device="cuda"))[0]
+    cpu_state = VarState(fp_state.flow, fp_state.theta.cpu(),
+                         precision=fp_state.precision)
+    grid = Grid(np.ones(2), 100, sym=False)
+    dens = {}
+    for label, st in (("card", fp_state), ("cpu", cpu_state)):
+        # p, not log p: the bump's log p is -inf off its support
+        dens[label] = np.exp(plots._log_density(st, grid.coords))
+    gap = np.abs(dens["card"] - dens["cpu"]).max() / dens["cpu"].max()
+    print(f"L7 plot_data_diff's grid density of fluidpaper's flow (100^2 on "
+          f"[0, 1]^2): card vs CPU {gap:.2e} of max p (1e-5); "
+          f"matplotlib {'imports' if have_mpl else 'is absent: no drawing'}")
+    if not gap <= 1e-5:
+        fail(f"L7: the grid density differs between card and CPU: {gap}")
+    out["grid_density_card_vs_cpu"] = gap
+    if have_mpl:
+        data = cloud.cpu().numpy()
+        diffs = {}
+        for label, st in (("card", fp_state), ("cpu", cpu_state)):
+            fig, diffs[label] = plots.plot_data_diff(st, grid, data)
+            plots._plt().close(fig)
+        print(f"L7 plot_data_diff integrated |diff| against the L3 cloud: "
+              f"card {diffs['card']:.6f}, CPU {diffs['cpu']:.6f}")
+        if not abs(diffs["card"] - diffs["cpu"]) <= 1e-5 * diffs["cpu"]:
+            fail("L7: plot_data_diff differs between card and CPU")
+        out["plot_data_diff"] = diffs
+
+    runs = {}
+    for precision in ("tpu", "f64"):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            code, sec = _timed(lambda: custom_equation.main(
+                ["--device", "cuda", "--precision", precision,
+                 "--workdir", ""]))
+        lines = text.getvalue().splitlines()
+        print(f"L7 custom_equation on the card, precision {precision}: "
+              f"{sec:.1f} s; " + "; ".join(lines))
+        runs[precision] = dict(code=code, seconds=sec, lines=lines)
+        if code == 0:
+            break
+    out["custom_equation"] = runs
+    if code != 0:
+        fail("L7: custom_equation misses its gates on the card in f64")
+
+    if have_mpl:
+        demo_dir = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+        try:
+            _, sec = _timed(lambda: minimal_demo.main(
+                ["--device", "cuda", "--outdir", demo_dir]))
+            figs = sorted(os.listdir(demo_dir))
+        finally:
+            shutil.rmtree(demo_dir, ignore_errors=True)
+        print(f"L7 minimal_demo on the card: {sec:.1f} s, wrote {figs}")
+        out["minimal_demo"] = dict(seconds=sec, files=figs)
+    return out
+
+
+def phase_oracles():
+    """Phase L (L1-L7); returns its record and the per-sample and
+    Metropolis kernels' launches on its paths."""
+    dev = torch.device("cuda")
+    _h5_stand_in()  # L4 writes infos.hdf5 and reads it back through it
+    root = tempfile.mkdtemp(prefix="chip_smoke_l_")
+    t0 = time.perf_counter()
+    out = {}
+    try:
+        oracle_infos, out["L1"] = phase_oracle_d32(dev)
+        out["L2"] = phase_model_d32(oracle_infos)
+        out["L3"], cloud = phase_oracle_fluidpaper(dev)
+        out["L4"] = phase_oracle_cli_workdir(root)
+        out["L5"] = phase_oracle_double_well(dev)
+        out["L6"] = phase_radial(dev)
+        out["L7"] = phase_sanity_plots_examples(dev, cloud)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase L: {out['seconds']:.1f} s")
+    return out, {
+        "persample": {"L2 evolve_d32_fp's RunConfig N=16384 (48 steps)":
+                      out["L2"]["launches"]},
+        "metropolis": {"L3 python -m vmc_pde_torch.oracle fluidpaper "
+                       "(the cloud)": out["L3"]["launches"]}}
+
+
 def main():
     phase_device()
     full_f32_matmuls()
@@ -3563,6 +4090,11 @@ def main():
         "fokkerPlanck32 N=16384 syrk fixed_heun": launches["syrk"],
         "one direct batch with the dense SExp (S0, A, SExp)":
             steppers["launches"]["syrk"]}
+    oracles, oracle_paths = phase_oracles()
+    paths.update(oracle_paths["persample"])
+    results["metropolis"]["launches_by_path"] = {
+        "VarState.sample of fluidpaper's flow (phase 10)":
+            launches["metropolis"], **oracle_paths["metropolis"]}
     print(json.dumps({"steppers": steppers}))
     print(json.dumps({"solvers": solvers}))
     print(json.dumps({"mesh_paths": mesh_paths}))
@@ -3570,6 +4102,7 @@ def main():
     print(json.dumps({"mesh_k": mesh_k}, default=str))
     print(json.dumps({"qmc_hessian_integrals": qhi}))
     print(json.dumps({"run_state": run_state}))
+    print(json.dumps({"oracles": oracles}, default=str))
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name],

@@ -461,7 +461,9 @@ def test_driver_writes_infos_once(driver_runs):
     import h5py
 
     _, _, wdir = driver_runs
-    assert os.listdir(os.path.join(wdir, "r0")) == ["infos.hdf5"]
+    # infos.hdf5 and the driver's density snapshot at t = 0, rank 0's only
+    assert sorted(os.listdir(os.path.join(wdir, "r0"))) == [
+        "infos.hdf5", "t_0.000.pdf"]
     assert not os.path.exists(os.path.join(wdir, "r1"))
     with h5py.File(os.path.join(wdir, "r0", "infos.hdf5")) as f, \
             h5py.File(os.path.join(wdir, "single", "infos.hdf5")) as g:

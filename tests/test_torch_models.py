@@ -9,6 +9,7 @@ near machine precision times the flow's amplification -- the perturbed
 flows reach values ~1e3, where a few ulp of 2e-16 stay far below 1e-10.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -184,13 +185,23 @@ def test_latent_sample_covariance():
 
 
 def test_port_imports_without_jax():
-    """The port imports and runs with JAX blocked, and its sources name
-    no JAX module."""
+    """The port imports and runs with JAX blocked, the oracles, the plots,
+    SanityFlow and the examples included, without importing matplotlib
+    (it is imported when a figure is drawn); its sources, and the
+    notebook's code cells, name no JAX module."""
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['jaxlib'] = None; sys.modules['flax'] = None\n"
             "import vmc_pde_torch.driver, vmc_pde_torch.kernels.build\n"
             "from vmc_pde_torch.models.convert import from_jax\n"
             "from vmc_pde_torch.kernels.persample import per_sample\n"
+            "import vmc_pde_torch.oracle.sde, vmc_pde_torch.oracle.radial\n"
+            "import vmc_pde_torch.oracle.__main__\n"
+            "import vmc_pde_torch.viz.plots, vmc_pde_torch.viz.paper\n"
+            "import vmc_pde_torch.models.sanity\n"
+            "import vmc_pde_torch.examples.minimal_demo\n"
+            "import vmc_pde_torch.examples.custom_equation as ce\n"
+            "ce.make_moving_trap()\n"
+            "assert 'matplotlib' not in sys.modules\n"
             "print('ok')")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     res = subprocess.run([sys.executable, "-c", code], cwd=root,
@@ -205,3 +216,11 @@ def test_port_imports_without_jax():
                 for mod in ("jax", "jaxlib", "flax"):
                     assert f"import {mod}" not in src, name
                     assert f"from {mod}" not in src, name
+    with open(os.path.join(pkg, "examples", "minimal_demo.ipynb")) as fh:
+        cells = json.load(fh)["cells"]
+    src = "".join("".join(c["source"]) for c in cells
+                  if c["cell_type"] == "code")
+    assert "vmc_pde_torch" in src and "vmc_pde_tpu" not in src
+    for mod in ("jax", "jaxlib", "flax"):
+        assert f"import {mod}" not in src
+        assert f"from {mod}" not in src

@@ -11,7 +11,8 @@ Tolerances:
   losses within 1e-10 relative, theta within 1e-10 of max |theta| (most
   entries start near 0, out_scale 1e-5, so a per-entry relative bound
   would measure nothing); the two differ only in the order of f64 sums;
-- the periodic grid integrals: 1e-10 relative of the JAX package's;
+- the periodic grid integrals: 1e-10 relative of the JAX package's, and
+  with a workdir the JAX package's snapshot files;
 - a resumed pre-training: bit for bit the uninterrupted one (the shuffle
   is keyed by (key, epoch) alone).
 """
@@ -105,27 +106,29 @@ def test_pretrain_checkpoint_and_resume(tmp_path):
     assert torch.equal(resumed.theta, full.theta)
 
 
-def test_grid_integrals_match_jax(ctx1):
+def test_grid_integrals_match_jax(ctx1, tmp_path):
     """The periodic grid quadrature of the model density every check_every
     epochs, against the JAX package's on the same flow and data (full
-    batches, as above); the density snapshots (grid with workdir) are not
-    ported and raise."""
+    batches, as above); with a workdir and the data's target density the
+    port saves the JAX package's snapshots there (its _periodic_check):
+    fit_epoch{n}.pdf and the model-target difference fit_diff_epoch{n}.pdf."""
     jstate, state = _pair(ctx1)
     data, _ = jtrain.gen_data((128, 2), key=5)
+    pdata, target = ptrain.gen_data((128, 2), key=5)
     jtrain.train(jstate, data, batchsize=128, epochs=4, lr=1e-2,
                  grid=JGrid(np.ones(2) * 6.0, 40), check_every=2)
-    ptrain.train(state, ptrain.gen_data((128, 2), key=5)[0], batchsize=128,
-                 epochs=4, lr=1e-2, grid=Grid(np.ones(2) * 6.0, 40),
-                 check_every=2)
+    ptrain.train(state, pdata, batchsize=128, epochs=4, lr=1e-2,
+                 grid=Grid(np.ones(2) * 6.0, 40), check_every=2,
+                 workdir=str(tmp_path), target_fun=target)
     want = jstate.pretrain_grid_integrals
     got = state.pretrain_grid_integrals
     assert [e for e, _ in got] == [e for e, _ in want] == [2, 4]
     np.testing.assert_allclose([v for _, v in got], [v for _, v in want],
                                rtol=1e-10)
     assert all(abs(v - 1) < 0.05 for _, v in got)
-    with pytest.raises(NotImplementedError, match="viz/"):
-        ptrain.train(state, data, grid=Grid(np.ones(2) * 6.0, 40),
-                     workdir="w")
+    assert sorted(os.listdir(tmp_path)) == [
+        "fit_diff_epoch2.pdf", "fit_diff_epoch4.pdf", "fit_epoch2.pdf",
+        "fit_epoch4.pdf"]
 
 
 def test_init_params_from_pretrain_checkpoint(tmp_path):

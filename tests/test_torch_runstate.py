@@ -99,9 +99,10 @@ def test_checkpoint_every_writes_each_step(checkpointed, uninterrupted):
     """After step n the checkpoint holds n + 1, t + dt, theta and the
     stepper's dt: the uninterrupted run's."""
     rows, thetas = uninterrupted
+    # beside them infos.hdf5 and the driver's density snapshot at t = 0
     assert sorted(os.listdir(checkpointed)) == [
         "ckpt_00000001.npz", "ckpt_00000002.npz", "ckpt_latest.npz",
-        "infos.hdf5"]
+        "infos.hdf5", "t_0.000.pdf"]
     for n in (1, 2):
         ck = checkpoint.load_checkpoint(
             os.path.join(checkpointed, f"ckpt_{n:08d}.npz"))
@@ -386,4 +387,4 @@ def test_resume_on_two_ranks(tmp_path):
     np.testing.assert_array_equal(ranks[0]["theta"], ranks[1]["theta"])
     assert sorted(os.listdir(tmp_path / "run")) == [
         "ckpt_00000001.npz", "ckpt_00000002.npz", "ckpt_latest.npz",
-        "infos.hdf5"]
+        "infos.hdf5", "t_0.000.pdf"]

@@ -2,6 +2,8 @@
 and E_loc-clipped statistics, the remaining equations and the presets that
 use them, against the JAX package on the CPU in f64, at small shapes
 (d <= 8, depth <= 3, N <= 64 per sample, N <= 256 for the statistics).
+The per-sample pipeline against the JAX kernel's reference functions,
+the presets and the CLI run are in tests/test_torch_student_paths.py.
 
 Tolerances, relative to the largest value unless stated:
 - latent, coupling and equations: 1e-12, the same f64 formulas in
@@ -20,7 +22,6 @@ Tolerances, relative to the largest value unless stated:
   summation order or fused multiply-add scheme reproduces them).
 """
 
-import dataclasses
 import math
 
 import jax
@@ -31,7 +32,6 @@ import torch
 from jax.flatten_util import ravel_pytree
 
 from test_torch_models import block_tuples, normal, parity_flow, rel_err, t64
-from vmc_pde_torch import config, driver
 from vmc_pde_torch.kernels import persample
 from vmc_pde_torch.models import coupling, latent
 from vmc_pde_torch.models.convert import from_jax
@@ -42,8 +42,6 @@ from vmc_pde_torch.sampling.sampler import Sampler
 from vmc_pde_torch.solver.tdvp import TDVP, TDVPConfig, fold_in
 from vmc_pde_torch.utils import threefry
 from vmc_pde_torch.utils.dtypes import Precision
-from vmc_pde_tpu import config as jconfig
-from vmc_pde_tpu.kernels import persample as jpersample
 from vmc_pde_tpu.models import coupling as jcoupling
 from vmc_pde_tpu.models import latent as jlatent
 from vmc_pde_tpu.models.state import VarState as JVarState
@@ -162,33 +160,6 @@ def test_from_jax_and_layout_order():
     assert [p[1] for p in paths if p[0] == "latent"] == [
         "L", "L_diag", "dist_params", "mu"]
     assert flow.layout.shapes["latent"]["dist_params"] == (1,)
-
-
-CASES = [(v, ga, lat) for lat in ("Gauss", "Student_t")
-         for ga in (False, True) for v in ("scale", "affine")]
-
-
-@pytest.mark.parametrize("variant,ga,lat", CASES)
-def test_plain_per_sample_matches_jax_reference(variant, ga, lat):
-    """The port's plain per-sample pipeline (the CUDA kernel's plain
-    version) against the JAX kernel's own reference functions,
-    tile_value_and_grads (logp, g, O with the nu row and the global-affine
-    rows) and tile_quad(impl="jet") along non-axis directions, d=4,
-    depth 2, N=16: 1e-10."""
-    jflow, jparams, flow, theta = parity_flow(
-        variant, seed=11, latent_name=lat, global_affine=ga)
-    x = normal((16, 4), 12)
-    dirs = normal((3, 4), 13)
-    lp_j, g_j, O_j = jpersample.tile_value_and_grads(jflow, jparams,
-                                                     jnp.asarray(x))
-    q_j = jpersample.tile_quad(jflow, jparams, jnp.asarray(x),
-                               jnp.asarray(dirs), impl="jet")
-    got = persample.per_sample_plain(flow, theta, t64(x), t64(dirs))
-    for name, g_, w_ in zip(("logp", "g", "quad", "O"), got,
-                            (lp_j, g_j, q_j, O_j)):
-        assert g_.shape == tuple(w_.shape), name
-        assert rel_err(g_, w_) < 1e-10, name
-    assert persample.supports(flow, dirs, None)
 
 
 def test_block_plan_student_t_and_global_affine():
@@ -324,37 +295,3 @@ def test_random_spd_matrix_matches_jax(dim, seed):
     if dim <= 8:
         np.testing.assert_array_equal(D, want)
     assert np.abs(D - want).max() <= 1e-13 * np.abs(want).max()
-
-
-NEW_PRESETS = ("diffusion", "diffusion_anisotropic", "harmonicOsc",
-               "harmonicOsc_diff")
-
-
-@pytest.mark.parametrize("name", NEW_PRESETS)
-def test_presets_match_jax(name):
-    """Every field the two RunConfigs share has the JAX preset's value."""
-    ours, theirs = config.PRESETS[name], jconfig.PRESETS[name]
-    shared = ({f.name for f in dataclasses.fields(ours)}
-              & {f.name for f in dataclasses.fields(theirs)})
-    assert {"eloc_clip", "is_gamma", "latent_name", "equation"} <= shared
-    for field in sorted(shared):
-        assert getattr(ours, field) == getattr(theirs, field), field
-
-
-@pytest.mark.parametrize("args", [[], ["--is-gamma", "0.5"]])
-def test_driver_diffusion_cpu(args):
-    """Two steps of the d=8 Student-t diffusion preset through the CLI on
-    the CPU in f64, with and without the tempered importance sampling:
-    finite, nu recorded per step, and the solver residual below 1e-3 (at
-    N=256 < P=365 the Gram is singular, and the regularized solve leaves
-    ~1e-6 of the force unmatched)."""
-    _, rec = driver.main(["diffusion", "--device", "cpu", "--precision",
-                          "f64", "--samples", "256", "--max-steps", "2",
-                          *args])
-    a = rec.as_arrays()
-    assert a["times"].shape == (2,) and not a["nan"].any()
-    assert a["solver_res"].max() < 1e-3
-    assert a["dist_params"].shape == (2, 1)
-    assert np.isfinite(a["entropy"]).all()
-    if args:
-        assert ((0 < a["is_ess_share"]) & (a["is_ess_share"] <= 1)).all()

@@ -17,6 +17,9 @@ class RunConfig:
     name: str = "mwe"
     dim: int = 2
     offset: Tuple[float, ...] = (0.0, 0.0)
+    # registry name (ops/evolution.py make_equation) or a user-supplied
+    # ops.evolution.Equation INSTANCE for custom physics
+    # (examples/custom_equation.py); equation_params apply to names only
     equation: str = "diffusion"
     equation_params: dict = dataclasses.field(default_factory=dict)
 

@@ -35,7 +35,9 @@ its --process-id, e.g. two ranks on the CPU:
         --process-id 0 --mesh-dp 2
 
 Only the coordinator (rank 0) prints and writes: infos.hdf5, the
-checkpoints, metrics.bin; every rank reads the checkpoint it resumes from.
+checkpoints, metrics.bin, and on a 2-D preset the density snapshot
+``t_<t>.pdf`` at every ``plot_every`` of simulated time (viz/plots.py;
+matplotlib); every rank reads the checkpoint it resumes from.
 
 Run state (utils/checkpoint.py, utils/recorder.py, utils/timings.py):
 ``--checkpoint-every K`` writes theta, t, the step counter and the
@@ -76,7 +78,7 @@ from .config import RunConfig
 from .models.flow import build_flow
 from .models.latent import EXACT_NAMES
 from .models.state import VarState
-from .ops.evolution import make_equation
+from .ops.evolution import Equation, make_equation
 from .parallel import mesh
 from .sampling.sampler import Sampler
 from .solver.steppers import AdaptiveHeun, AdaptiveRK23, FixedStepper
@@ -120,7 +122,20 @@ def build_problem(cfg: RunConfig, ctx=None):
         qmc=cfg.qmc and cfg.latent_name in EXACT_NAMES)
     state = VarState(flow, theta, sampler=sampler, precision=precision,
                      ctx=ctx)
-    equation = make_equation(cfg.equation, cfg.dim, **cfg.equation_params)
+    # a registry name, or a user's Equation instance: custom physics plugs
+    # into the whole driver (examples/custom_equation.py)
+    if isinstance(cfg.equation, Equation):
+        if cfg.equation_params:
+            raise ValueError(
+                "RunConfig.equation is an Equation INSTANCE, so "
+                f"equation_params {sorted(cfg.equation_params)} would be "
+                "silently ignored -- construct the instance with those "
+                "parameters instead (equation_params applies to registry "
+                "names only)")
+        equation = cfg.equation
+    else:
+        equation = make_equation(cfg.equation, cfg.dim,
+                                 **cfg.equation_params)
     tdvp_cfg = TDVPConfig(
         use_snr=cfg.use_snr, snr_tol=cfg.snr_tol, svd_tol=cfg.svd_tol,
         eloc_clip=cfg.eloc_clip, is_gamma=cfg.is_gamma,
@@ -360,6 +375,12 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
                 rec.append("grid_integral", integral)
                 if talk:
                     print("Grid integral:", integral)
+                if wdir:
+                    # the periodic 2-D density snapshot, on the coordinator
+                    from .viz.plots import plot_density, save_figure
+
+                    save_figure(plot_density(state, grid, proj=False),
+                                os.path.join(wdir, f"t_{t:.3f}.pdf"))
 
             if (wdir and cfg.checkpoint_every
                     and n_step % cfg.checkpoint_every == 0):
@@ -396,8 +417,10 @@ def main(argv=None, callbacks=()):
     p.add_argument("--precision", type=str, default=None,
                    choices=["tpu", "tpu_f64stats", "f32", "f64"])
     p.add_argument("--workdir", type=str, default=None,
-                   help="write infos.hdf5 here (needs h5py), and the "
-                        "checkpoints and metrics.bin when asked")
+                   help="write infos.hdf5 here (needs h5py), the "
+                        "density snapshots t_<t>.pdf of a 2-D preset "
+                        "(needs matplotlib), and the checkpoints and "
+                        "metrics.bin when asked")
     p.add_argument("--seed", type=int, default=None,
                    help="seed of the flow's init and of the samples "
                         "(sets seed and sample_seed)")

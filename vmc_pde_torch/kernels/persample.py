@@ -223,7 +223,10 @@ def tile_plan(flow, n_dirs: int, n: int, n_sm: int = H100_SMS):
     width MW) or not (the generic jet body, MW = 0), the most jet
     slots J (at most the threads and the T k pairs) that fit. Preferred, in
     order: every thread with a pair in the jets; theta resident; then the
-    largest T whose grid covers the ``n_sm`` SMs, else the smallest T."""
+    largest T whose grid covers the ``n_sm`` SMs, else the smallest T.
+    None for a flow without coupling blocks (models/sanity.SanityFlow)."""
+    if not flow.blocks:
+        return None
     meta, n_sv = block_plan(flow, n_dirs)
     Pk, SW, d = int(meta[11]), int(meta[14]), flow.dim
     fits = []
@@ -262,7 +265,8 @@ def supports(flow, hess_dirs: Optional[np.ndarray], hess_idx) -> bool:
 @functools.lru_cache(maxsize=64)
 def _supports(flow, n_dirs: int) -> bool:
     return (
-        flow.latent_name in LATENT_CODES
+        len(flow.blocks) > 0  # the kernel walks coupling blocks
+        and flow.latent_name in LATENT_CODES
         and flow.dim <= MAX_DIM
         and all(len(s.hidden) + 1 <= MAX_LAYERS
                 and max((*s.hidden, len(s.ind_up), len(s.ind_down)))

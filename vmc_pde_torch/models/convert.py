@@ -27,7 +27,16 @@ def from_jax(blocks: Iterable[Tuple], params_np,
     with numpy leaves and its latent family. A block whose parameters hold
     ``g_scale`` carries the learned global affine (``g_scale``,
     ``g_offset``); a Student-t latent carries its raw degrees of freedom in
-    ``dist_params`` (empty for the other latents)."""
+    ``dist_params`` (empty for the other latents). Parameters holding
+    ``scale`` (and no blocks) are a SanityFlow's (models/sanity.py)."""
+    if "scale" in params_np:
+        from .sanity import SanityFlow
+
+        flow = SanityFlow(len(params_np["latent"]["mu"]),
+                          latent_name=latent_name, offset=offset)
+        theta = torch.as_tensor(flow.layout.ravel(params_np), dtype=dtype,
+                                device=device)
+        return flow, theta
     specs = tuple(
         coupling.BlockSpec(ind_up=tuple(int(i) for i in up),
                            ind_down=tuple(int(i) for i in down),

@@ -77,7 +77,7 @@ def _shuffle(n: int, key: int, epoch: int, device) -> torch.Tensor:
 def train(state, data, batchsize: int = 100, epochs: int = 100,
           key: int = 0, lr: float = 1e-3, verbose: bool = False,
           workdir=None, checkpoint_every: int = 0, resume: bool = False,
-          grid=None, check_every: int = 50):
+          grid=None, check_every: int = 50, target_fun=None):
     """Fit state.flow to ``data`` (N, dim) by minimizing -E[log p] over
     minibatches of ``batchsize`` (the last N mod batchsize rows of each
     shuffle are dropped), one Adam step per batch. Sets the state's
@@ -87,16 +87,10 @@ def train(state, data, batchsize: int = 100, epochs: int = 100,
     epochs and at the end; ``resume`` starts from it when it exists.
     ``grid`` (utils.grid.Grid) records every ``check_every`` epochs the
     grid quadrature of the model density (should approach 1) into
-    ``state.pretrain_grid_integrals`` as (epoch, integral) pairs. The JAX
-    package also saves density plots (and, given its target_fun, the
-    model-target difference) there when ``workdir`` is set; the plots
-    need viz/, which is not ported, so ``grid`` with ``workdir``
-    raises."""
-    if grid is not None and workdir is not None:
-        raise NotImplementedError(
-            "pretrain density snapshots (grid with workdir) need viz/, "
-            "which is not ported; pass grid without workdir for the grid "
-            "integrals alone")
+    ``state.pretrain_grid_integrals`` as (epoch, integral) pairs and, when
+    ``workdir`` is set, saves the density snapshot fit_epoch{n}.pdf there
+    (and, given ``target_fun``, gen_data's, the model-target difference
+    fit_diff_epoch{n}.pdf; viz/plots.py, matplotlib)."""
     flow, layout = state.flow, state.layout
     data = torch.as_tensor(data, dtype=state.precision.compute,
                            device=state.device)
@@ -152,6 +146,9 @@ def train(state, data, batchsize: int = 100, epochs: int = 100,
             grid_integrals.append((epoch + 1, integral))
             if verbose:
                 print(f"epoch {epoch + 1}: grid integral {integral:.6f}")
+            if workdir is not None:
+                state.set_parameters(theta)
+                _snapshots(state, grid, workdir, epoch + 1, target_fun)
         if ckpt is not None and checkpoint_every and \
                 (epoch + 1) % checkpoint_every == 0:
             save(epoch + 1)
@@ -161,6 +158,19 @@ def train(state, data, batchsize: int = 100, epochs: int = 100,
     if grid is not None:
         state.pretrain_grid_integrals = grid_integrals
     return losses
+
+
+def _snapshots(state, grid, workdir: str, epoch: int, target_fun) -> None:
+    """The density snapshot of ``epoch`` and, with ``target_fun``, the
+    model-target difference, as PDFs in ``workdir``."""
+    from ..viz.plots import plot_density, plot_diff, save_figure
+
+    os.makedirs(workdir, exist_ok=True)
+    save_figure(plot_density(state, grid, proj=False),
+                os.path.join(workdir, f"fit_epoch{epoch}.pdf"))
+    if target_fun is not None:
+        save_figure(plot_diff(state, grid, target_fun),
+                    os.path.join(workdir, f"fit_diff_epoch{epoch}.pdf"))
 
 
 def main(argv=None):

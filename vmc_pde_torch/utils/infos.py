@@ -65,3 +65,13 @@ def store_infos(wdir: str, infos, name: str = "infos.hdf5"):
         for key, value in infos.items():
             f.create_dataset(key, data=np.asarray(value))
     return path
+
+
+def load_infos(path: str) -> dict:
+    """HDF5 reader: every dataset of ``path`` as a numpy array, by key.
+    Reads the JAX package's files and the reference's as well as the
+    port's (one schema)."""
+    import h5py
+
+    with h5py.File(path, "r") as f:
+        return {key: np.asarray(f[key]) for key in f.keys()}
