@@ -180,7 +180,10 @@ K. (after phase 20, in the same 4 rank processes: ``phase_mesh_k``) the
    default against high on the same draws, the f64 solve's residuals;
    then f64acc at the production point (3 steps: 16 split, 32 quant8, 2
    pilots a step) and one batch's statistics under f64acc, high and
-   chunked f64, f64acc nearer to f64 than high (Frobenius norm);
+   chunked f64, gated at f64acc's Frobenius distance to f64 at most
+   1.001 x high's and below 1.2e-5 (10 draws: 0.999935-1.000065 x,
+   9.97e-6-1.0094e-5); and the JAX test's ordering on its problem in
+   chunks of 64, f64acc 4x nearer to f64 than high;
 30. (H5) the host f64 solve: ``mwe --precision f64 --host-solve`` for 10
    steps (residual below 1e-10), one fokkerPlanck32 RHS solved on the
    host (numpy f64) against the device's f64 Cholesky, timed;
@@ -198,7 +201,8 @@ K. (after phase 20, in the same 4 rank processes: ``phase_mesh_k``) the
    4 steps (8 launches), and the kernel on QMC draws of the joint
    (d+1)-column net held to plain f32 with phase 15's grading;
 34. (I4) ``fokkerPlanck32 --hessian-mode block`` for 2 steps (the
-   torch.func pipeline: no launch), its f32 E_loc against the f64
+   torch.func pipeline: no per-sample launch; 4 of the Jacobi
+   eigensolve), its f32 E_loc against the f64
    pipeline's beside the kernel's trace-mode E_loc, and mwe and
    diffusion_anisotropic in f64, block against trace within 1e-10;
 35. (I5) the MC sphere integrals: mwe in f64 for 10 steps within 5
@@ -265,6 +269,39 @@ c.phase_oracles()"``):
    ``vmc_pde_torch.examples.custom_equation`` on the card, PASS with its
    own gates.
 
+48. (after phase 5) the Jacobi eigensolve kernel (csrc/jacobi.cu)
+   against torch.linalg.eigh on the main path's own Ritz matrix (72 x 72
+   f32, caught from one fokkerPlanck32 RHS): eigenvalues against an f64
+   eigh within 64 n eps of its norm, V diag(w) V^T and V^T V, both timed,
+   the sweeps it took and its bound;
+49. (M1, after phase 25) ``--steps-per-dispatch 8`` on fokkerPlanck32 at
+   N=16384 through ``driver.run`` against the K=1 run, theta and every
+   recorded row bit for bit: fixed Heun, SSPRK3, and Heun with
+   ``--gram-backend syrk``. The batched run runs in a trace of the
+   device's activity, whose kernels are its launches: its K replays' and
+   the capture's warm-up step's, exactly (the K=1 run's are its wrappers'
+   counts). For each: the capture's seconds and pool, the batch's s/step
+   against the per-step loop's, a 1-step batch's host waits (at most 1)
+   and replay's host time, and one replay's kernel launches in a
+   profiler trace (2 plain-mode and 2 Jacobi a Heun step, 3 and 3 an
+   SSPRK3 step, 4 syrk with syrk);
+50. (M2) adaptive Heun at tol 2e-5 and K=8, RK23 at K=4, against K=1:
+   the same attempts (the first Heun step retries: 4 attempts), times
+   to rtol 1e-12, theta within 1e-6 of its largest entry (bit for bit so
+   far); the launches 5 (Heun) or 4 (RK23) plain-mode and Jacobi
+   kernels per attempt, the batched run's warm-up 4 attempts more; one
+   host wait in a batch; one replay from t=0 launches 5 plain-mode
+   kernels per attempt;
+51. (M3) the production point (N=524288 in chunks of 65536, tri2 + int8)
+   at K=4 against K=1, bit for bit; one replay launches 16 split, 32
+   quant8, 2 pilot plain-mode and 2 Jacobi kernels;
+52. (M4) fluidpaper at K=8 and doubleWell at K=4 through
+   ``TDVP.heun_multi`` (their grid keeps the driver per step): the
+   graph against the eager heun_multi bit for bit, fluidpaper also
+   against 8 heun_pair calls;
+   s/step graphed and eager, the device's busy share over one step,
+   graphed and per step.
+
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -290,14 +327,15 @@ import torch.distributed as dist
 
 from vmc_pde_torch import driver
 from vmc_pde_torch.config import preset
-from vmc_pde_torch.kernels import (bounds, build, metropolis, persample,
-                                   quant8, syrk)
+from vmc_pde_torch.kernels import (bounds, build, jacobi, metropolis,
+                                   persample, quant8, syrk)
 from vmc_pde_torch.models.flow import build_flow, perturb_theta
 from vmc_pde_torch.models.state import VarState
 from vmc_pde_torch.ops.evolution import make_equation
 from vmc_pde_torch.parallel import mesh, stats
 from vmc_pde_torch.parallel.mesh import ParallelCtx
 from vmc_pde_torch.sampling import sampler as sampling
+from vmc_pde_torch.solver import graphs
 from vmc_pde_torch.solver import tdvp as tdvp_mod
 from vmc_pde_torch.solver.tdvp import TDVP
 from vmc_pde_torch.utils.dtypes import full_f32_matmuls
@@ -325,6 +363,10 @@ KERNELS = {
                           "vmc_pde_tpu/kernels/persample.py:1104"),
     "metropolis_sharded": ("vmc_pde_torch/kernels/csrc/metropolis.cu",
                            "vmc_pde_tpu/kernels/metropolis.py:191"),
+    # no Pallas kernel: the JAX package's jnp.linalg.eigh of the Ritz
+    # matrix, which XLA runs inside the step program
+    "jacobi": ("vmc_pde_torch/kernels/csrc/jacobi.cu",
+               "vmc_pde_tpu/solver/tdvp.py:308"),
 }
 WRAPPERS = {"persample": persample.per_sample_cuda,
             "persample_split": persample.per_sample_split_cuda,
@@ -332,7 +374,8 @@ WRAPPERS = {"persample": persample.per_sample_cuda,
             "metropolis": metropolis.metropolis_chain_cuda,
             "syrk": syrk.syrk_cuda,
             "persample_sharded": persample.per_sample_sharded,
-            "metropolis_sharded": metropolis.metropolis_chain_sharded}
+            "metropolis_sharded": metropolis.metropolis_chain_sharded,
+            "jacobi": jacobi.eigh_cuda}
 # rank processes of phases 19 and 20, all on the one card
 MESH_WORLD = 4
 # the chunked path's pilot batch (solver/tdvp.py): its per-sample shape
@@ -2146,8 +2189,9 @@ def phase_exact_t_end_and_dispatch(out):
             torch.cuda.synchronize()
             arrays = rec.as_arrays()
             print(f"fokkerPlanck32 {name} --steps-per-dispatch {k}: 3 "
-                  f"steps in {time.perf_counter() - t0:.3f} s, launches "
-                  f"{_counts()['persample']}, solver_res "
+                  f"steps in {time.perf_counter() - t0:.3f} s, per-sample "
+                  f"wrapper calls {_counts()['persample']} (a graph "
+                  f"replay calls none), solver_res "
                   f"{arrays['solver_res'].tolist()}")
             if arrays["nan"].any() or not (arrays["solver_res"]
                                            < 1e-3).all():
@@ -2220,14 +2264,16 @@ def _sync_stacks(call):
             found.append((f"{os.path.relpath(filename)}:{lineno}",
                           "".join(traceback.format_stack(limit=9)[:-1])))
 
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = show
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
+    # the mode is set before the warnings are caught: setting it may warn
+    # itself (torch/cuda/__init__.py), which is no host wait
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
             call()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
     return found
 
 
@@ -2664,18 +2710,73 @@ def phase_precisions_direct(theta5):
     return out
 
 
+def _f64acc_ordering(chunk=64, n=8192, seed=3):
+    """The JAX package's f64acc ordering test on the card, on its problem
+    (tests/test_tdvp.py:1410-1460: the near-initial d=4 flow of depth 4,
+    output weights 1e-5, diffusion, f32 compute) at n = 8192 in chunks of
+    ``chunk``, every mode contracting the same O rows (made once, as in
+    tests/test_torch_solvers.py): (max |S0 - S0_f64| under f64acc, under
+    high, max |S0_f64|)."""
+    from vmc_pde_torch.models.state import VarState
+    from vmc_pde_torch.sampling.sampler import Sampler
+    from vmc_pde_torch.solver.tdvp import TDVPConfig
+    from vmc_pde_torch.utils.dtypes import Precision
+
+    dev = torch.device("cuda")
+    flow, theta = build_flow(1, 4, depth=4, out_scale=1e-5,
+                             dtype=torch.float32, device=dev)
+    prec = Precision.tpu_default()
+    S, rows = {}, None
+    for mode in ("f64acc", "high", "f64"):
+        state = VarState(flow, theta, sampler=Sampler(4, dtype=torch.float32),
+                         precision=prec)
+        t = TDVP(state, make_equation("diffusion", 4),
+                 TDVPConfig(gram_precision=mode, chunk_size=chunk),
+                 n_samples=n, precision=prec)
+        if rows is None:
+            params = flow.layout.unravel(theta)
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            x = flow.push(params, flow.latent_sample(gen, params, n,
+                                                     torch.float32))[0]
+            rows = t._per_sample_batch(theta, x, 0.0)
+
+        def per_sample(theta_c, xc, t_):
+            i = ((xc.data_ptr() - x.data_ptr())
+                 // (x.stride(0) * x.element_size()))
+            return tuple(v[i:i + xc.shape[0]] for v in rows)
+
+        t._per_sample_batch = per_sample
+        S[mode] = t._chunked_stats(theta, 0.0, x)["S0"].double()
+    ref = S.pop("f64")
+    return (float((S["f64acc"] - ref).abs().max()),
+            float((S["high"] - ref).abs().max()), float(ref.abs().max()))
+
+
+# phase 29's gates at the production point, set from 10 (theta, batch)
+# draws on an H100 80GB HBM3 at 700 W: f64acc / high 0.999935-1.000065 in
+# the Frobenius distance to chunked f64, f64acc's distance
+# 9.970e-6-1.0094e-5
+F64ACC_OVER_HIGH = 1.001
+F64ACC_FRO = 1.2e-5
+
+
 def phase_f64acc_production(theta5):
     """H4b (phase 29): f64acc at the production point (N=524288 in chunks
     of 65536, tri2 + int8) for 3 fixed-Heun steps: exactly 16 split, 32
     quant8 and 2 pilot launches per step; then on one batch the statistics
     under f64acc, under high (the same split chunks, f32 sums) and under
-    chunked f64 (the plain-mode kernel and f64 products), and the JAX
-    test's ordering (tests/test_tdvp.py:1410-1460) in the Frobenius norm:
-    ||S_f64acc - S_f64|| < ||S_high - S_f64||. The largest entry's error
-    is printed too but not gated: per chunk the split's own error (1e-5
-    class) dwarfs the f32 sums' (1e-7 class), so the max-abs order is a
-    coin toss, where the Frobenius norm adds the two independent errors'
-    squares."""
+    chunked f64 (the plain-mode kernel and f64 products), their distances
+    to f64 (Frobenius and largest entry). At the production point the
+    split's own error (1e-5 class) dwarfs the f32 sums' (7e-8), and the
+    two are not independent: f64acc nearer f64 than high held for 5 of 10
+    (theta, batch) pairs on an H100, so the gate there is set from
+    those draws: f64acc's Frobenius distance at most F64ACC_OVER_HIGH
+    times high's (measured up to 1.000065) and below F64ACC_FRO (measured
+    9.970e-6 to 1.0094e-5). The ordering itself is gated on the JAX test's
+    own problem (tests/test_tdvp.py:1410-1460) on the card, in chunks of
+    64 (_f64acc_ordering): f64acc at least 4x closer to f64 than high in
+    the largest entry, and within 1e-6 of the largest value (10-15x over
+    5 draws)."""
     n, c = 524288, 65536
     label = f"fokkerPlanck32 N={n} chunked tri2+int8 f64acc"
     args = ["fokkerPlanck32", "--samples", str(n), "--chunk-size", str(c),
@@ -2705,14 +2806,26 @@ def phase_f64acc_production(theta5):
     mx = {m: _rel(v, ref, ref.abs().max()) for m, v in S.items()}
     acc_only = float((S["high"] - S["f64acc"]).norm() / ref.norm())
     print(f"{label}: statistics of one batch in {times} s; against chunked "
-          f"f64, Frobenius f64acc {fro['f64acc']:.4e} < high "
-          f"{fro['high']:.4e} (gate), largest entry f64acc "
-          f"{mx['f64acc']:.4e}, high {mx['high']:.4e}; the f32 sums alone "
-          f"(high - f64acc) {acc_only:.4e}")
-    if not fro["f64acc"] < fro["high"]:
-        fail("f64acc is not closer to the f64 statistics than high")
+          f"f64, Frobenius f64acc {fro['f64acc']:.4e}, high "
+          f"{fro['high']:.4e} (ratio {fro['f64acc'] / fro['high']:.6f}; "
+          f"gates {F64ACC_OVER_HIGH} and {F64ACC_FRO:.1e}), largest entry "
+          f"f64acc {mx['f64acc']:.4e}, high {mx['high']:.4e}; the f32 sums "
+          f"alone (high - f64acc) {acc_only:.4e}")
+    if not (fro["f64acc"] <= F64ACC_OVER_HIGH * fro["high"]
+            and fro["f64acc"] < F64ACC_FRO):
+        fail(f"{label}: f64acc's distance to chunked f64 {fro['f64acc']:.4e}"
+             f" against high's {fro['high']:.4e}")
+    err_acc, err_hi, scale = _f64acc_ordering(64)
+    print(f"f64acc ordering on the JAX test's problem (n=8192, chunks of "
+          f"64): max |S0 - S0_f64| f64acc {err_acc:.4e}, high {err_hi:.4e} "
+          f"({err_hi / err_acc:.1f}x; gate 4x), of a largest value "
+          f"{scale:.4e} (gate 1e-6: {err_acc / scale:.2e})")
+    if not (err_acc < err_hi / 4 and err_acc < 1e-6 * scale):
+        fail("f64acc is not 4x closer to the f64 statistics than high")
     return dict(launches=counts, stats_s=times, frobenius=fro, max_abs=mx,
-                f32_sums_only=acc_only)
+                f32_sums_only=acc_only,
+                jax_test_ordering=dict(f64acc=err_acc, high=err_hi,
+                                       largest=scale))
 
 
 def phase_host_solve(theta5):
@@ -2990,7 +3103,8 @@ def _eloc_block_vs_trace(name, precision, theta=None, n=16384, seed=70):
 def phase_hessian_block(theta5):
     """I4 (phase 34): fokkerPlanck32 --hessian-mode block at N=16384, the
     16 x 16 momentum block on the torch.func pipeline: 2 steps through
-    the CLI with no kernel launch, no NaN, residual below 1e-3, timed;
+    the CLI with no per-sample launch (4 of the Jacobi eigensolve, one a
+    RHS), no NaN, residual below 1e-3, timed;
     on one batch at the theta phase 5 ends on, the block-mode E_loc (f32,
     torch.func) and the trace-mode one (f32, the kernel) against the f64
     plain pipeline's, the block within 4 times the kernel's error or
@@ -2999,7 +3113,10 @@ def phase_hessian_block(theta5):
     label = "fokkerPlanck32 --hessian-mode block N=16384"
     _, _, counts = _drive(["fokkerPlanck32", "--hessian-mode", "block"],
                           label, 2)
-    if any(counts.values()):
+    # no per-sample kernel; the top-k Ritz solve's Jacobi kernel, once a
+    # RHS
+    if any(v for k, v in counts.items() if k != "jacobi") or \
+            counts["jacobi"] != 4:
         fail(f"{label} launched kernels: {counts}")
     e = _eloc_block_vs_trace("fokkerPlanck32", "tpu", theta=theta5)
     if e["block_tdvp"].uses_kernel or not e["trace_tdvp"].uses_kernel:
@@ -3960,6 +4077,468 @@ def phase_sanity_plots_examples(dev, cloud):
     return out
 
 
+def phase_jacobi(dev):
+    """The Jacobi eigensolve kernel (csrc/jacobi.cu) against
+    torch.linalg.eigh on the main path's own input: the (72, 72) f32 Ritz
+    matrix of one fokkerPlanck32 RHS at N=16384, caught from that RHS's
+    call. Eigenvalues against an f64 eigh within 64 n eps_f32 of the
+    matrix's norm, the vectors by V diag(w) V^T and V^T V; the kernel and
+    torch.linalg.eigh (its plain version, and the one PyTorch call that
+    computes the same) timed with CUDA events; the bound counts the
+    flops of the sweeps this input took (18 m per pair and round, m/2
+    pairs, m - 1 rounds a sweep)."""
+    caught = []
+    orig, eigh = jacobi.eigh_cuda, jacobi.eigh
+
+    def catch(A):
+        caught.append(A.clone())
+        return eigh(A)
+
+    state, tdvp = driver.build_problem(preset("fokkerPlanck32",
+                                              device="cuda"))[:2]
+    jacobi.eigh = catch
+    try:
+        tdvp.rhs(state.get_parameters(), 0.0, 11)
+    finally:
+        jacobi.eigh = eigh
+    B = caught[0]
+    n = B.shape[0]
+    sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
+    w, V = orig(B, sweeps)
+    w64 = torch.linalg.eigh(B.double())[0]
+    nrm = float(torch.linalg.norm(B.double()))
+    err = float((w.double() - w64).abs().max())
+    recon = float(torch.linalg.norm(V @ torch.diag(w) @ V.T - B)) / nrm
+    orth = float((V.T @ V - torch.eye(n, device=dev)).abs().max())
+    tol = 64 * n * torch.finfo(torch.float32).eps * nrm
+    ms = _time_ms(lambda: orig(B), 50)
+    plain_ms = _time_ms(lambda: torch.linalg.eigh(B), 50)
+    m = n + (n & 1)
+    n_sweeps = int(sweeps.item())
+    bound, by = bounds.bound_ms(4 * (2 * n * n + n),
+                                n_sweeps * (m - 1) * 9 * m * m)
+    print(f"jacobi eigh n={n} f32 (the main path's Ritz matrix): "
+          f"eigenvalues vs f64 eigh max abs err {err:.3e} (tol {tol:.3e}, "
+          f"|B| {nrm:.3e}), V diag(w) V^T rel {recon:.3e}, V^T V - I "
+          f"{orth:.3e}, {n_sweeps} sweeps; {ms:.4f} ms against "
+          f"torch.linalg.eigh {plain_ms:.4f} ms, bound {bound:.5f} ms "
+          f"({by})")
+    if err > tol or recon > 1e-4 or orth > 1e-4:
+        fail("the Jacobi kernel disagrees with torch.linalg.eigh")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=plain_ms, sweeps=n_sweeps)
+
+
+# -- phase M: multi-step dispatch as CUDA graphs (M1-M4) ---------------------
+
+# kernel classes in a profiler trace, by pieces of the kernel's name
+# (demangled, or mangled): the per-sample kernel's first template argument
+# is its split mode
+TRACE_KERNELS = {"persample": ("persample_kernel<false",
+                               "persample_kernelILb0"),
+                 "persample_split": ("persample_kernel<true",
+                                     "persample_kernelILb1"),
+                 "quant8": ("quant_force_kernel",), "syrk": ("tiles_kernel",),
+                 "jacobi": ("jacobi_kernel",)}
+M_K = 8  # steps per batch on M1, M2's adaptive Heun and M4's fluidpaper
+M2_RK23_K = 4  # RK23 at tol 2e-5 (no retry there: Heun shows it)
+M3_K = 4  # at the production point, where a step takes ~2.6 s
+M4_DW_K = 4  # doubleWell, whose eager step takes 0.5-0.8 s
+
+
+def _trace(call):
+    """(launches by kernel class, device busy share, wall s) of call() in
+    a torch.profiler trace of the device's activity (no host op is
+    recorded, so the host's times stay near an untraced run's): the
+    kernels' device time over the host's wall time, both from the
+    synchronize before to the one after. The trace's raw events are read
+    as they are (the profiler's event tree, which nothing here needs, is
+    never built: it took seconds a trace at the production point)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [(e.name(), e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+    counts = {name: sum(1 for k, _ in rows if any(p in k for p in keys))
+              for name, keys in TRACE_KERNELS.items()}
+    busy = sum(ns for _, ns in rows) / 1e9 / wall
+    return counts, busy, wall
+
+
+def _host_wait_count(call):
+    """The synchronizing CUDA operations in call(), as torch's sync debug
+    mode reports them: their sites, each with the innermost frames of the
+    port or of this script that led there."""
+    found = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            ours = [f"{os.path.relpath(f.filename)}:{f.lineno}"
+                    for f in traceback.extract_stack()[:-1]
+                    if "vmc_pde_torch" in f.filename
+                    or f.filename.endswith("chip_smoke.py")]
+            found.append(f"{os.path.relpath(filename)}:{lineno} (from "
+                         f"{' <- '.join(reversed(ours[-3:]))})")
+
+    # the mode is set before the warnings are caught: setting it may warn
+    # itself (torch/cuda/__init__.py), which is no host wait
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return found
+
+
+class _Kept:
+    """Keeps the problem driver.run builds, with its captured programs
+    (the run's release_graphs is held back: the caller releases them),
+    and times every fused step call (synchronized)."""
+
+    def __init__(self):
+        self.problems, self.theta0, self.calls = [], [], {}
+
+    def __enter__(self):
+        self._build = driver.build_problem
+        self._release = TDVP.release_graphs
+        self._orig = {n: getattr(TDVP, n) for n in (
+            "heun_pair", "rk3_triple", "heun_attempt", "rk23_attempt",
+            "heun_multi", "adaptive_multi")}
+        driver.build_problem = lambda cfg, ctx=None: self._keep(
+            self._build(cfg, ctx))
+        TDVP.release_graphs = lambda tdvp: None
+        for name, fn in self._orig.items():
+            setattr(TDVP, name, self._timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        driver.build_problem = self._build
+        TDVP.release_graphs = self._release
+        for name, fn in self._orig.items():
+            setattr(TDVP, name, fn)
+
+    def _keep(self, problem):
+        self.problems.append(problem)
+        self.theta0.append(problem[0].get_parameters())
+        return problem
+
+    def _timed(self, name, fn):
+        def timed(tdvp, *args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tdvp, *args, **kw)
+            torch.cuda.synchronize()
+            self.calls.setdefault(name, []).append(time.perf_counter() - t0)
+            return out
+        return timed
+
+
+def _batch_inputs(cfg, K):
+    """The first batch's (ts, dts, keys) of a run of cfg, as the driver
+    plans it (ts and dts for the fixed steppers' ramp)."""
+    ts, dts, t, ramp = [], [], 0.0, cfg.dt0
+    for _ in range(K):
+        ramp = min(ramp * cfg.increase_fac, cfg.max_step)
+        ts.append(t)
+        dts.append(ramp)
+        t += ramp
+    keys = [tdvp_mod.fold_in(cfg.sample_seed + 7, i) for i in range(K)]
+    return ts, dts, keys
+
+
+def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None):
+    """One path of phase M: driver.run at steps_per_dispatch 1 and K for K
+    steps (one batch), the rows and theta against each other (fixed: bit
+    for bit; adaptive: attempts equal, times to rtol 1e-12, theta within
+    ``bar`` of its largest entry). Launches: the K=1 run's are its
+    wrappers' counts; the batched run's are the kernels of a trace of the
+    device's activity over the whole run (a replay calls no wrapper).
+    ``per_run`` gives each kernel's launches per step (fixed) or per
+    attempt (adaptive): the K=1 run must show them for its steps, the
+    batched run for its K replays and the capture's warm-up (one eager
+    step; an adaptive one runs all its max_graph_attempts bodies). The
+    batch's s/step from its replays (the batch call's time less the
+    capture's) against the K=1 run's fused calls; then a 1-step batch on
+    the batched run's TDVP, untraced, under torch's sync debug mode (its
+    host waits, its replay's host time); one replay of the captured step
+    in a profiler trace (its launches by kernel)."""
+    t_path = time.perf_counter()
+    runs = {}
+    for k in (1, K):
+        _zero_counts()
+        with _Kept() as kept:
+            got = []
+
+            def run():
+                got.append(driver.run(dataclasses.replace(
+                    cfg, steps_per_dispatch=k, verbose=False), max_steps=K))
+
+            if k == 1:
+                run()
+                launches = _counts()
+            else:
+                t0 = time.perf_counter()
+                launches, _, wall = _trace(run)
+                trace_s = time.perf_counter() - t0 - wall
+        state, rec = got[0]
+        runs[k] = dict(theta=state.get_parameters(), rows=rec.as_arrays(),
+                       launches=launches, kept=kept)
+        if k == 1:
+            kept.problems[0][1].release_graphs()
+    (a1, aK) = runs[1]["rows"], runs[K]["rows"]
+    th1, thK = runs[1]["theta"], runs[K]["theta"]
+    diff = float((th1 - thK).abs().max())
+    if set(a1) != set(aK) or len(aK["times"]) != K:
+        fail(f"{label}: batched rows {sorted(aK)} ({len(aK['times'])}) "
+             f"against {sorted(a1)}")
+    if aK["nan"].any() or not (aK["solver_res"] < 1e-3).all():
+        fail(f"{label}: NaN or residual in the batched run")
+    out = dict(theta_max_diff=diff)
+    if adaptive:
+        same = (np.array_equal(a1["attempts"], aK["attempts"])
+                and np.allclose(aK["times"], a1["times"], rtol=1e-12,
+                                atol=0)
+                and diff <= bar * float(th1.abs().max()))
+        out.update(attempts=aK["attempts"].tolist(),
+                   times=aK["times"].tolist())
+        print(f"{label}: K={K} vs 1: attempts {aK['attempts'].tolist()} vs "
+              f"{a1['attempts'].tolist()}, times rtol 1e-12 "
+              f"{np.allclose(aK['times'], a1['times'], rtol=1e-12, atol=0)}"
+              f", theta largest difference {diff:.3e} (bar {bar:g} of its "
+              f"largest entry), bitwise {torch.equal(th1, thK)}")
+    else:
+        same = torch.equal(th1, thK) and all(
+            np.array_equal(a1[k], aK[k]) for k in a1)
+        print(f"{label}: K={K} vs 1: theta and rows bit for bit {same} "
+              f"(largest theta difference {diff:.3e})")
+    if not same:
+        fail(f"{label}: the batched run is not the per-step run")
+    kept = runs[K]["kept"]
+    state, tdvp, stepper = kept.problems[0][:3]
+    name, prog = next(iter(tdvp._programs.items()))
+    # the launches each run must show: per step (fixed) or per attempt
+    if adaptive:
+        units = {1: int(a1["attempts"].sum()),
+                 K: tdvp.max_graph_attempts + int(aK["attempts"].sum())}
+    else:
+        units = {1: K, K: K + 1}
+    for k in (1, K):
+        want = {n: v * units[k] for n, v in per_run.items()}
+        if any(runs[k]["launches"][n] != v for n, v in want.items()):
+            fail(f"{label}: the K={k} run launched {runs[k]['launches']}, "
+                 f"expected {want}")
+    step_s = kept.calls["adaptive_multi" if adaptive else "heun_multi"][0]
+    # the per-step run's fused calls (an adaptive step's attempts summed)
+    per_step = sum(sum(v) for k, v in runs[1]["kept"].calls.items())
+    out.update(capture_s=prog.capture_s, pool_mb=prog.pool_bytes / 2**20,
+               sites=len(prog.sites), launches=runs[K]["launches"],
+               launches_per_step_run=runs[1]["launches"],
+               first_batch_s=step_s, per_step_s=per_step / K,
+               trace_overhead_s=trace_s,
+               # slots past the captured attempts, finished on the host
+               host_finished=tdvp.host_finished)
+    ts, dts, keys = _batch_inputs(cfg, K)
+    th0 = kept.theta0[0]
+    if adaptive:
+        t_eps = 1e-12 * max(1.0, abs(cfg.t_end))
+        kind = "rk23" if cfg.stepper == "adaptive_rk23" else "heun"
+
+        def batch():
+            return tdvp.adaptive_multi(
+                th0, 0.0, cfg.dt0, cfg.dt0, keys[:1], cfg.t_end, t_eps,
+                stepper.tolerance, stepper.maxStep, kind=kind,
+                exact=cfg.exact_t_end)
+    else:
+        kind = "rk3" if cfg.stepper == "fixed_rk3" else "heun"
+
+        def batch():
+            return tdvp.heun_multi(th0, ts[:1], dts[:1], keys[:1], kind=kind)
+    host_us = []
+    replay = graphs.Program.replay
+
+    def timed(prog, root):
+        t0 = time.perf_counter()
+        replay(prog, root)
+        host_us.append(1e6 * (time.perf_counter() - t0))
+
+    torch.cuda.synchronize()
+    graphs.Program.replay = timed
+    try:
+        sites = _host_wait_count(batch)
+    finally:
+        graphs.Program.replay = replay
+    torch.cuda.synchronize()
+    out.update(host_waits_per_batch=len(sites), wait_sites=sites,
+               replay_host_us=host_us)
+    if adaptive:
+        # from the batch's start: the first step, with its retry
+        tdvp._start_batch(prog.buffers, th0, 0.0, cfg.dt0, cfg.dt0, None)
+    counts, busy, wall = _trace(lambda: prog.replay(keys[0]))
+    out.update(replay_launches=counts, replay_device_busy=busy,
+               replay_wall_s=wall)
+    per_step_b = (step_s - prog.capture_s) / K
+    out.update(batched_s_per_step=per_step_b)
+    print(f"{label}: capture {prog.capture_s:.2f} s (warm-up included), "
+          f"pool {out['pool_mb']:.1f} MB, {len(prog.sites)} draw sites; "
+          f"replay host {' '.join(f'{v:.0f}' for v in host_us)} us; one "
+          f"replay's launches {counts}, device busy {100 * busy:.1f}% of "
+          f"its {wall:.3f} s; host waits in a 1-step batch {len(sites)} "
+          f"{sites}; s/step batched {per_step_b:.4f} (the capture aside, "
+          f"traced) against per-step {out['per_step_s']:.4f}; slots "
+          f"finished on the host {tdvp.host_finished}; launches: the K={K} "
+          f"run's trace {runs[K]['launches']} (trace overhead "
+          f"{trace_s:.1f} s), the K=1 run {runs[1]['launches']}")
+    tdvp.release_graphs()
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"{label}: {out['seconds']:.1f} s")
+    return out
+
+
+def _mcmc_path(label, name, K):
+    """M4: K fixed Heun steps of an MCMC preset through TDVP.heun_multi
+    (its 2-D grid keeps the driver per step), the graph against the eager
+    heun_multi on the same keys (bit for bit) and against K heun_pair
+    calls (fluidpaper's independence chain: bit for bit; doubleWell's
+    random walk adapts its scale after each call, once per batch here);
+    the batch's s/step graphed and eager, and the device's busy share
+    over one step, graphed and per step."""
+    from unittest import mock
+
+    t_path = time.perf_counter()
+    cfg = preset(name, device="cuda")
+    build_s = []
+
+    def fresh():
+        t0 = time.perf_counter()
+        out = driver.build_problem(cfg)[:3]
+        build_s.append(time.perf_counter() - t0)
+        return out
+
+    state, tdvp, stepper = fresh()
+    ts, dts, keys = _batch_inputs(cfg, K)
+    theta = state.get_parameters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    th_g, aux_g = tdvp.heun_multi(theta, ts, dts, keys)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    prog = tdvp._programs[("multi", "heun")]
+    state_e, tdvp_e, _ = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with mock.patch.object(TDVP, "graphs_available",
+                           new=property(lambda self: False)):
+        th_e, aux_e = tdvp_e.heun_multi(theta, ts, dts, keys)
+    torch.cuda.synchronize()
+    # the eager batch runs the per-step loop's work: its s/step
+    per = (time.perf_counter() - t0) / K
+    same_e = torch.equal(th_g, th_e) and all(
+        torch.equal(aux_g[k].cpu(), aux_e[k].cpu()) for k in aux_g)
+    state_p, tdvp_p, _ = fresh()
+
+    def per_step(n):
+        y = theta.clone()
+        for t, dt, k in zip(ts[:n], dts[:n], keys[:n]):
+            dy, _ = tdvp_p.heun_pair(y, t, dt, k)
+            y = y + dy
+        return y
+
+    diff = None
+    if name == "fluidpaper":
+        # the independence chain adapts nothing: K heun_pair calls are the
+        # batch bit for bit (doubleWell's walk adapts after every call)
+        diff = float((per_step(K) - th_g).abs().max())
+    # the device's busy share over one step, per step and graphed
+    t0 = time.perf_counter()
+    _, busy_p, _ = _trace(lambda: per_step(1))
+    _, busy_g, _ = _trace(lambda: tdvp.heun_multi(theta, ts[:1], dts[:1],
+                                                   keys[:1]))
+    trace_s = time.perf_counter() - t0
+    batched = (first - prog.capture_s) / K
+    out = dict(graph_vs_eager_bitwise=same_e, vs_per_step_max_diff=diff,
+               capture_s=prog.capture_s, pool_mb=prog.pool_bytes / 2**20,
+               first_batch_s=first, batched_s_per_step=batched,
+               per_step_s=per, busy_graphed=busy_g, busy_per_step=busy_p,
+               build_s=build_s, traces_s=trace_s)
+    print(f"{label}: graph vs eager heun_multi bit for bit {same_e}; vs "
+          f"{K} heun_pair calls largest theta difference {diff}; "
+          f"capture {prog.capture_s:.2f} s, pool {out['pool_mb']:.1f} MB; "
+          f"batched {batched:.4f} s/step (the capture aside) vs eager "
+          f"{per:.4f}; device busy over one step {100 * busy_g:.1f}% "
+          f"graphed vs {100 * busy_p:.1f}% per step (the two traces "
+          f"{trace_s:.1f} s); problems built in "
+          f"{' '.join(f'{v:.1f}' for v in build_s)} s")
+    if not same_e or (name == "fluidpaper" and diff != 0.0):
+        fail(f"{label}: the graphed batch is not the eager one")
+    tdvp.release_graphs()
+    out["seconds"] = time.perf_counter() - t_path
+    print(f"{label}: {out['seconds']:.1f} s")
+    return out
+
+
+def phase_multistep():
+    """Phase M: --steps-per-dispatch as CUDA graphs (M1-M4)."""
+    t0 = time.perf_counter()
+    out = {}
+    fp = preset("fokkerPlanck32", device="cuda")
+    heun = {"persample": 2, "jacobi": 2}
+    out["M1 heun"] = _graph_path("M1 fokkerPlanck32 fixed_heun", fp, M_K,
+                                 heun)
+    out["M1 rk3"] = _graph_path(
+        "M1 fokkerPlanck32 fixed_rk3", dataclasses.replace(
+            fp, stepper="fixed_rk3"), M_K, {"persample": 3, "jacobi": 3})
+    out["M1 syrk"] = _graph_path(
+        "M1 fokkerPlanck32 fixed_heun --gram-backend syrk",
+        dataclasses.replace(fp, gram_backend="syrk"), M_K,
+        dict(heun, syrk=4))
+    for kind, K, per in (("adaptive_heun", M_K, 5),
+                         ("adaptive_rk23", M2_RK23_K, 4)):
+        out[f"M2 {kind}"] = _graph_path(
+            f"M2 fokkerPlanck32 {kind} tol 2e-5", dataclasses.replace(
+                fp, stepper=kind, tol=2e-5), K,
+            {"persample": per, "jacobi": per}, adaptive=True, bar=1e-6)
+    retried = [a for k in ("M2 adaptive_heun", "M2 adaptive_rk23")
+               for a in out[k]["attempts"]]
+    if max(retried) < 2:
+        fail("M2: no retry in the adaptive batches")
+    out["M3"] = _graph_path(
+        "M3 fokkerPlanck32 N=524288 chunked tri2+int8 fixed_heun",
+        dataclasses.replace(fp, n_samples_tdvp=524288, n_samples_obs=524288,
+                            chunk_size=65536, gram_backend="tri2",
+                            gram_cross="int8"), M3_K,
+        dict(heun, persample_split=16, quant8=32))
+    out["M4 fluidpaper"] = _mcmc_path("M4 fluidpaper", "fluidpaper", M_K)
+    out["M4 doubleWell"] = _mcmc_path("M4 doubleWell", "doubleWell",
+                                      M4_DW_K)
+    for key in ("M1 heun", "M1 rk3", "M1 syrk", "M2 adaptive_heun",
+                "M2 adaptive_rk23", "M3"):
+        if out[key]["host_waits_per_batch"] > 1:
+            fail(f"{key}: {out[key]['host_waits_per_batch']} host waits in "
+                 f"one batch")
+    want = {"M1 heun": heun, "M1 rk3": {"persample": 3, "jacobi": 3},
+            "M1 syrk": dict(heun, syrk=4),
+            "M2 adaptive_heun": {"persample": 5 * out["M2 adaptive_heun"][
+                "attempts"][0]},
+            "M3": dict(heun, persample_split=16, quant8=32)}
+    for key, w in want.items():
+        got = out[key]["replay_launches"]
+        if any(got[k] != v for k, v in w.items()):
+            fail(f"{key}: one replay launched {got}, expected {w}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase M: {out['seconds']:.1f} s")
+    return out
+
+
 def phase_oracles():
     """Phase L (L1-L7); returns its record and the per-sample and
     Metropolis kernels' launches on its paths."""
@@ -4002,7 +4581,8 @@ def main():
     del split, prob
     state, counts = phase_main_path()
     theta5 = state.get_parameters()
-    launches = {"persample": counts["persample"]}
+    launches = {"persample": counts["persample"], "jacobi": counts["jacobi"]}
+    results["jacobi"] = phase_jacobi(dev)
     phase_chunked_vs_f32(state.get_parameters())
     counts = phase_chunked_path()
     launches.update(persample_split=counts["persample_split"],
@@ -4035,6 +4615,7 @@ def main():
     paths["fokkerPlanck32 N=524288 chunked adaptive_heun"] = \
         prod["persample"]
     phase_fluidpaper_adaptive(steppers)
+    multistep = phase_multistep()
     solvers, solver_paths, split_paths, q8_paths = phase_solvers(theta5)
     paths.update(solver_paths)
     qhi, qhi_paths, qhi_split, qhi_q8 = phase_qmc_hessian_integrals(
@@ -4090,6 +4671,16 @@ def main():
         "fokkerPlanck32 N=16384 syrk fixed_heun": launches["syrk"],
         "one direct batch with the dense SExp (S0, A, SExp)":
             steppers["launches"]["syrk"]}
+    results["jacobi"]["launches_by_path"] = {
+        MAIN_LABEL + " (the top-k Ritz solve)": launches["jacobi"]}
+    for key, path in multistep.items():
+        for name in TRACE_KERNELS:
+            if isinstance(path, dict) and path.get("launches", {}).get(name):
+                results[name]["launches_by_path"][
+                    f"{key} in batches, from the batched run's trace (the "
+                    f"capture's warm-up and the replays; one replay: "
+                    f"{path['replay_launches'][name]})"] = \
+                    path["launches"][name]
     oracles, oracle_paths = phase_oracles()
     paths.update(oracle_paths["persample"])
     results["metropolis"]["launches_by_path"] = {
@@ -4103,6 +4694,7 @@ def main():
     print(json.dumps({"qmc_hessian_integrals": qhi}))
     print(json.dumps({"run_state": run_state}))
     print(json.dumps({"oracles": oracles}, default=str))
+    print(json.dumps({"multistep": multistep}, default=str))
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name],

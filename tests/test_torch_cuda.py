@@ -934,3 +934,110 @@ def test_qmc_chi2_on_the_card_matches_the_cpu(dev, nu):
            1e-10 + 16 * np.finfo(np.float64).eps * u
            / (cpu * schi2.pdf(cpu, nu)))
     assert (np.abs(got - cpu) / cpu <= tol).all()
+
+
+# -- the batched steps' CUDA graphs (solver/graphs.py) and the Jacobi
+# eigensolve they need (csrc/jacobi.cu) -----------------------------------
+
+def _graph_problem(stepper, **kw):
+    from vmc_pde_torch import driver
+    from vmc_pde_torch.config import RunConfig
+
+    return driver.build_problem(RunConfig(
+        name="graph", dim=4, offset=(0.0,) * 4, latent_name="Gauss",
+        equation="diffusion", variant="scale", dt0=1e-3, max_step=1e-2,
+        n_samples_tdvp=1024, n_samples_obs=1024, precision="tpu",
+        stepper=stepper, device="cuda", verbose=False, **kw))[:3]
+
+
+def test_graph_replay_matches_eager_steps(dev):
+    """heun_multi replays the captured Heun step: theta and the rows bit
+    for bit those of heun_pair called step by step on the same keys."""
+    from vmc_pde_torch.solver.tdvp import fold_in
+
+    state, tdvp, _ = _graph_problem("fixed_heun")
+    assert tdvp.graphs_available
+    theta = state.get_parameters()
+    keys = [fold_in(3, i) for i in range(3)]
+    ts, dts = [0.0, 1.3e-3, 2.99e-3], [1.3e-3, 1.69e-3, 2.197e-3]
+    y, rows = theta.clone(), []
+    for t, dt, k in zip(ts, dts, keys):
+        dy, aux = tdvp.heun_pair(y, t, dt, k)
+        y = y + dy
+        rows.append(aux)
+    th, auxs = tdvp.heun_multi(theta, ts, dts, keys)
+    assert torch.equal(th, y)
+    for i, row in enumerate(rows):
+        assert torch.equal(auxs["entropy"][i], row["entropy"])
+    tdvp.release_graphs()
+
+
+def test_graph_adaptive_batch_matches_per_step(dev):
+    """adaptive_multi with the retry loop in conditional nodes: the steps
+    and attempts of AdaptiveHeun step by step, times to rtol 1e-12."""
+    from vmc_pde_torch.solver.tdvp import fold_in
+
+    state, tdvp, stepper = _graph_problem("adaptive_heun", tol=1e-8)
+    theta = state.get_parameters()
+    keys = [fold_in(4, i) for i in range(3)]
+    y, t, rows = theta.clone(), 0.0, []
+    for k in keys:
+        res = stepper.step(t, None, y, k, normFunction=tdvp.stepper_norm)
+        rows.append((t, res.info["attempts"]))
+        y, t = res.y, t + res.dt_used
+    _, tdvp2, st2 = _graph_problem("adaptive_heun", tol=1e-8)
+    th, t_f, _, _, outs = tdvp2.adaptive_multi(
+        theta, 0.0, st2.dt, st2.dt, keys, 1.0, 1e-12, st2.tolerance,
+        st2.maxStep)
+    assert outs["attempts"].tolist() == [a for _, a in rows]
+    np.testing.assert_allclose(outs["t_at"].cpu().numpy(),
+                               [s for s, _ in rows], rtol=1e-12)
+    assert abs(t_f - t) <= 1e-12 * t
+    tdvp2.release_graphs()
+
+
+def test_eigensolves_beyond_the_jacobi_kernel(dev):
+    """On the card a spectrum_topk whose Ritz matrix (order k + 8) the
+    Jacobi kernel cannot take is refused when the TDVP is built; a P-space
+    eigh solve above the kernel's size calls torch.linalg.eigh, and its
+    batches run eagerly with that reason."""
+    import dataclasses
+
+    from vmc_pde_torch import driver
+    from vmc_pde_torch.config import preset
+    from vmc_pde_torch.kernels import jacobi
+    from vmc_pde_torch.solver.tdvp import TDVP
+
+    state, tdvp = driver.build_problem(preset("fokkerPlanck32",
+                                              device="cuda"))[:2]
+    assert tdvp.graphs_refusal is None
+    with pytest.raises(ValueError, match="spectrum_topk=200"):
+        TDVP(state, tdvp.equation, dataclasses.replace(
+            tdvp.cfg, spectrum_topk=200), n_samples=tdvp.n_samples)
+    eig = TDVP(state, tdvp.equation, dataclasses.replace(
+        tdvp.cfg, solver_method="eigh"), n_samples=tdvp.n_samples)
+    assert eig._spectral_eigh is torch.linalg.eigh
+    assert "torch.linalg.eigh" in eig.graphs_refusal
+    small = _graph_problem("fixed_heun", solver_method="eigh")[1]
+    assert small._spectral_eigh is jacobi.eigh and small.graphs_available
+
+
+@pytest.mark.parametrize("n", [9, 69, 72, 73])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jacobi_kernel_matches_eigh(dev, n, dtype):
+    """The Jacobi kernel against an f64 torch.linalg.eigh: eigenvalues
+    within 64 n eps of the matrix's norm, V diag(w) V^T within 1e-4 (f32)
+    or 1e-12 (f64) of it, ascending order."""
+    from vmc_pde_torch.kernels import jacobi
+
+    X = torch.randn(n, n, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(n))
+    A = (X @ X.T).to(dtype).to(dev)
+    w, V = jacobi.eigh(A)
+    w0 = torch.linalg.eigh(A.double())[0]
+    nrm = float(torch.linalg.norm(A.double()))
+    eps = torch.finfo(dtype).eps
+    assert float((w.double() - w0).abs().max()) <= 64 * n * eps * nrm
+    rec = float(torch.linalg.norm(V @ torch.diag(w) @ V.T - A)) / nrm
+    assert rec <= (1e-4 if dtype == torch.float32 else 1e-12)
+    assert bool((w[1:] >= w[:-1]).all())

@@ -224,3 +224,59 @@ def test_port_imports_without_jax():
     for mod in ("jax", "jaxlib", "flax"):
         assert f"import {mod}" not in src
         assert f"from {mod}" not in src
+
+
+def _helpers():
+    """(jax, torch) pairs of the public helpers both packages have, each a
+    function of the shared parity flow and data."""
+    from vmc_pde_torch.models import latent
+    from vmc_pde_torch.models.state import VarState
+    from vmc_pde_torch.parallel import stats
+    from vmc_pde_torch.utils.dtypes import Precision
+    from vmc_pde_tpu.models import latent as jlatent
+    from vmc_pde_tpu.models.state import VarState as JVarState
+    from vmc_pde_tpu.parallel import stats as jstats
+    from vmc_pde_tpu.utils.dtypes import Precision as JPrecision
+
+    def hessian(jflow, jparams, flow, theta, x, w):
+        js = JVarState(jflow, jparams, precision=JPrecision.f64_everywhere())
+        ts = VarState(flow, theta, precision=Precision.f64_everywhere())
+        return js.hessian(x), ts.hessian(x)
+
+    def cov(jflow, jparams, flow, theta, x, w):
+        return (jlatent.cov_matrix(jparams["latent"], jflow.dim),
+                latent.cov_matrix(flow.layout.unravel(theta)["latent"],
+                                  flow.dim))
+
+    def stat(name, *args, **jkw):
+        def fn(jflow, jparams, flow, theta, x, w):
+            a = {"x": x, "w": w}
+            return (getattr(jstats, name)(*[jnp.asarray(a[k]) for k in args],
+                                          **jkw),
+                    getattr(stats, name)(*[t64(a[k]) for k in args]))
+        return fn
+
+    # the JAX Gram helpers return f32 unless asked for f64
+    f64 = {"preferred_dtype": jnp.float64}
+    return {"VarState.hessian": hessian, "latent.cov_matrix": cov,
+            "stats.mean": stat("mean", "x"),
+            "stats.variance": stat("variance", "x"),
+            "stats.weighted_second_moment_matrix": stat(
+                "weighted_second_moment_matrix", "x", "w", **f64),
+            "stats.covariance_matrix": stat("covariance_matrix", "x", **f64)}
+
+
+@pytest.mark.parametrize("name", ["VarState.hessian", "latent.cov_matrix",
+                                  "stats.mean", "stats.variance",
+                                  "stats.weighted_second_moment_matrix",
+                                  "stats.covariance_matrix"])
+def test_public_helpers_match_jax(name):
+    """The public helpers the JAX modules have, in the port: the full
+    coordinate Hessian of VarState, the latent covariance, and the sample
+    statistics, f64 on shared inputs."""
+    jflow, jparams, flow, theta = parity_flow("affine", seed=6)
+    x = normal((24, flow.dim), 1)
+    w = np.abs(normal((24,), 2))
+    want, got = _helpers()[name](jflow, jparams, flow, theta, x, w)
+    assert tuple(got.shape) == tuple(np.shape(want))
+    assert rel_err(got, want) < TOL

@@ -164,9 +164,10 @@ def test_exact_t_end_lands(stepper):
 @pytest.mark.parametrize("stepper", ["fixed_heun", "fixed_rk3",
                                      "adaptive_heun"])
 def test_steps_per_dispatch_is_bitwise_one(stepper):
-    """steps_per_dispatch 3 against 1 (NaN flags read once per 3 steps
-    instead of every nan_check_every), 3 steps: the same theta bit for bit
-    and the same recorded rows."""
+    """steps_per_dispatch 3 against 1, 3 steps (the fixed steppers on a
+    4-D mwe: one batch through TDVP.heun_multi, eager on the CPU; the 2-D
+    adaptive mwe keeps the per-step loop for its grid): the same theta bit
+    for bit and the same recorded rows."""
     if stepper == "adaptive_heun":
         runs = [_mwe_adaptive_heun(k) for k in (1, 3)]
     else:

@@ -57,19 +57,31 @@ global_affine=True))``.
 ``--device`` defaults to cuda and raises when no CUDA device is present;
 pass ``--device cpu`` to run on the CPU.
 
-``--steps-per-dispatch K`` (K > 1) checks the NaN flags once every K
-steps instead of every ``nan_check_every``; the steps are issued as with
-K=1 (no host wait between them unless verbose output reads each step's
-residual) and the trajectory and the recorded rows are those of K=1.
-Eager torch has no device-side loop: an adaptive step waits for each
-attempt's error on the host (one synchronization per attempt), where the
-JAX package keeps its retry loop on the device.
+``--steps-per-dispatch K`` (K > 1) runs the steps in batches of K, as
+the JAX package does (its driver's multi_ok / adapt_multi_ok /
+plan_batch): fixed Heun and SSPRK3 through TDVP.heun_multi, adaptive
+Heun and RK23 through TDVP.adaptive_multi, whose retry loop and dt
+controller stay on the device. On one card each step of a batch replays
+a captured CUDA graph (solver/graphs.py), with one host wait per batch;
+on a mesh, with cg, minsr or the host solve, or with a P-space eigh
+solve above the Jacobi kernel's size, the same batches run eagerly, and
+on a card the run warns why (TDVP.graphs_refusal). The trajectory and
+the recorded rows are those of K=1: fixed steps bit for bit, adaptive
+ones to the last bits of the controller's f64 arithmetic. A step that
+runs per step instead, as in the JAX package: Euler, verbose output,
+callbacks, a 2-D grid, a profiler window, a batch that would cross a
+checkpoint or the step budget, or the fixed ramp reaching t_end inside
+the batch. The NaN flags of a fixed
+batch are read when it crosses a multiple of ``nan_check_every``, those of
+an adaptive batch with its one host read, those of a step run per step
+every ``nan_check_every`` steps, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import warnings
 
 import numpy as np
 import torch
@@ -87,6 +99,7 @@ from .utils import dtypes
 from .utils.checkpoint import latest_checkpoint, save_checkpoint
 from .utils.grid import Grid
 from .utils.infos import InfoRecorder, store_infos
+from .utils.recorder import _to_host
 from .utils.timings import Timings, profiler_trace
 
 
@@ -268,12 +281,10 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
     if wdir:
         os.makedirs(wdir, exist_ok=True)
 
-    # NaN aborts are checked every nan_check_every steps, or once per batch
-    # of steps_per_dispatch steps (each check waits for the device), on
-    # flags agreed across the ranks, so that all of them abort together and
-    # none waits alone in a collective
-    nan_every = (cfg.steps_per_dispatch if cfg.steps_per_dispatch > 1
-                 else max(cfg.nan_check_every, 1))
+    # NaN aborts are checked every nan_check_every steps (each check waits
+    # for the device), on flags agreed across the ranks, so that all of
+    # them abort together and none waits alone in a collective
+    nan_every = max(cfg.nan_check_every, 1)
     pending_nan = []
 
     def check_nan():
@@ -308,6 +319,79 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
     theta, t, n_step = _initial_state(cfg, state, stepper)
     state.set_parameters(theta)
     dt = stepper.dt
+
+    # Batched steps (the JAX package's driver.py:335-487). Every per-step
+    # host action -- verbose output, callbacks, the 2-D grid's plots, the
+    # profiler window -- keeps the per-step loop; checkpoint and budget
+    # boundaries fall back per step. The conditions read only what every
+    # rank shares (cfg.workdir, not the coordinator's wdir), so that the
+    # ranks of a mesh take the same branches.
+    batch_ok = (cfg.steps_per_dispatch > 1 and not cfg.verbose
+                and not callbacks and grid is None and not cfg.profile_dir)
+    multi_ok = (batch_ok and isinstance(stepper, FixedStepper)
+                and stepper.mode in ("Heun", "RK3")
+                and stepper.pair_fn is not None)
+    adapt_multi_ok = (batch_ok and isinstance(stepper, AdaptiveHeun)
+                      and stepper.attempt_fn is not None)
+    refusal = tdvp.graphs_refusal
+    if ((multi_ok or adapt_multi_ok) and tdvp.device.type == "cuda"
+            and refusal and mesh.is_coordinator()):
+        warnings.warn(f"steps_per_dispatch={cfg.steps_per_dispatch}: the "
+                      f"batches run eagerly, not as CUDA graphs: {refusal}",
+                      stacklevel=2)
+
+    def boundary(n_step, steps_done, K):
+        """Whether K steps from here would cross the step budget or a
+        checkpoint."""
+        return steps_done + K > max_steps or bool(
+            cfg.workdir and cfg.checkpoint_every
+            and any((n_step + i) % cfg.checkpoint_every == 0
+                    for i in range(K)))
+
+    def plan_batch(t, dt, n_step, steps_done):
+        """(K, ts, dts, ramp) of the next fixed batch: the stepper's ramp
+        dt <- min(dt * increase_fac, maxStep) simulated K steps ahead, each
+        dt clamped at t_end - t under exact_t_end as the stepper clamps it,
+        and the loop condition checked before each; K = 1 where a batch
+        may not run."""
+        K = cfg.steps_per_dispatch
+        if boundary(n_step, steps_done, K):
+            return 1, (), (), None
+        ts, dts, ramp = [], [], stepper.dt
+        for _ in range(K):
+            if not more_steps(t, dt):
+                return 1, (), (), None
+            ramp = min(ramp * stepper.increase_fac, stepper.maxStep)
+            dt = min(ramp, cfg.t_end - t) if cfg.exact_t_end else ramp
+            ts.append(t)
+            dts.append(dt)
+            t += dt
+        return K, ts, dts, ramp
+
+    def record_batch(n_step, ts, dts, auxs, n):
+        """The first n rows of a batch into the recorder and, from one
+        copy off the card, one record_dict per row into the async
+        recorder."""
+        auxs = {k: v[:n] for k, v in auxs.items()}
+        block = {"times": ts[:n], "dt": dts[:n], **auxs}
+        rec.append_dict_block(block)
+        if arec is not None:
+            block = {k: v for k, v in block.items()
+                     if k not in rec.SKIP_KEYS}
+            host = _to_host(block)
+            host = {k: np.asarray(v, dtype=np.float64).reshape(
+                        np.shape(block[k])) for k, v in host.items()}
+            for i in range(n):
+                arec.record_dict(n_step + i,
+                                 {k: v[i] for k, v in host.items()})
+        return auxs
+
+    def batch_nan(auxs, t, n_step, n):
+        # the NaN cadence of the JAX package's batched branches: a check
+        # where a batch crosses a multiple of nan_check_every
+        pending_nan.append((auxs["nan"].any(), t))
+        if (n_step + n) // nan_every != n_step // nan_every:
+            check_nan()
     key = cfg.sample_seed + 7
     plotted = set()
     if grid is not None and talk:
@@ -321,6 +405,49 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
     steps_done = 0
     try:
         while more_steps(t, dt) and steps_done < max_steps:
+            if multi_ok:
+                K, ts, dts, ramp = plan_batch(t, dt, n_step, steps_done)
+                if K > 1:
+                    keys = [fold_in(key, n_step + i) for i in range(K)]
+                    timings.start_timing("step")
+                    # set_parameters waits until the loop ends: the rows
+                    # carry dist_params themselves
+                    theta, auxs = tdvp.heun_multi(
+                        theta, ts, dts, keys,
+                        kind="rk3" if stepper.mode == "RK3" else "heun")
+                    timings.stop_timing("step")
+                    auxs = record_batch(n_step, np.asarray(ts),
+                                        np.asarray(dts), auxs, K)
+                    batch_nan(auxs, t, n_step, K)
+                    t, dt, stepper.dt = ts[-1] + dts[-1], dts[-1], ramp
+                    n_step += K
+                    steps_done += K
+                    continue
+            if adapt_multi_ok and not boundary(n_step, steps_done,
+                                               cfg.steps_per_dispatch):
+                K = cfg.steps_per_dispatch
+                keys = [fold_in(key, n_step + i) for i in range(K)]
+                timings.start_timing("step")
+                theta, t_f, dt_sugg, dt_prev, outs = tdvp.adaptive_multi(
+                    theta, t, stepper.dt, dt, keys, cfg.t_end, t_eps,
+                    stepper.tolerance, stepper.maxStep,
+                    kind="rk23" if isinstance(stepper, AdaptiveRK23)
+                    else "heun", exact=cfg.exact_t_end)
+                timings.stop_timing("step")
+                # the slots past t_end emitted zero rows
+                n_done = int(outs["active"].sum())
+                record_batch(n_step, outs["t_at"], outs["dt_used"],
+                             outs["aux"], n_done)
+                if outs["nan"]:
+                    # read with the batch: the same on every rank, whose
+                    # theta is the same
+                    check_nan()
+                    raise FloatingPointError(
+                        f"NaN encountered in TDVP update at t={t}")
+                t, dt, stepper.dt = t_f, dt_prev, dt_sugg
+                n_step += n_done
+                steps_done += n_done
+                continue
             if cfg.profile_dir:
                 if steps_done == cfg.profile_steps[0]:
                     window.enter_context(profiler_trace(
@@ -396,7 +523,10 @@ def run(cfg: RunConfig, max_steps: int = 10**9, callbacks=()):
         window.close()
         if arec is not None:
             arec.close()
+        # the captured steps' graphs, memory pools and streams
+        tdvp.release_graphs()
 
+    state.set_parameters(theta)
     check_nan()
     rec.flush()
     if wdir:
@@ -496,9 +626,10 @@ def main(argv=None, callbacks=()):
                    help="clamp the final dt to land exactly on t_end (the "
                         "reference's loop overshoots by up to one dt)")
     p.add_argument("--steps-per-dispatch", type=int, default=None,
-                   help=">1: check the NaN flags once every that many "
-                        "steps (the trajectory is K=1's); an adaptive step "
-                        "still waits for each attempt's error on the host")
+                   help=">1: run the steps in batches of that many (one "
+                        "captured CUDA graph replay per step and one host "
+                        "wait per batch on one card; the trajectory is "
+                        "K=1's)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device (default cuda; raises without one); "
                         "on a mesh each rank takes card rank %% count")

@@ -48,6 +48,16 @@ SIGNATURES = {
         + [_vp] * 2,
         "syrk_tiles_bf16": [_vp] + [_ci] * 3 + [_vp, _ci] + [_vp] * 2,
     },
+    "jacobi": {
+        "jacobi_eigh_f32": [_vp, _ci] + [_vp] * 4,
+        "jacobi_eigh_f64": [_vp, _ci] + [_vp] * 4,
+    },
+    "graphcond": {
+        "cond_if_begin": [_vp] * 3,
+        "cond_end": [_vp],
+        "stream_create": [ctypes.POINTER(ctypes.c_void_p)],
+        "stream_destroy": [_vp],
+    },
 }
 
 _lock = threading.Lock()

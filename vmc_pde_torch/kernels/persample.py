@@ -95,6 +95,7 @@ import torch
 from ..models import latent
 from ..ops import score
 from ..parallel import stats
+from ..utils.dtypes import device_constant
 
 # Block-plan format and launch constants shared with csrc/persample.cu
 # (same names there; tests/test_torch_persample.py checks them); MAX_DIM
@@ -410,8 +411,13 @@ def _launch_inputs(flow, theta, x, dirs):
     WT[:, :d] = W.T
     parts = [WT.reshape(-1), offset]
     if n_dirs:
-        parts.append(torch.as_tensor(dirs, dtype=torch.float32,
-                                     device=dev).reshape(-1))
+        # a host array is copied once per device (device_constant): a copy
+        # per launch would wait for the device and break graph capture
+        parts.append((dirs.to(device=dev, dtype=torch.float32)
+                      if isinstance(dirs, torch.Tensor)
+                      else device_constant(
+                          tuple(map(tuple, np.asarray(dirs).tolist())), dev,
+                          torch.float32)).reshape(-1))
     parts.append(alphas)
     if flow.latent_name == "Student_t":
         parts.append(student_t_consts(flow, theta, lat))

@@ -90,6 +90,12 @@ def chol_factor(latent_params, dim: int):
     return U + torch.diag(latent_params["L_diag"].exp())
 
 
+def cov_matrix(latent_params, dim: int):
+    """The latent's covariance S = U U^T."""
+    U = chol_factor(latent_params, dim)
+    return U @ U.T
+
+
 def _mahalanobis_sq(latent_params, dim: int, x):
     """(x - mu)^T S^{-1} (x - mu) for x of shape (..., dim), via a
     triangular solve against U."""

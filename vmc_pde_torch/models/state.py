@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..ops import score
 from ..parallel.mesh import ParallelCtx
 from ..utils.dtypes import Precision
 
@@ -123,6 +124,15 @@ class VarState:
         coords = torch.as_tensor(coords, dtype=self.precision.compute,
                                  device=self.device)
         return self.flow.log_prob(self.params, coords)
+
+    def hessian(self, coords):
+        """The full coordinate Hessian of logp at each sample, (N, d, d),
+        by torch.func (ops/score.py)."""
+        coords = torch.as_tensor(coords, dtype=self.precision.compute,
+                                 device=self.device)
+        return score.batched_hessian_block(
+            score.make_flat_log_prob(self.flow, self.layout.unravel),
+            self.theta, coords, None)
 
     def sample(self, numSamples: int, key: int):
         """Draw from the model density: latent draws (exact, or Metropolis

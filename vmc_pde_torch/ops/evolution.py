@@ -44,7 +44,9 @@ def velocity_field_mlpaper(coord, t, T=5.0):
     """Time-periodic 2-D swirl of the ML-fluids paper for coord of shape
     (..., 2)."""
     x, y = coord[..., 0], coord[..., 1]
-    c = math.cos(math.pi * t / T)
+    # t is a float, or inside a captured step a 0-dim f64 device tensor
+    c = (torch.cos(math.pi * t / T) if isinstance(t, torch.Tensor)
+         else math.cos(math.pi * t / T))
     return torch.stack([
         -torch.sin(math.pi * x) ** 2 * torch.sin(2 * math.pi * y) * c,
         torch.sin(math.pi * y) ** 2 * torch.sin(2 * math.pi * x) * c,

@@ -80,6 +80,28 @@ def global_means(ctx, tensors, n: int):
     return [s / n for s in sums]
 
 
+def mean(data, axis=0):
+    """E[X] over the sample axis (the JAX package's stats.mean)."""
+    return data.mean(dim=axis)
+
+
+def variance(data, axis=0):
+    """E[|X - E X|^2] over the sample axis, biased like the reference's
+    (the JAX package's stats.variance)."""
+    d = data - data.mean(dim=axis, keepdim=True)
+    return (d.conj() * d).real.mean(dim=axis)
+
+
+def weighted_second_moment_matrix(data, w):
+    """E[w_i X_i^T X_i] with per-sample weights w of shape (N,)."""
+    return second_moment_matrix(data, w)
+
+
+def covariance_matrix(data):
+    """E[(X - m)^T (X - m)] of data (N, P), m the sample mean."""
+    return second_moment_matrix(data - data.mean(dim=0, keepdim=True))
+
+
 def second_moment_matrix(data, w=None, n=None):
     """E[w_i X_i^T X_i] for data of shape (N, P), with optional per-sample
     weights w (N,): the Gram contraction of the TDVP step. ``n``: the

@@ -41,6 +41,7 @@ from ..kernels import metropolis as mkernel
 from ..models import latent as latent_mod
 from ..parallel import mesh
 from ..parallel.mesh import ParallelCtx
+from ..utils.dtypes import device_constant
 
 
 # The ML-fluid paper's compactly supported cosine bump for x of shape
@@ -59,8 +60,11 @@ def radial_proposal(gen: torch.Generator, n_chains: int, dim: int, mcmc_info,
     d = torch.randn((n_chains, dim), generator=gen, dtype=dtype,
                     device=gen.device)
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    off = torch.as_tensor(np.asarray(mcmc_info["offset"]), dtype=dtype,
-                          device=gen.device)
+    # made once per device (a host copy would wait for the device, and
+    # cannot be captured into a CUDA graph)
+    off = device_constant(
+        tuple(float(o) for o in np.asarray(mcmc_info["offset"]).reshape(-1)),
+        gen.device, dtype)
     return r * d + off
 
 
@@ -270,6 +274,14 @@ class Sampler:
                 _, self._states, _ = self.make_chain_fn()(
                     gen, self._states, self.chain_rw_scale(), self.burn_in)
         return self._states
+
+    def chain_state(self):
+        """This rank's current chain state (None before the first use)."""
+        return self._states
+
+    def set_chain_state(self, states) -> None:
+        """Carry on from ``states`` (a batched step's chains)."""
+        self._states = states
 
     def note_fused_acceptance(self, new_states, n_accepted, n_proposed):
         """Absorb a right-hand side's chain: store the carried state and

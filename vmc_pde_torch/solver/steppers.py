@@ -18,7 +18,9 @@ NaN flag is OR-ed over every stage; stage keys are intStep = 5 * attempt
 clamps one step only: the steppers keep the uncapped dt.
 
 Each adaptive attempt reads its error on the host (``float(err)``): one
-device synchronization per attempt, which decides accept or retry.
+device synchronization per attempt, which decides accept or retry. The
+batched steps (TDVP.adaptive_multi) keep that loop and the controller on
+the device instead.
 """
 
 from __future__ import annotations
@@ -116,14 +118,18 @@ class AdaptiveHeun:
         dy1 = dy1 + 0.25 * dt * (k01 + k11)
         return dy1, dy1 - dy0, _fold_nan(info, (i1, i2, i3, i4))
 
-    def step(self, t, f, y, key, normFunction=None, dt_cap=None):
+    def step(self, t, f, y, key, normFunction=None, dt_cap=None,
+             first_attempt=0, counts=None):
+        """One step. ``first_attempt``, ``counts``: go on with a step
+        whose first attempts ran elsewhere (TDVP.adaptive_multi's host
+        finish): the attempt index to start from and their summed
+        Metropolis counts (accepted, proposed)."""
         if normFunction is None:
             normFunction = lambda v, S: torch.linalg.norm(v)  # noqa: E731
 
         fe = 0.5
         dt = self.dt if dt_cap is None else min(self.dt, float(dt_cap))
-        attempt = 0
-        counts = None
+        attempt = first_attempt
         while fe < 1.0:
             if self.attempt_fn is not None:
                 dy, err, info = self.attempt_fn(y, t, dt, key,

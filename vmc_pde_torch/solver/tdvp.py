@@ -65,6 +65,16 @@ cg, minsr and the host solve run on either route (cg and minsr always
 take GSPMD): CG's matvecs reduce over the dp group, minSR gathers the
 centered rows (direct) or broadcasts each chunk's block (streaming), and
 the host solve runs on the coordinator, which broadcasts the update.
+
+Batches of steps (``heun_multi``, ``adaptive_multi``, the JAX package's
+multi-step dispatch): on one CUDA device each step of a batch replays a
+captured CUDA graph of the step (solver/graphs.py), the adaptive retries
+as conditional nodes; elsewhere (``graphs_available``) the same step
+functions run eagerly (``graphs_refusal`` says why). The top-k Ritz
+matrix's eigensolve is the Jacobi kernel on the card (kernels/jacobi.py;
+a spectrum_topk too large for it is refused on a CUDA device), whose
+solve waits for nothing on the host; so is the P-space spectral solve
+where P fits the kernel, torch.linalg.eigh above that.
 """
 
 from __future__ import annotations
@@ -78,12 +88,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels import persample, quant8, syrk
+from ..kernels import jacobi, persample, quant8, syrk
 from ..models.state import VarState
 from ..ops import score
 from ..ops.evolution import Equation
 from ..parallel import mesh, stats
 from ..utils.dtypes import Precision, full_f32_matmuls
+from . import graphs
 
 _MASK63 = (1 << 63) - 1
 
@@ -240,8 +251,9 @@ def _lambda_max(S, n_iter: int = 12):
 
 def _randomized_topk_eigh(S, k: int, gen: torch.Generator, n_iter: int = 2):
     """Top-k eigenpairs of symmetric PSD S by randomized subspace
-    iteration (Halko-Martinsson-Tropp) and a Rayleigh-Ritz eigh. Returns
-    (ev (k,), V (P, k)) in ascending order of ev."""
+    iteration (Halko-Martinsson-Tropp) and a Rayleigh-Ritz eigh (the
+    Jacobi kernel on the card: no host wait). Returns (ev (k,), V (P, k))
+    in ascending order of ev."""
     P = S.shape[0]
     k_eff = min(k + 8, P)
     Om = torch.randn((P, k_eff), generator=gen, dtype=S.dtype,
@@ -252,7 +264,7 @@ def _randomized_topk_eigh(S, k: int, gen: torch.Generator, n_iter: int = 2):
         Y = S @ Q
     Q, _ = torch.linalg.qr(Y)
     B = Q.T @ (S @ Q)
-    ev, U = torch.linalg.eigh(0.5 * (B + B.T))
+    ev, U = jacobi.eigh(0.5 * (B + B.T))
     V = Q @ U
     return ev[-k:], V[:, -k:]
 
@@ -457,6 +469,30 @@ def _chunk_pieces(n_loc: int, shard: int, c: int):
             for k in range(base // c, -(-(base + n_loc) // c))]
 
 
+def _batch_row(aux):
+    """The recorded part of a step's aux: without the update, the SExp
+    matrix and the internal "_" entries."""
+    return {k: v for k, v in aux.items()
+            if not k.startswith("_") and k not in ("update", "SExp")}
+
+
+def _copy_row(out):
+    """A copy of a replay's outputs (nested dicts of tensors), off the
+    program's static buffers."""
+    if isinstance(out, dict):
+        return {k: _copy_row(v) for k, v in out.items()}
+    return out.clone() if isinstance(out, torch.Tensor) else out
+
+
+def _stack_rows(rows):
+    """Per-step rows -> {key: (K, ...) stack}; Python numbers become a
+    CPU tensor."""
+    return {k: (torch.stack([r[k] for r in rows])
+                if isinstance(rows[0][k], torch.Tensor)
+                else torch.tensor([r[k] for r in rows]))
+            for k in rows[0]}
+
+
 class TDVP:
     """Fused TDVP right-hand side on one device, or on one rank of a mesh.
 
@@ -590,6 +626,27 @@ class TDVP:
                         and cfg.spectrum_topk > 0)
             cfg = dataclasses.replace(cfg, compute_snr=keep_snr)
         self.cfg = cfg
+
+        # The small eigensolves on a CUDA device, chosen here once. The
+        # top-k Ritz matrix (order k + 8) goes to the Jacobi kernel, which
+        # waits for nothing on the host; one it cannot take is refused.
+        # The P-space spectral solve (method eigh) takes the kernel where P
+        # fits it and torch.linalg.eigh above that (a host wait: such a
+        # TDVP runs its batches eagerly, graphs_refusal).
+        sdt = self.precision.solve
+        on_card = self.device.type == "cuda"
+        if (on_card and method == "cholesky" and cfg.solve_on_device
+                and cfg.spectrum_topk > 0):
+            order = min(cfg.spectrum_topk + 8, self.n_params)
+            if not jacobi.fits(order, sdt):
+                raise ValueError(
+                    f"spectrum_topk={cfg.spectrum_topk}: the Ritz matrix of "
+                    f"order {order} is larger than the Jacobi eigensolve "
+                    f"kernel takes in {sdt} (kernels/jacobi.fits); lower "
+                    f"spectrum_topk")
+        self._spectral_eigh = (
+            jacobi.eigh if not on_card or jacobi.fits(self.n_params, sdt)
+            else torch.linalg.eigh)
 
         # torch has no x64 switch to forget, so the JAX package's "needs
         # x64" refusal of f64/f64acc has no counterpart here
@@ -758,11 +815,37 @@ class TDVP:
         self.SExp = None
         # the last rhs() stage's (theta, x, logp, log_w, O) for sexp_norm
         self._sexp_ctx = None
+        # the captured batched steps (solver/graphs.py), by kind and shape;
+        # the program being captured and its random-walk scale buffer
+        self._programs = {}
+        self._program = None
+        self._graph_rw = None
+        # adaptive batch slots that needed more than max_graph_attempts
+        # attempts and finished on the host
+        self.host_finished = 0
 
     def _gen(self, key: int) -> torch.Generator:
+        """The generator of the draws keyed by ``key``: a fresh one seeded
+        with it, or, while a step is captured, the program's generator of
+        that draw site (solver/graphs.py)."""
+        if self._program is not None:
+            return self._program.generator(key)
         g = torch.Generator(device=self.device)
         g.manual_seed(key)
         return g
+
+    def _fold(self, key: int, i: int) -> int:
+        """fold_in(key, i), recorded by the program being captured."""
+        if self._program is not None:
+            return self._program.fold(key, i)
+        return fold_in(key, i)
+
+    def _rw_scale(self):
+        """The chain's random-walk scale: the sampler's, or inside a
+        captured step the program's device copy of it (set per batch)."""
+        if self._program is not None and self._graph_rw is not None:
+            return self._graph_rw
+        return self.sampler.chain_rw_scale()
 
     # ------------------------------------------------------------------
     def _per_sample_batch(self, theta_c, x, t):
@@ -1249,14 +1332,15 @@ class TDVP:
         cfg = self.cfg
         ctx = self.ctx
         params = self._unravel(theta_c)
-        k_sample, k_obs, k_int, k_spec = (fold_in(key, i) for i in range(4))
+        k_sample, k_obs, k_int, k_spec = (self._fold(key, i)
+                                          for i in range(4))
         z = z_ext
         mcmc = None
         log_w = None
         if z is None and chain_state is not None:
             sweeps = self.n_samples // self.sampler.n_chains
             z, cs, acc = self._chain_fn(self._gen(k_sample), chain_state,
-                                        self.sampler.chain_rw_scale(),
+                                        self._rw_scale(),
                                         sweeps)
             n = sweeps * self.sampler.n_chains
             mcmc = dict(state=cs, acc=acc, prop=n)
@@ -1290,7 +1374,7 @@ class TDVP:
                     sweeps = self.n_samples_obs // self.sampler.n_chains
                     z_o, mcmc["state"], acc = self._chain_fn(
                         self._gen(k_obs), mcmc["state"],
-                        self.sampler.chain_rw_scale(), sweeps)
+                        self._rw_scale(), sweeps)
                     mcmc["acc"] = mcmc["acc"] + acc
                     mcmc["prop"] += sweeps * self.sampler.n_chains
                     z_o = z_o.to(theta_c.dtype)
@@ -1375,7 +1459,8 @@ class TDVP:
         A_s = None if st["A"] is None else st["A"].to(sdt)
         aux = {}
         if self.solver_method == "eigh":
-            update, ev, snr, _ = _solve_regularized(S_s, F_s, cfg, n, A=A_s)
+            update, ev, snr, _ = _solve_regularized(
+                S_s, F_s, cfg, n, A=A_s, eigh=self._spectral_eigh)
             aux["ev"] = ev
             aux["snr"] = snr if snr is not None else torch.zeros_like(ev)
         else:
@@ -1712,7 +1797,7 @@ class TDVP:
 
         def stage(i, theta_c, t):
             last = i == n_stages - 1
-            aux = self._rhs_impl(theta_c, t, fold_in(key, off + i), zs[i],
+            aux = self._rhs_impl(theta_c, t, self._fold(key, off + i), zs[i],
                                  i == 0, out["cs"], stash_sexp=last)
             cs = aux.pop("_chain_state", None)
             if i == 0:
@@ -1837,6 +1922,398 @@ class TDVP:
         """(dy master, err, aux) for a whole Bogacki-Shampine attempt."""
         return self._fused(self._rk23_attempt_impl, theta, key, t, dt, key,
                            5 * attempt, z_ext=z_ext)
+
+    # ------------------------------------------------------------------
+    # Multi-step dispatch: a batch of K steps per call, the JAX package's
+    # heun_multi / adaptive_multi (vmc_pde_tpu/solver/tdvp.py:2305-2584).
+    # On one CUDA device each step of a batch replays a captured program
+    # (solver/graphs.py): one host read per batch. On the CPU, on a mesh
+    # and on the paths of graphs_available's list the same step functions
+    # run eagerly: the plain version.
+    # ------------------------------------------------------------------
+    # the adaptive attempts a captured step holds (one IF node each); a
+    # step that needs more finishes on the host after its batch
+    max_graph_attempts = 4
+
+    @property
+    def graphs_refusal(self):
+        """Why the batched steps run eagerly, or None where they replay
+        CUDA graphs: one CUDA device and the device solve by eigh or
+        cholesky, with no eigensolve that waits for the host."""
+        if self.device.type != "cuda":
+            return f"the device is {self.device.type}"
+        if self.mesh_ctx.world > 1:
+            return "a mesh (its collectives wait for the host)"
+        if not self.cfg.solve_on_device:
+            return "the host solve"
+        if self.solver_method not in ("eigh", "cholesky"):
+            return (f"solver_method={self.solver_method!r} (cg reads its "
+                    f"flag every CG_CHECK_EVERY iterations; minsr)")
+        if (self.solver_method == "eigh"
+                and self._spectral_eigh is not jacobi.eigh):
+            return (f"the spectral solve of P={self.n_params} by "
+                    f"torch.linalg.eigh (above the Jacobi kernel's size)")
+        return None
+
+    @property
+    def graphs_available(self) -> bool:
+        """Whether the batched steps replay CUDA graphs (graphs_refusal)."""
+        return self.graphs_refusal is None
+
+    def release_graphs(self) -> None:
+        """Free every captured program and its memory pools."""
+        for prog in self._programs.values():
+            prog.release()
+        self._programs.clear()
+
+    def _capture(self, prog, fn, root):
+        self._program = prog
+        try:
+            prog.capture(fn, root)
+        finally:
+            self._program = None
+
+    def _set_graph_rw(self):
+        """The random-walk scale of this batch into the programs' device
+        buffer (the scale adapts between batches, as in the JAX package)."""
+        rw = self.sampler.chain_rw_scale() if self._mcmc else None
+        if rw is None:
+            return
+        if self._graph_rw is None:
+            self._graph_rw = torch.zeros((), dtype=torch.float64,
+                                         device=self.device)
+        if isinstance(rw, torch.Tensor):
+            self._graph_rw.copy_(rw)
+        else:
+            self._graph_rw.fill_(float(rw))
+
+    def _fixed_step(self, kind, theta, t, dt, key, cs):
+        """One fixed step of a batch from the master theta: (theta', chain
+        state', the step's aux with dist_params of theta'). t and dt are
+        floats, or 0-dim f64 device tensors inside a captured step."""
+        impl = self._rk3_triple_impl if kind == "rk3" else self._heun_pair_impl
+        compute = self.precision.compute
+        dy, aux = impl(theta.to(compute), t, dt, key, chain_state=cs)
+        cs = aux.pop("_chain_state", cs)
+        theta = theta + dy.to(self.precision.master)
+        aux = _batch_row(aux)
+        aux["dist_params"] = self._unravel(
+            theta.to(compute))["latent"]["dist_params"]
+        return theta, cs, aux
+
+    def _fixed_program(self, kind, theta, cs, root):
+        """The captured fixed step (kind "heun" or "rk3") on static
+        buffers: theta (master), sc = (t, dt) in f64, the chain state."""
+        name = ("multi", kind)
+        if name in self._programs:
+            return self._programs[name]
+        buf = dict(theta=theta.clone(),
+                   sc=torch.zeros(2, dtype=torch.float64, device=self.device),
+                   cs=None if cs is None else cs.clone())
+
+        def step(key):
+            th, c, aux = self._fixed_step(kind, buf["theta"], buf["sc"][0],
+                                          buf["sc"][1], key, buf["cs"])
+            buf["theta"].copy_(th)
+            if c is not None:
+                buf["cs"].copy_(c)
+            return aux
+
+        prog = graphs.Program(self.device, fold_in)
+        prog.buffers = buf
+        self._set_graph_rw()
+        self._capture(prog, step, root)
+        self._programs[name] = prog
+        return prog
+
+    def heun_multi(self, theta, ts, dts, keys, kind: str = "heun"):
+        """Run ``len(ts)`` fixed steps (kind "heun": the Heun pair, "rk3":
+        the SSPRK3 triple) with the per-step keys ``keys`` (the driver's
+        fold_in(sample_seed + 7, n_step)). Returns (theta master, the
+        stacked aux rows), each row with the post-step dist_params. The
+        per-call diagnostic attributes (ev, snr, ...) are not updated, as
+        in the JAX package. On one CUDA device every step is a replay of
+        the captured step; the steps are those of heun_pair / rk3_triple
+        bit for bit."""
+        if not self.fused_steps_available:
+            raise ValueError("heun_multi needs the on-device solve "
+                             "(TDVP.fused_steps_available)")
+        if kind not in ("heun", "rk3"):
+            raise ValueError(f"unknown fixed kind {kind!r}")
+        theta = theta.to(self.precision.master)
+        cs = self._chain_inputs(keys[0])
+        rows = []
+        if self.graphs_available:
+            prog = self._fixed_program(kind, theta, cs, keys[0])
+            buf = prog.buffers
+            buf["theta"].copy_(theta)
+            if cs is not None:
+                buf["cs"].copy_(cs)
+            self._set_graph_rw()
+            for t, dt, key in zip(ts, dts, keys):
+                buf["sc"][0].fill_(float(t))
+                buf["sc"][1].fill_(float(dt))
+                prog.replay(key)
+                rows.append(_copy_row(prog.outputs))
+            theta = buf["theta"].clone()
+            cs = None if cs is None else buf["cs"].clone()
+        else:
+            for t, dt, key in zip(ts, dts, keys):
+                theta, cs, aux = self._fixed_step(kind, theta, float(t),
+                                                  float(dt), key, cs)
+                rows.append(aux)
+        auxs = _stack_rows(rows)
+        self._absorb_rows(cs, auxs)
+        return theta, auxs
+
+    def _absorb_rows(self, cs, auxs, n=None):
+        """A batch's chain state and its first ``n`` rows' counts to the
+        sampler (the rw scale adapts there, between batches)."""
+        if cs is None:
+            return
+        acc, prop = auxs["mcmc_accepted"][:n], auxs["mcmc_proposed"][:n]
+        self.sampler.note_fused_acceptance(cs, acc.sum(), int(prop.sum()))
+
+    def _adaptive_slot(self, kind, buf, key, branch, n_attempts, t_end,
+                       t_eps, tol, max_step, exact):
+        """One slot of an adaptive batch on device tensors: the JAX
+        package's step_body of _adaptive_multi_impl. buf holds theta
+        (master), st = (t, dt_sugg, dt_prev) in f64, ``halted`` and the
+        chain state, all updated in place. Up to ``n_attempts`` attempts,
+        each under ``branch(need, attempt)`` (an IF node in the captured
+        step, eager_if otherwise), with the controller in f64: fe = tol /
+        err (inf at err <= 0), dt scale clamp(0.9 fe^(1/3), 0.2, 2), the
+        max_step cap, the uncapped suggestion carried, ``exact`` clamping
+        each attempt at t_end - t; attempt a draws with offset 5 a. A slot
+        is active while the driver's loop condition holds and no earlier
+        slot of the batch is halted; a slot whose last attempt still fails
+        halts the batch (``overflow``) and is finished on the host.
+        Returns the slot's outputs, rows of an inactive slot zero."""
+        master, compute = self.precision.master, self.precision.compute
+        impl = (self._rk23_attempt_impl if kind == "rk23"
+                else self._heun_attempt_impl)
+        st = buf["st"]
+        t, dt_sugg, dt_prev = st[0], st[1], st[2]
+        active = ((t < t_end - t_eps) if exact else (t < t_end + dt_prev))
+        active = active & ~buf["halted"]
+        cap = t_end - t
+        dt = torch.minimum(dt_sugg, cap) if exact else dt_sugg.clone()
+        need = active.clone()
+        dev = buf["theta"].device
+        c = dict(dy=torch.zeros(self.n_params, dtype=compute, device=dev),
+                 real_dt=dt.clone(), dt_free=dt.clone(),
+                 err=torch.zeros((), dtype=master, device=dev),
+                 attempts=torch.zeros((), dtype=torch.int64, device=dev),
+                 acc=torch.zeros((), dtype=torch.int64, device=dev),
+                 cs=None if buf["cs"] is None else buf["cs"].clone())
+        theta_c = buf["theta"].to(compute)
+
+        def attempt(a):
+            dy, err, aux = impl(theta_c, t, dt, key, 5 * a,
+                                chain_state=c["cs"])
+            cs = aux.pop("_chain_state", None)
+            errm = err.to(master)
+            fe = torch.where(errm > 0.0, tol / errm,
+                             torch.full_like(errm, math.inf))
+            scale = torch.clamp(0.9 * fe ** (1.0 / 3.0), 0.2, 2.0)
+            dt_free = torch.clamp_max(dt * scale, max_step)
+            dt_next = torch.minimum(dt_free, cap) if exact else dt_free
+            c["dy"].copy_(dy)
+            c["real_dt"].copy_(dt)
+            c["dt_free"].copy_(dt_free)
+            c["err"].copy_(errm)
+            c["attempts"].add_(1)
+            row = _batch_row(aux)
+            if cs is not None:
+                c["cs"].copy_(cs)
+                c["acc"].add_(row.pop("mcmc_accepted"))
+                # a constant of the step: the host multiplies it by the
+                # attempts after the batch
+                buf["proposed"] = row.pop("mcmc_proposed")
+            if buf["aux"] is None:
+                buf["aux"] = {k: v.clone() for k, v in row.items()}
+            else:
+                for k, v in buf["aux"].items():
+                    v.copy_(row[k])
+            dt.copy_(dt_next)
+            need.copy_(fe < 1.0)
+
+        for a in range(n_attempts):
+            branch(need, functools.partial(attempt, a))
+        if buf["aux"] is None:
+            raise RuntimeError("an adaptive batch whose first slot is not "
+                               "active")
+        done = active & ~need
+        theta_new = buf["theta"] + c["dy"].to(master)
+        zero = torch.zeros((), dtype=master, device=dev)
+
+        def masked(v):
+            return torch.where(done, v, torch.zeros_like(v))
+
+        rows = {k: masked(v) for k, v in buf["aux"].items()}
+        if c["cs"] is not None:
+            rows["mcmc_accepted"] = masked(c["acc"])
+        rows["attempts"] = masked(c["attempts"])
+        rows["step_error"] = masked(c["err"])
+        rows["dist_params"] = masked(self._unravel(
+            theta_new.to(compute))["latent"]["dist_params"])
+        out = dict(aux=rows, t_at=t.clone(),
+                   dt_used=torch.where(done, c["real_dt"], zero),
+                   active=done, overflow=need.clone(), dt_next=dt,
+                   attempts=c["attempts"], acc=c["acc"], cs=c["cs"])
+        st_new = torch.stack([
+            torch.where(done, t + c["real_dt"], t),
+            torch.where(done, c["dt_free"], dt_sugg),
+            torch.where(done, c["real_dt"], dt_prev)])
+        buf["theta"].copy_(torch.where(done, theta_new, buf["theta"]))
+        st.copy_(st_new)
+        buf["halted"].copy_(buf["halted"] | need)
+        if c["cs"] is not None:
+            buf["cs"].copy_(c["cs"])
+        return out
+
+    def _adaptive_buffers(self, theta, cs):
+        """An adaptive batch's state: theta (master), st = (t, dt_sugg,
+        dt_prev) in f64, the halt flag, the chain state, and the rows'
+        carry, made by the first attempt."""
+        dev = self.device
+        return dict(theta=theta.clone(),
+                    st=torch.zeros(3, dtype=torch.float64, device=dev),
+                    halted=torch.zeros((), dtype=torch.bool, device=dev),
+                    cs=None if cs is None else cs.clone(), aux=None,
+                    proposed=0)
+
+    @staticmethod
+    def _start_batch(buf, theta, t, dt_sugg, dt_prev, cs):
+        """A batch's inputs into its buffers, with device ops only."""
+        buf["theta"].copy_(theta)
+        for i, v in enumerate((t, dt_sugg, dt_prev)):
+            buf["st"][i].fill_(float(v))
+        buf["halted"].zero_()
+        if cs is not None:
+            buf["cs"].copy_(cs)
+
+    def adaptive_multi(self, theta, t, dt_sugg, dt_prev, keys, t_end, t_eps,
+                       tol, max_step, kind: str = "heun",
+                       exact: bool = False):
+        """Up to ``len(keys)`` adaptive steps (kind "heun" or "rk23") with
+        the retry loop and the dt controller on the device. ``dt_sugg``:
+        the stepper's carried (uncapped) dt; ``dt_prev``: the last step's
+        dt_used (the loop condition's dt). Returns (theta_f master, t_f,
+        dt_sugg_f, dt_prev_f as floats, outs) with outs = {"aux": the
+        stacked rows (dist_params, attempts, step_error and the summed
+        Metropolis counts added; no SExp), "t_at", "dt_used", "attempts",
+        "active", "nan" (whether a row's update is NaN, a bool)}: rows
+        past the first inactive slot are zero. One host read per batch
+        (the flags, the NaN flag and the final times); a slot that needs
+        more than max_graph_attempts attempts finishes on the host after
+        it (``host_finished`` counts them) and ends the batch."""
+        if not self.fused_steps_available:
+            raise ValueError("adaptive_multi needs the on-device solve "
+                             "(TDVP.fused_steps_available)")
+        if kind not in ("heun", "rk23"):
+            raise ValueError(f"unknown adaptive kind {kind!r}")
+        master = self.precision.master
+        theta = theta.to(master)
+        cs = self._chain_inputs(keys[0])
+        A = self.max_graph_attempts
+        consts = (float(t_end), float(t_eps), float(tol), float(max_step),
+                  bool(exact))
+        K = len(keys)
+        if self.graphs_available:
+            name = ("amulti", kind, A) + consts
+            prog = self._programs.get(name)
+            if prog is None:
+                buf = self._adaptive_buffers(theta, cs)
+                self._start_batch(buf, theta, t, dt_sugg, dt_prev, cs)
+                prog = graphs.Program(self.device, fold_in, bodies=True)
+                prog.buffers = buf
+                self._set_graph_rw()
+                self._capture(prog, lambda key: self._adaptive_slot(
+                    kind, buf, key, prog.run_if, A, *consts), keys[0])
+                self._programs[name] = prog
+            buf = prog.buffers
+            self._start_batch(buf, theta, t, dt_sugg, dt_prev, cs)
+            self._set_graph_rw()
+            outs = []
+            for key in keys:
+                prog.replay(key)
+                outs.append(_copy_row(prog.outputs))
+        else:
+            buf = self._adaptive_buffers(theta, cs)
+            self._start_batch(buf, theta, t, dt_sugg, dt_prev, cs)
+            outs = [self._adaptive_slot(kind, buf, key, graphs.eager_if, A,
+                                        *consts) for key in keys]
+        # the batch's one host read: which slots ran or halted, where the
+        # batch ended, the attempts, and whether a row holds a NaN update
+        flags = torch.cat([torch.stack([o["active"] for o in outs]),
+                           torch.stack([o["overflow"] for o in outs]),
+                           torch.stack([o["aux"]["nan"] for o in outs])
+                           .any()[None]])
+        host = torch.cat([flags.to(torch.float64), buf["st"],
+                          torch.stack([o["attempts"] for o in outs])
+                          .to(torch.float64)]).tolist()
+        active = [bool(v) for v in host[:K]]
+        overflow = [bool(v) for v in host[K:2 * K]]
+        nan = bool(host[2 * K])
+        t_f, dt_sugg_f, dt_prev_f = host[2 * K + 1:2 * K + 4]
+        attempts = [int(v) for v in host[2 * K + 4:]]
+        theta_f = buf["theta"].clone()
+        cs_f = None if cs is None else buf["cs"].clone()
+        rows = [o["aux"] for o in outs]
+        dt_used = [o["dt_used"] for o in outs]
+        if cs is not None:
+            for row, n in zip(rows, attempts):
+                row["mcmc_proposed"] = n * buf["proposed"]
+        if True in overflow:
+            i = overflow.index(True)
+            theta_f, cs_f, rows[i], (t_f, dt_sugg_f, dt_prev_f) = \
+                self._finish_on_host(kind, outs[i], theta_f, keys[i], t_f,
+                                     t_end, tol, max_step, exact, A,
+                                     buf["proposed"])
+            dt_used[i] = torch.full((), dt_prev_f, dtype=master,
+                                    device=self.device)
+            active[i] = True
+            nan = nan or bool(rows[i]["nan"])
+        stacked = _stack_rows(rows)
+        self._absorb_rows(cs_f, stacked, sum(active))
+        out = {"aux": stacked, "t_at": torch.stack([o["t_at"] for o in outs]),
+               "dt_used": torch.stack(dt_used),
+               "attempts": stacked["attempts"],
+               "active": torch.tensor(active), "nan": nan}
+        return theta_f, t_f, dt_sugg_f, dt_prev_f, out
+
+    def _finish_on_host(self, kind, out, theta, key, t, t_end, tol,
+                        max_step, exact, first, proposed):
+        """The rest of a slot whose ``first`` captured attempts all failed:
+        the host's retry loop (steppers.AdaptiveHeun) from attempt
+        ``first`` at the device controller's next dt, with the chain state
+        and counts the attempts left (``proposed`` per attempt). Returns
+        (theta', chain state', the row, (t', dt_sugg', dt_prev'))."""
+        from .steppers import AdaptiveHeun, AdaptiveRK23
+
+        self.host_finished += 1
+        cls = AdaptiveRK23 if kind == "rk23" else AdaptiveHeun
+        fn = self.rk23_attempt if kind == "rk23" else self.heun_attempt
+        stepper = cls(timeStep=float(out["dt_next"]), tol=tol,
+                      maxStep=max_step, attempt_fn=fn)
+        counts = None
+        if out["cs"] is not None:
+            self.sampler.set_chain_state(out["cs"])
+            counts = (out["acc"], first * proposed)
+        res = stepper.step(t, None, theta, key,
+                           dt_cap=t_end - t if exact else None,
+                           first_attempt=first, counts=counts)
+        info = _batch_row(res.info)
+        dev, master = self.device, self.precision.master
+        info["step_error"] = torch.full((), info["step_error"],
+                                        dtype=master, device=dev)
+        info["attempts"] = torch.full((), info["attempts"],
+                                      dtype=torch.int64, device=dev)
+        info["dist_params"] = self._unravel(res.y.to(
+            self.precision.compute))["latent"]["dist_params"]
+        cs = self.sampler.chain_state() if out["cs"] is not None else None
+        return res.y, cs, info, (t + res.dt_used, stepper.dt, res.dt_used)
 
     # ------------------------------------------------------------------
     # The S metric of the adaptive steppers' error norm.

@@ -19,6 +19,15 @@ def _to_host(value):
     return value
 
 
+class _Block:
+    """Marker wrapper: ``value`` is a (K, ...) stack of K per-step rows."""
+
+    __slots__ = ("value",)
+
+    def __init__(self, value):
+        self.value = value
+
+
 class InfoRecorder:
     """Accumulates per-step diagnostics WITHOUT forcing device->host
     synchronization: values are stored as-is (device tensors stay device
@@ -31,10 +40,18 @@ class InfoRecorder:
     SKIP_KEYS = frozenset({"update", "SExp"})
 
     def __init__(self):
-        self.infos = {}  # key -> list of per-step rows
+        # key -> list of entries; an entry is one per-step row, or a
+        # (_Block-wrapped) stack of K rows from a batch of steps
+        self.infos = {}
 
     def append(self, key: str, value):
         self.infos.setdefault(key, []).append(value)
+
+    def append_block(self, key: str, value):
+        """Record a (K, ...) stack of K consecutive per-step rows at once
+        (a batch of steps, TDVP.heun_multi / adaptive_multi); stays lazy
+        like ``append``, the rows are split out by ``as_arrays``."""
+        self.infos.setdefault(key, []).append(_Block(value))
 
     def append_dict(self, d: dict):
         for k, v in d.items():
@@ -42,14 +59,23 @@ class InfoRecorder:
                 continue
             self.append(k, v)
 
+    def append_dict_block(self, d: dict):
+        for k, v in d.items():
+            if k.startswith("_") or k in self.SKIP_KEYS:
+                continue
+            self.append_block(k, v)
+
     def flush(self):
         """Materialize everything recorded so far to host numpy."""
-        self.infos = {k: [_to_host(e) for e in v]
+        self.infos = {k: [_Block(_to_host(e.value)) if isinstance(e, _Block)
+                          else _to_host(e) for e in v]
                       for k, v in self.infos.items()}
 
     def as_arrays(self):
         self.flush()
-        return {k: np.stack([np.asarray(e) for e in v])
+        return {k: np.concatenate([np.asarray(e.value)
+                                   if isinstance(e, _Block)
+                                   else np.asarray(e)[None] for e in v])
                 for k, v in self.infos.items()}
 
 
