@@ -271,9 +271,15 @@ c.phase_oracles()"``):
 
 48. (after phase 5) the Jacobi eigensolve kernel (csrc/jacobi.cu)
    against torch.linalg.eigh on the main path's own Ritz matrix (72 x 72
-   f32, caught from one fokkerPlanck32 RHS): eigenvalues against an f64
-   eigh within 64 n eps of its norm, V diag(w) V^T and V^T V, both timed,
-   the sweeps it took and its bound;
+   f32, caught from one fokkerPlanck32 RHS) and on the same matrix in
+   f64, in one block, and in its thread block cluster at orders 208 and
+   365 f32 and 256 f64: eigenvalues against an f64 eigh within 64 n eps
+   of the norm, V diag(w) V^T and V^T V - I within 1e-4 (f32) or 1e-12
+   (f64), both timed in turns (eigh, kernel, kernel, eigh), the kernel's
+   device ms, the sweeps and the bound; one fokkerPlanck32 step at
+   spectrum_topk=200 (2 cluster launches); the diffusion preset's eigh
+   solve (P=365) at --steps-per-dispatch 8 as a CUDA graph against K=1,
+   bit for bit, s/step both ways (as M1 below);
 49. (M1, after phase 25) ``--steps-per-dispatch 8`` on fokkerPlanck32 at
    N=16384 through ``driver.run`` against the K=1 run, theta and every
    recorded row bit for bit: fixed Heun, SSPRK3, and Heun with
@@ -364,9 +370,13 @@ KERNELS = {
     "metropolis_sharded": ("vmc_pde_torch/kernels/csrc/metropolis.cu",
                            "vmc_pde_tpu/kernels/metropolis.py:191"),
     # no Pallas kernel: the JAX package's jnp.linalg.eigh of the Ritz
-    # matrix, which XLA runs inside the step program
+    # matrix, which XLA runs inside the step program, in one block; and of
+    # the P-space spectral solve (the diffusion preset's P=365), in the
+    # thread block cluster
     "jacobi": ("vmc_pde_torch/kernels/csrc/jacobi.cu",
                "vmc_pde_tpu/solver/tdvp.py:308"),
+    "jacobi_cluster": ("vmc_pde_torch/kernels/csrc/jacobi.cu",
+                       "vmc_pde_tpu/solver/tdvp.py:241"),
 }
 WRAPPERS = {"persample": persample.per_sample_cuda,
             "persample_split": persample.per_sample_split_cuda,
@@ -729,10 +739,14 @@ def phase_quant8(split):
 def _zero_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    jacobi.eigh_cuda.cluster_launches = 0
 
 
 def _counts():
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """The wrappers' launches by kernel; jacobi_cluster: the Jacobi
+    wrapper's cluster launches."""
+    return {**{name: fn.launches for name, fn in WRAPPERS.items()},
+            "jacobi_cluster": jacobi.eigh_cuda.cluster_launches}
 
 
 def _drive(args, label, n_steps, dim=32, cfg=None, callbacks=(),
@@ -1364,7 +1378,8 @@ def _crn_entropy(n=65536, seed=123):
 def phase_diffusion():
     """Phase C: the d=8 Student-t diffusion preset through the CLI with
     the per-sample kernel (P=365: auto would leave it on torch), 20 steps:
-    exactly one plain-mode launch per RHS (direct statistics, the
+    exactly one plain-mode launch and one cluster Jacobi launch (the eigh
+    solve of P=365) per RHS (direct statistics, the
     observables on the same batch), no NaN, residual below 1e-3, the
     entropy on common random numbers rising every step; then 10 steps with
     --is-gamma 0.5 (one launch per RHS; observables resample without the
@@ -1374,9 +1389,10 @@ def phase_diffusion():
     _, arrays, counts = _drive(["diffusion", "--per-sample-backend", "cuda"],
                                "diffusion (d=8, Student-t) N=10000", n_steps,
                                dim=8, callbacks=[cb])
-    if counts["persample"] != 2 * n_steps:
-        fail(f"diffusion launched the per-sample kernel "
-             f"{counts['persample']} times, expected {2 * n_steps}")
+    if (counts["persample"] != 2 * n_steps
+            or counts["jacobi_cluster"] != 2 * n_steps):
+        fail(f"diffusion launched {counts}, expected {2 * n_steps} "
+             f"per-sample and cluster Jacobi kernels (one a RHS)")
     rise = np.diff(ent)
     nu = np.exp(arrays["dist_params"][:, 0]) + 1.0
     print(f"diffusion: f64 entropy on common random numbers (N=65536) "
@@ -1385,7 +1401,7 @@ def phase_diffusion():
           f"entropy {arrays['entropy'][0]:.5f} -> {arrays['entropy'][-1]:.5f}")
     if not (rise > 0).all():
         fail(f"diffusion entropy did not rise every step: {rise}")
-    launches = counts["persample"]
+    launches = counts["persample"], counts["jacobi_cluster"]
 
     n_is = 10
     _, arrays, counts = _drive(
@@ -4077,56 +4093,223 @@ def phase_sanity_plots_examples(dev, cloud):
     return out
 
 
+def _gram(n, dtype, dev):
+    """The Gram X X^T / 2n of an (n, 2n) standard normal X (seed n), in
+    ``dtype``: tools/time_jacobi.py's matrices."""
+    X = torch.randn(n, 2 * n, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(n))
+    return (X @ X.T / (2 * n)).to(dtype).to(dev)
+
+
+def _device_ms(fn, reps, keys):
+    """Device time per call of fn of the kernels whose names hold one of
+    ``keys``, in a trace of the device's activity over ``reps`` calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.duration_ns() for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and any(k in e.name() for k in keys)) / 1e6 / reps
+
+
+def _jacobi_vs_eigh(label, A, reps=20):
+    """The Jacobi kernel on A against torch.linalg.eigh: eigenvalues
+    against an f64 eigh within 64 n eps of A's norm, V diag(w) V^T and
+    V^T V - I within 1e-4 (f32) or 1e-12 (f64), ascending; the sweeps;
+    call ms of the kernel and of torch.linalg.eigh (its plain version and
+    the one PyTorch call that computes the same) in turns in this call
+    (eigh, kernel, kernel, eigh; CUDA events, means of ``reps`` calls),
+    the kernel's device ms (profiler); the bound: the function's own
+    work, whatever the algorithm (jacobi.flops: ~9 n^3), and the bytes of
+    A, w and V."""
+    n, dt = A.shape[0], A.dtype
+    cluster = jacobi.in_cluster(n, dt)
+    sweeps = torch.zeros(1, dtype=torch.int32, device=A.device)
+    w, V = jacobi.eigh_cuda(A, sweeps)
+    w64 = torch.linalg.eigh(A.double())[0]
+    nrm = float(torch.linalg.norm(A.double()))
+    err = float((w.double() - w64).abs().max())
+    recon = float(torch.linalg.norm(V @ torch.diag(w) @ V.T - A)) / nrm
+    orth = float((V.T @ V - torch.eye(n, dtype=dt, device=A.device))
+                 .abs().max())
+    tol = 64 * n * torch.finfo(dt).eps * nrm
+    gate = 1e-4 if dt == torch.float32 else 1e-12
+    kern = lambda: jacobi.eigh_cuda(A)  # noqa: E731
+    eig = lambda: torch.linalg.eigh(A)  # noqa: E731
+    e1, k1, k2, e2 = (_time_ms(fn, reps) for fn in (eig, kern, kern, eig))
+    n_sweeps = int(sweeps.item())
+    item = torch.empty((), dtype=dt).element_size()
+    bound, by = bounds.bound_ms(
+        item * (2 * n * n + n), jacobi.flops(n),
+        bounds.F32_FLOP_S if item == 4 else bounds.F64_FLOP_S)
+    kind = "the cluster" if cluster else "one block"
+    print(f"jacobi eigh n={n} {str(dt)[6:]} ({label}; {kind}): eigenvalues "
+          f"vs f64 eigh max abs err "
+          f"{err:.3e} (tol {tol:.3e}, |A| {nrm:.3e}), V diag(w) V^T rel "
+          f"{recon:.3e}, V^T V - I {orth:.3e} (gate {gate:g}), {n_sweeps} "
+          f"sweeps; in turns torch.linalg.eigh {e1:.4f}, kernel {k1:.4f} "
+          f"{k2:.4f}, torch.linalg.eigh {e2:.4f} ms; bound {bound:.5f} ms "
+          f"({by})")
+    if (err > tol or recon > gate or orth > gate
+            or not bool((w[1:] >= w[:-1]).all())):
+        fail(f"the Jacobi kernel disagrees with torch.linalg.eigh at n={n} "
+             f"{dt}")
+    ms, plain = (k1 + k2) / 2, (e1 + e2) / 2
+    return dict(max_abs_err=err, recon=recon, orth=orth, ms=ms,
+                ms_turns=[k1, k2], plain_ms=plain, eigh_ms_turns=[e1, e2],
+                bound_ms=bound, bound_by=by, library_ms=plain,
+                sweeps=n_sweeps, cluster=cluster)
+
+
 def phase_jacobi(dev):
-    """The Jacobi eigensolve kernel (csrc/jacobi.cu) against
-    torch.linalg.eigh on the main path's own input: the (72, 72) f32 Ritz
-    matrix of one fokkerPlanck32 RHS at N=16384, caught from that RHS's
-    call. Eigenvalues against an f64 eigh within 64 n eps_f32 of the
-    matrix's norm, the vectors by V diag(w) V^T and V^T V; the kernel and
-    torch.linalg.eigh (its plain version, and the one PyTorch call that
-    computes the same) timed with CUDA events; the bound counts the
-    flops of the sweeps this input took (18 m per pair and round, m/2
-    pairs, m - 1 rounds a sweep)."""
+    """Phase 48: the Jacobi eigensolve kernel (csrc/jacobi.cu) against
+    torch.linalg.eigh (_jacobi_vs_eigh) on the main path's own input, the
+    (72, 72) f32 Ritz matrix of one fokkerPlanck32 RHS at N=16384 caught
+    from that RHS's call, and on the same matrix in f64; the cluster at
+    orders 208 and 365 f32 (the diffusion preset's P) and 256 f64; one
+    fokkerPlanck32 step at spectrum_topk=200 (a Ritz matrix of order 208:
+    2 cluster launches); the kernel's device ms from a child process
+    (_jacobi_device_ms); the diffusion graph after phase M
+    (phase_jacobi_traced). Returns the one-block and the cluster
+    records."""
+    t_phase = time.perf_counter()
+    lib = build.library("jacobi")
+    for dt, f64 in ((torch.float32, 0), (torch.float64, 1)):
+        got = (lib.jacobi_reach(f64, 0), lib.jacobi_reach(f64, 1))
+        if got != (jacobi.ONE_BLOCK_REACH[dt], jacobi.REACH[dt]):
+            fail(f"jacobi: the library's reach {got} in {dt} is not the "
+                 f"wrapper's, which routes by it")
     caught = []
-    orig, eigh = jacobi.eigh_cuda, jacobi.eigh
+    eigh = jacobi.eigh
 
     def catch(A):
         caught.append(A.clone())
         return eigh(A)
 
-    state, tdvp = driver.build_problem(preset("fokkerPlanck32",
-                                              device="cuda"))[:2]
+    # the TDVP takes its eigensolve when it is built
     jacobi.eigh = catch
     try:
+        state, tdvp = driver.build_problem(preset("fokkerPlanck32",
+                                                  device="cuda"))[:2]
         tdvp.rhs(state.get_parameters(), 0.0, 11)
     finally:
         jacobi.eigh = eigh
     B = caught[0]
-    n = B.shape[0]
-    sweeps = torch.zeros(1, dtype=torch.int32, device=dev)
-    w, V = orig(B, sweeps)
-    w64 = torch.linalg.eigh(B.double())[0]
-    nrm = float(torch.linalg.norm(B.double()))
-    err = float((w.double() - w64).abs().max())
-    recon = float(torch.linalg.norm(V @ torch.diag(w) @ V.T - B)) / nrm
-    orth = float((V.T @ V - torch.eye(n, device=dev)).abs().max())
-    tol = 64 * n * torch.finfo(torch.float32).eps * nrm
-    ms = _time_ms(lambda: orig(B), 50)
-    plain_ms = _time_ms(lambda: torch.linalg.eigh(B), 50)
-    m = n + (n & 1)
-    n_sweeps = int(sweeps.item())
-    bound, by = bounds.bound_ms(4 * (2 * n * n + n),
-                                n_sweeps * (m - 1) * 9 * m * m)
-    print(f"jacobi eigh n={n} f32 (the main path's Ritz matrix): "
-          f"eigenvalues vs f64 eigh max abs err {err:.3e} (tol {tol:.3e}, "
-          f"|B| {nrm:.3e}), V diag(w) V^T rel {recon:.3e}, V^T V - I "
-          f"{orth:.3e}, {n_sweeps} sweeps; {ms:.4f} ms against "
-          f"torch.linalg.eigh {plain_ms:.4f} ms, bound {bound:.5f} ms "
-          f"({by})")
-    if err > tol or recon > 1e-4 or orth > 1e-4:
-        fail("the Jacobi kernel disagrees with torch.linalg.eigh")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=plain_ms, sweeps=n_sweeps)
+    one = _jacobi_vs_eigh("the main path's Ritz matrix", B)
+    one["f64"] = _jacobi_vs_eigh("the same matrix in f64", B.double())
+    if one["ms_turns"][1] >= min(one["eigh_ms_turns"]):
+        print(f"jacobi: the kernel ({one['ms']:.4f} ms) is not under "
+              f"torch.linalg.eigh ({one['plain_ms']:.4f} ms) at n="
+              f"{B.shape[0]}")
+    mats = {f"n={n} {str(dt)[6:]}": _gram(n, dt, dev) for n, dt in (
+        (208, torch.float32), (365, torch.float32), (256, torch.float64))}
+    orders = {key: _jacobi_vs_eigh("a random Gram", A)
+              for key, A in mats.items()}
+    dev_ms = _jacobi_device_ms({"f32": B, "f64": B.double(), **mats})
+    one["device_ms"], one["f64"]["device_ms"] = dev_ms["f32"], dev_ms["f64"]
+    for key, rec in orders.items():
+        rec["device_ms"] = dev_ms[key]
+    print(f"jacobi eigh: the kernel's device ms (profiler, a child "
+          f"process) {dev_ms}")
+    cluster = dict(orders["n=365 float32"], orders=orders)
+    # spectrum_topk is the TDVP's (no CLI flag sets it)
+    label = "fokkerPlanck32 N=16384 spectrum_topk=200"
+    big = TDVP(state, tdvp.equation, dataclasses.replace(
+        tdvp.cfg, spectrum_topk=200), n_samples=tdvp.n_samples,
+        n_samples_obs=tdvp.n_samples_obs, precision=tdvp.precision)
+    theta = state.get_parameters()
+    steps = []
+    for _ in range(2):  # the first pays the set-up
+        _zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dy, aux = big.heun_pair(theta, 0.0, 1e-3, 11)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    counts = _counts()
+    finite = bool(torch.isfinite(theta + dy).all()) and bool(
+        torch.isfinite(aux["ev_topk"]).all())
+    print(f"{label}: one fixed-Heun step {steps[-1]:.4f} s (first "
+          f"{steps[0]:.4f}), launches {counts}, finite theta {finite}, "
+          f"residual {float(aux['solver_res']):.3e}, top Ritz value "
+          f"{float(aux['ev_topk'][-1]):.6e} ({aux['ev_topk'].shape[-1]} "
+          f"values), graphs_refusal {big.graphs_refusal}")
+    if (counts["jacobi_cluster"] != 2 or counts["jacobi"] != 0 or not finite
+            or aux["ev_topk"].shape[-1] != 200
+            or big.graphs_refusal is not None):
+        fail(f"{label}: launches {counts}, finite {finite}, refusal "
+             f"{big.graphs_refusal}")
+    cluster["topk200"] = dict(s_per_step=steps[-1],
+                              solver_res=float(aux["solver_res"]),
+                              launches=counts["jacobi_cluster"])
+    del big, dy, aux
+    print(f"phase 48: {time.perf_counter() - t_phase:.1f} s")
+    return one, cluster
+
+
+def _jacobi_device_ms_child(path):
+    """In a process of its own: the Jacobi kernel's device ms (profiler)
+    on each matrix saved at ``path``; prints them as the last line."""
+    full_f32_matmuls()
+    out = {}
+    for key, A in torch.load(path).items():
+        A = A.cuda()
+        cluster = jacobi.in_cluster(A.shape[0], A.dtype)
+        out[key] = _device_ms(lambda: jacobi.eigh_cuda(A), 5, TRACE_KERNELS[
+            "jacobi_cluster" if cluster else "jacobi"])
+    print(json.dumps(out))
+
+
+def _jacobi_device_ms(mats):
+    """The kernel's device ms on each of ``mats`` from a child process:
+    this process starts no profiler session before phase M's (one that
+    started early, in phase 48, left M2's conditional-node replays' kernel
+    records under the wrong kernels' names: records named for the
+    per-sample and Jacobi kernels lasting 1-6 us beside the real ~1 and
+    ~0.5 ms ones, 83 per-sample counted against the 75 launched; and
+    after phase M, sessions credited the kernel's time to other names:
+    H100, torch 2.11, CUDA 12.8). Phase M fails if a session started
+    before it (_watch_profilers)."""
+    fd, path = tempfile.mkstemp(suffix=".pt")
+    os.close(fd)
+    try:
+        torch.save({k: A.cpu() for k, A in mats.items()}, path)
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke as c; "
+             f"c._jacobi_device_ms_child({path!r})"],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+    finally:
+        os.unlink(path)
+    if proc.returncode != 0:
+        fail(f"the Jacobi device-time child failed: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_jacobi_traced(one, cluster):
+    """Phase 48's graph, after phase M (whose traces are this process's
+    first profiler sessions, see _jacobi_device_ms): the diffusion
+    preset's eigh solve (P=365, f32) at --steps-per-dispatch 8 as a CUDA
+    graph against K=1, bit for bit (_graph_path: 2 cluster launches a
+    step). Returns the cluster's launches by path."""
+    cluster["diffusion_graph"] = _graph_path(
+        "J diffusion (eigh, P=365) fixed_heun", preset(
+            "diffusion", device="cuda"), M_K, {"jacobi_cluster": 2},
+        gate_batched_trace=False)
+    return {
+        f"diffusion K=1 ({M_K} steps)":
+            cluster["diffusion_graph"]["launches_per_step_run"][
+                "jacobi_cluster"],
+        "fokkerPlanck32 N=16384 spectrum_topk=200 (1 step)":
+            cluster["topk200"]["launches"],
+        f"diffusion K={M_K}, one replay (a step) in a profiler trace":
+            cluster["diffusion_graph"]["replay_launches"]["jacobi_cluster"]}
 
 
 # -- phase M: multi-step dispatch as CUDA graphs (M1-M4) ---------------------
@@ -4139,11 +4322,36 @@ TRACE_KERNELS = {"persample": ("persample_kernel<false",
                  "persample_split": ("persample_kernel<true",
                                      "persample_kernelILb1"),
                  "quant8": ("quant_force_kernel",), "syrk": ("tiles_kernel",),
-                 "jacobi": ("jacobi_kernel",)}
+                 "jacobi": ("jacobi_kernel<false", "jacobi_kernelILb0"),
+                 "jacobi_cluster": ("jacobi_kernel<true",
+                                    "jacobi_kernelILb1")}
+TRACE_LETTERS = {"persample": "P", "persample_split": "S", "quant8": "Q",
+                 "syrk": "Y", "jacobi": "J", "jacobi_cluster": "C"}
 M_K = 8  # steps per batch on M1, M2's adaptive Heun and M4's fluidpaper
 M2_RK23_K = 4  # RK23 at tol 2e-5 (no retry there: Heun shows it)
 M3_K = 4  # at the production point, where a step takes ~2.6 s
 M4_DW_K = 4  # doubleWell, whose eager step takes 0.5-0.8 s
+
+
+def _watch_profilers():
+    """Where this process first starts a torch.profiler session (any
+    session: this script's, or the port's profiler window): phase M's
+    exact launch counts hold only while none started before its own
+    traces (see _jacobi_device_ms), and phase M fails if one did."""
+    from torch.profiler import profile
+
+    start = profile.start
+
+    def start_watched(self):
+        if _watch_profilers.first is None:
+            _watch_profilers.first = "".join(
+                traceback.format_stack(limit=4)[:-1])
+        return start(self)
+
+    profile.start = start_watched
+
+
+_watch_profilers.first = None
 
 
 def _trace(call):
@@ -4163,11 +4371,16 @@ def _trace(call):
         call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    rows = [(e.name(), e.duration_ns())
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA]
+    rows = [(e.name(), e.duration_ns()) for e in sorted(
+        (e for e in prof.profiler.kineto_results.events()
+         if e.device_type() == DeviceType.CUDA), key=lambda e: e.start_ns())]
     counts = {name: sum(1 for k, _ in rows if any(p in k for p in keys))
               for name, keys in TRACE_KERNELS.items()}
+    # the traced kernels in start order, one letter a class: a count that
+    # fails its gate shows where the extra or missing launches sit
+    _trace.sequence = "".join(
+        next((TRACE_LETTERS[name] for name, keys in TRACE_KERNELS.items()
+              if any(p in k for p in keys)), "") for k, _ in rows)
     busy = sum(ns for _, ns in rows) / 1e9 / wall
     return counts, busy, wall
 
@@ -4256,7 +4469,8 @@ def _batch_inputs(cfg, K):
     return ts, dts, keys
 
 
-def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None):
+def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None,
+                gate_batched_trace=True):
     """One path of phase M: driver.run at steps_per_dispatch 1 and K for K
     steps (one batch), the rows and theta against each other (fixed: bit
     for bit; adaptive: attempts equal, times to rtol 1e-12, theta within
@@ -4271,7 +4485,11 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None):
     capture's) against the K=1 run's fused calls; then a 1-step batch on
     the batched run's TDVP, untraced, under torch's sync debug mode (its
     host waits, its replay's host time); one replay of the captured step
-    in a profiler trace (its launches by kernel)."""
+    in a profiler trace (its launches by kernel).
+    ``gate_batched_trace=False``: the batched run is not traced (on a
+    path of tens of thousands of small kernels a run the trace slows the
+    steps and once missed one record of eighteen); one replay's trace
+    must show ``per_run`` exactly."""
     t_path = time.perf_counter()
     runs = {}
     for k in (1, K):
@@ -4286,10 +4504,14 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None):
             if k == 1:
                 run()
                 launches = _counts()
-            else:
+            elif gate_batched_trace:
                 t0 = time.perf_counter()
                 launches, _, wall = _trace(run)
                 trace_s = time.perf_counter() - t0 - wall
+                sequence = _trace.sequence
+            else:
+                run()
+                launches, trace_s = {}, 0.0
         state, rec = got[0]
         runs[k] = dict(theta=state.get_parameters(), rows=rec.as_arrays(),
                        launches=launches, kept=kept)
@@ -4332,14 +4554,20 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None):
                  K: tdvp.max_graph_attempts + int(aK["attempts"].sum())}
     else:
         units = {1: K, K: K + 1}
-    for k in (1, K):
+    for k in (1, K) if gate_batched_trace else (1,):
         want = {n: v * units[k] for n, v in per_run.items()}
         if any(runs[k]["launches"][n] != v for n, v in want.items()):
             fail(f"{label}: the K={k} run launched {runs[k]['launches']}, "
-                 f"expected {want}")
+                 f"expected {want}" + (f"; its trace in start order: "
+                                      f"{sequence}" if k == K else ""))
     step_s = kept.calls["adaptive_multi" if adaptive else "heun_multi"][0]
     # the per-step run's fused calls (an adaptive step's attempts summed)
     per_step = sum(sum(v) for k, v in runs[1]["kept"].calls.items())
+    # without the first call, which pays the process's first use of the
+    # path (a fixed step is one call)
+    later = [v for c in runs[1]["kept"].calls.values() for v in c[1:]]
+    out.update(per_step_s_after_first=(sum(later) / len(later) if later
+                                       and not adaptive else None))
     out.update(capture_s=prog.capture_s, pool_mb=prog.pool_bytes / 2**20,
                sites=len(prog.sites), launches=runs[K]["launches"],
                launches_per_step_run=runs[1]["launches"],
@@ -4386,6 +4614,9 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None):
     counts, busy, wall = _trace(lambda: prog.replay(keys[0]))
     out.update(replay_launches=counts, replay_device_busy=busy,
                replay_wall_s=wall)
+    if not gate_batched_trace and not adaptive and any(
+            counts[n] != v for n, v in per_run.items()):
+        fail(f"{label}: one replay launched {counts}, expected {per_run}")
     per_step_b = (step_s - prog.capture_s) / K
     out.update(batched_s_per_step=per_step_b)
     print(f"{label}: capture {prog.capture_s:.2f} s (warm-up included), "
@@ -4394,7 +4625,9 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None):
           f"replay's launches {counts}, device busy {100 * busy:.1f}% of "
           f"its {wall:.3f} s; host waits in a 1-step batch {len(sites)} "
           f"{sites}; s/step batched {per_step_b:.4f} (the capture aside, "
-          f"traced) against per-step {out['per_step_s']:.4f}; slots "
+          f"{'traced' if gate_batched_trace else 'untraced'}) against "
+          f"per-step {out['per_step_s']:.4f} (after the first call "
+          f"{out['per_step_s_after_first'] or float('nan'):.4f}); slots "
           f"finished on the host {tdvp.host_finished}; launches: the K={K} "
           f"run's trace {runs[K]['launches']} (trace overhead "
           f"{trace_s:.1f} s), the K=1 run {runs[1]['launches']}")
@@ -4488,6 +4721,10 @@ def _mcmc_path(label, name, K):
 
 def phase_multistep():
     """Phase M: --steps-per-dispatch as CUDA graphs (M1-M4)."""
+    if _watch_profilers.first is not None:
+        fail(f"phase M: a profiler session started before its traces, "
+             f"whose kernel records it would then misname and miscount:\n"
+             f"{_watch_profilers.first}")
     t0 = time.perf_counter()
     out = {}
     fp = preset("fokkerPlanck32", device="cuda")
@@ -4568,6 +4805,7 @@ def phase_oracles():
 
 def main():
     phase_device()
+    _watch_profilers()
     full_f32_matmuls()
     dev = torch.device("cuda")
     phase_build()
@@ -4582,7 +4820,7 @@ def main():
     state, counts = phase_main_path()
     theta5 = state.get_parameters()
     launches = {"persample": counts["persample"], "jacobi": counts["jacobi"]}
-    results["jacobi"] = phase_jacobi(dev)
+    results["jacobi"], results["jacobi_cluster"] = phase_jacobi(dev)
     phase_chunked_vs_f32(state.get_parameters())
     counts = phase_chunked_path()
     launches.update(persample_split=counts["persample_split"],
@@ -4601,7 +4839,7 @@ def main():
              "fokkerPlanck32 Student-t + global affine": counts["persample"]}
     phase_chunked_vs_f32(state.get_parameters(), syrk_too=False,
                          latent_name="Student_t", global_affine=True)
-    paths["diffusion"] = phase_diffusion()
+    paths["diffusion"], paths_c = phase_diffusion()
     phase_anisotropic_and_oscillators()
     steppers = phase_steppers()
     for name in ("fixed_euler", "fixed_rk3", "adaptive_heun",
@@ -4616,6 +4854,10 @@ def main():
         prod["persample"]
     phase_fluidpaper_adaptive(steppers)
     multistep = phase_multistep()
+    cluster_paths = phase_jacobi_traced(results["jacobi"],
+                                        results["jacobi_cluster"])
+    # the cluster's path: the diffusion preset's eigh solve
+    launches["jacobi_cluster"] = next(iter(cluster_paths.values()))
     solvers, solver_paths, split_paths, q8_paths = phase_solvers(theta5)
     paths.update(solver_paths)
     qhi, qhi_paths, qhi_split, qhi_q8 = phase_qmc_hessian_integrals(
@@ -4673,6 +4915,8 @@ def main():
             steppers["launches"]["syrk"]}
     results["jacobi"]["launches_by_path"] = {
         MAIN_LABEL + " (the top-k Ritz solve)": launches["jacobi"]}
+    results["jacobi_cluster"]["launches_by_path"] = dict(
+        cluster_paths, **{"diffusion (phase C, 20 steps)": paths_c})
     for key, path in multistep.items():
         for name in TRACE_KERNELS:
             if isinstance(path, dict) and path.get("launches", {}).get(name):

@@ -997,35 +997,60 @@ def test_graph_adaptive_batch_matches_per_step(dev):
 
 
 def test_eigensolves_beyond_the_jacobi_kernel(dev):
-    """On the card a spectrum_topk whose Ritz matrix (order k + 8) the
-    Jacobi kernel cannot take is refused when the TDVP is built; a P-space
-    eigh solve above the kernel's size calls torch.linalg.eigh, and its
-    batches run eagerly with that reason."""
+    """The small eigensolves are routed by order when the TDVP is built
+    (kernels/jacobi.eigh_for): a spectrum_topk of 200 (a Ritz matrix of
+    order 208, the kernel's cluster) builds, replays its step as a CUDA
+    graph and steps with a finite theta; a Ritz order above the kernel's
+    reach and a P-space eigh solve above it call torch.linalg.eigh, and
+    their batches run eagerly with that reason; the diffusion preset's
+    eigh solve (P=365, f32) takes the kernel and replays graphs."""
     import dataclasses
 
     from vmc_pde_torch import driver
     from vmc_pde_torch.config import preset
     from vmc_pde_torch.kernels import jacobi
-    from vmc_pde_torch.solver.tdvp import TDVP
+    from vmc_pde_torch.solver.tdvp import TDVP, fold_in
 
     state, tdvp = driver.build_problem(preset("fokkerPlanck32",
                                               device="cuda"))[:2]
     assert tdvp.graphs_refusal is None
-    with pytest.raises(ValueError, match="spectrum_topk=200"):
-        TDVP(state, tdvp.equation, dataclasses.replace(
-            tdvp.cfg, spectrum_topk=200), n_samples=tdvp.n_samples)
+    big = TDVP(state, tdvp.equation, dataclasses.replace(
+        tdvp.cfg, spectrum_topk=200), n_samples=tdvp.n_samples)
+    assert big._ritz_eigh is jacobi.eigh and big.graphs_refusal is None
+    theta = state.get_parameters()
+    jacobi.eigh_cuda.cluster_launches = 0
+    th, auxs = big.heun_multi(theta, [0.0], [1e-3], [fold_in(7, 0)])
+    assert bool(torch.isfinite(th).all()) and not torch.equal(th, theta)
+    assert auxs["ev_topk"].shape[-1] == 200
+    assert jacobi.eigh_cuda.cluster_launches >= 2  # the warm-up step's
+    big.release_graphs()
+    top = jacobi.REACH[torch.float32]
+    over = TDVP(state, tdvp.equation, dataclasses.replace(
+        tdvp.cfg, spectrum_topk=top - 7), n_samples=tdvp.n_samples)
+    assert over._ritz_eigh is torch.linalg.eigh
+    assert f"top-k Ritz solve of order {top + 1}" in over.graphs_refusal
     eig = TDVP(state, tdvp.equation, dataclasses.replace(
         tdvp.cfg, solver_method="eigh"), n_samples=tdvp.n_samples)
     assert eig._spectral_eigh is torch.linalg.eigh
     assert "torch.linalg.eigh" in eig.graphs_refusal
     small = _graph_problem("fixed_heun", solver_method="eigh")[1]
     assert small._spectral_eigh is jacobi.eigh and small.graphs_available
+    diff = driver.build_problem(preset("diffusion", device="cuda"))[1]
+    assert diff.solver_method == "eigh" and diff.n_params == 365
+    assert diff._spectral_eigh is jacobi.eigh and diff.graphs_available
 
 
-@pytest.mark.parametrize("n", [9, 69, 72, 73])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,dtype", [
+    (1, torch.float32), (2, torch.float64), (9, torch.float32),
+    (69, torch.float32), (72, torch.float32), (73, torch.float32),
+    (168, torch.float32), (169, torch.float32), (208, torch.float32),
+    (365, torch.float32), (384, torch.float32), (464, torch.float32),
+    (9, torch.float64), (69, torch.float64), (72, torch.float64),
+    (73, torch.float64), (118, torch.float64), (119, torch.float64),
+    (200, torch.float64), (256, torch.float64), (320, torch.float64)])
 def test_jacobi_kernel_matches_eigh(dev, n, dtype):
-    """The Jacobi kernel against an f64 torch.linalg.eigh: eigenvalues
+    """The Jacobi kernel against an f64 torch.linalg.eigh, in one block
+    and in the cluster (above order 168 in f32, 118 in f64): eigenvalues
     within 64 n eps of the matrix's norm, V diag(w) V^T within 1e-4 (f32)
     or 1e-12 (f64) of it, ascending order."""
     from vmc_pde_torch.kernels import jacobi
@@ -1033,7 +1058,7 @@ def test_jacobi_kernel_matches_eigh(dev, n, dtype):
     X = torch.randn(n, n, dtype=torch.float64,
                     generator=torch.Generator().manual_seed(n))
     A = (X @ X.T).to(dtype).to(dev)
-    w, V = jacobi.eigh(A)
+    w, V = jacobi.eigh_cuda(A)
     w0 = torch.linalg.eigh(A.double())[0]
     nrm = float(torch.linalg.norm(A.double()))
     eps = torch.finfo(dtype).eps
@@ -1041,3 +1066,19 @@ def test_jacobi_kernel_matches_eigh(dev, n, dtype):
     rec = float(torch.linalg.norm(V @ torch.diag(w) @ V.T - A)) / nrm
     assert rec <= (1e-4 if dtype == torch.float32 else 1e-12)
     assert bool((w[1:] >= w[:-1]).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jacobi_reach_is_the_librarys(dev, dtype):
+    """The wrapper's reach of each variant (kernels/jacobi.py, which
+    routes by it) against the library's, computed from the kernel's
+    shared-memory layout; an order past the reach is refused."""
+    from vmc_pde_torch.kernels import build, jacobi
+
+    lib = build.library("jacobi")
+    f64 = int(dtype == torch.float64)
+    assert lib.jacobi_reach(f64, 0) == jacobi.ONE_BLOCK_REACH[dtype]
+    assert lib.jacobi_reach(f64, 1) == jacobi.REACH[dtype]
+    top = jacobi.REACH[dtype]
+    with pytest.raises(ValueError, match="takes f32/f64 matrices"):
+        jacobi.eigh_cuda(torch.eye(top + 1, dtype=dtype, device=dev))

@@ -16,16 +16,12 @@ Tolerances:
   final (t, dt) to 1e-12 relative, attempts and active equal;
 - the driver's choice of batch or step, and the checkpoint files, equal
   to the JAX driver's on the same configuration (both packages' steps
-  stubbed);
-- the Jacobi eigensolve's schedule emulated in numpy against
-  torch.linalg.eigh: eigenvalues to 1e-12 of the norm, V diag(w) V^T to
-  1e-12.
+  stubbed).
+The Jacobi eigensolve's tests are tests/test_torch_jacobi.py's.
 """
 
 import functools
-import math
 import os
-import re
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +31,6 @@ import torch
 
 from vmc_pde_torch import driver
 from vmc_pde_torch.config import RunConfig, preset
-from vmc_pde_torch.kernels import build, jacobi
-from vmc_pde_torch.solver import tdvp as ttdvp
 from vmc_pde_torch.solver.tdvp import TDVP, fold_in
 from vmc_pde_tpu import driver as jdriver
 from vmc_pde_tpu.config import RunConfig as JRunConfig
@@ -356,93 +350,3 @@ def test_adaptive_controller_matches_jax(exact, monkeypatch):
                                rtol=1e-12)
     np.testing.assert_allclose(out[1:4], [float(v) for v in jout[1:4]],
                                rtol=1e-12)
-
-
-# -- the Ritz eigensolve -----------------------------------------------------
-
-def _jacobi_emulated(A):
-    """csrc/jacobi.cu's algorithm in numpy: round-robin pairs, the m/2
-    rotations of a round together (rows, then columns), rotated entries
-    zeroed, sweeps until the off-diagonal mass falls below (m eps)^2 of the
-    total; eigenvalues sorted by rank."""
-    n = A.shape[0]
-    m = n + (n & 1)
-    a = np.zeros((m, m))
-    a[:n, :n] = np.tril(A) + np.tril(A, -1).T
-    v = np.eye(m)
-
-    def pair(r, k):
-        p, q = ((r % (m - 1), m - 1) if k == 0
-                else ((r + k) % (m - 1), (r - k + m - 1) % (m - 1)))
-        return min(p, q), max(p, q)
-
-    prev = -1.0
-    for _ in range(30):
-        for r in range(m - 1):
-            rot = []
-            for k in range(m // 2):
-                p, q = pair(r, k)
-                c, s = 1.0, 0.0
-                if q < n and a[p, q] != 0.0:
-                    th = (a[q, q] - a[p, p]) / (2.0 * a[p, q])
-                    t = math.copysign(1.0, th) / (abs(th)
-                                                  + math.sqrt(1 + th * th))
-                    c = 1.0 / math.sqrt(1.0 + t * t)
-                    s = t * c
-                rot.append((p, q, c, s))
-            for p, q, c, s in rot:
-                a[[p, q]] = [c * a[p] - s * a[q], s * a[p] + c * a[q]]
-            for p, q, c, s in rot:
-                a[:, [p, q]] = np.stack([c * a[:, p] - s * a[:, q],
-                                         s * a[:, p] + c * a[:, q]], 1)
-                v[:, [p, q]] = np.stack([c * v[:, p] - s * v[:, q],
-                                         s * v[:, p] + c * v[:, q]], 1)
-                if s != 0.0:
-                    a[p, q] = a[q, p] = 0.0
-        off = (a[:n, :n] ** 2).sum() - (np.diag(a)[:n] ** 2).sum()
-        tot = (a[:n, :n] ** 2).sum()
-        if off <= (m * np.finfo(float).eps) ** 2 * tot or (
-                prev >= 0 and off >= prev):
-            break
-        prev = off
-    w = np.diag(a)[:n]
-    order = np.argsort(w, kind="stable")
-    return w[order], v[:n, :n][:, order]
-
-
-@pytest.mark.parametrize("n", [1, 2, 9, 10])
-def test_jacobi_schedule_matches_eigh(n):
-    """The kernel's algorithm (emulated) against torch.linalg.eigh, which
-    is also the plain version jacobi.eigh takes for a CPU tensor."""
-    rng = np.random.default_rng(n)
-    X = rng.standard_normal((n, n))
-    A = X @ X.T
-    A[0, 0] = A[-1, -1]  # a near-degenerate pair
-    w, V = _jacobi_emulated(A)
-    w0, _ = torch.linalg.eigh(torch.as_tensor(A))
-    nrm = np.linalg.norm(A)
-    np.testing.assert_allclose(w, w0.numpy(), atol=1e-12 * nrm)
-    np.testing.assert_allclose(V @ np.diag(w) @ V.T, A, atol=1e-12 * nrm)
-    wp, Vp = jacobi.eigh(torch.as_tensor(A))
-    assert torch.equal(wp, w0)
-
-
-def test_jacobi_launch_constants_and_ritz_topk():
-    """The wrapper's THREADS and shared-memory count against
-    csrc/jacobi.cu's layout, and the top-k Ritz solve (plain version on
-    the CPU) against the top of a full eigendecomposition."""
-    src = (build.CSRC / "jacobi.cu").read_text()
-    assert int(re.search(r"constexpr int THREADS = (\d+);", src)[1]) \
-        == jacobi.THREADS
-    assert "2 * (size_t)m * (m + 1) + m + THREADS / 32 + 1" in src
-    assert jacobi.fits(72, torch.float32) and jacobi.fits(112, torch.float64)
-    assert not jacobi.fits(129, torch.float64)
-    rng = np.random.default_rng(0)
-    U, _ = np.linalg.qr(rng.standard_normal((200, 200)))
-    ev = np.concatenate([np.geomspace(1e-6, 1e-2, 180), np.geomspace(1, 1e3,
-                                                                    20)])
-    S = torch.as_tensor((U * ev) @ U.T)
-    gen = torch.Generator().manual_seed(1)
-    ev_k, V_k = ttdvp._randomized_topk_eigh(S, 10, gen)
-    np.testing.assert_allclose(ev_k.numpy(), ev[-10:], rtol=1e-8)
-    assert V_k.shape == (200, 10)

@@ -70,11 +70,12 @@ Batches of steps (``heun_multi``, ``adaptive_multi``, the JAX package's
 multi-step dispatch): on one CUDA device each step of a batch replays a
 captured CUDA graph of the step (solver/graphs.py), the adaptive retries
 as conditional nodes; elsewhere (``graphs_available``) the same step
-functions run eagerly (``graphs_refusal`` says why). The top-k Ritz
-matrix's eigensolve is the Jacobi kernel on the card (kernels/jacobi.py;
-a spectrum_topk too large for it is refused on a CUDA device), whose
-solve waits for nothing on the host; so is the P-space spectral solve
-where P fits the kernel, torch.linalg.eigh above that.
+functions run eagerly (``graphs_refusal`` says why). The small
+eigensolves, the top-k Ritz matrix's (order k + 8) and the P-space
+spectral solve's, are routed by their order when the TDVP is built
+(kernels/jacobi.eigh_for): the Jacobi kernel on the card, whose solve
+waits for nothing on the host, up to its reach; torch.linalg.eigh above
+it, where the batches run eagerly.
 """
 
 from __future__ import annotations
@@ -249,10 +250,12 @@ def _lambda_max(S, n_iter: int = 12):
     return v @ (S @ v)
 
 
-def _randomized_topk_eigh(S, k: int, gen: torch.Generator, n_iter: int = 2):
+def _randomized_topk_eigh(S, k: int, gen: torch.Generator, n_iter: int = 2,
+                          eigh=jacobi.eigh):
     """Top-k eigenpairs of symmetric PSD S by randomized subspace
-    iteration (Halko-Martinsson-Tropp) and a Rayleigh-Ritz eigh (the
-    Jacobi kernel on the card: no host wait). Returns (ev (k,), V (P, k))
+    iteration (Halko-Martinsson-Tropp) and a Rayleigh-Ritz eigh of order
+    min(k + 8, P) with ``eigh`` (the TDVP's choice, jacobi.eigh_for: the
+    Jacobi kernel on the card, no host wait). Returns (ev (k,), V (P, k))
     in ascending order of ev."""
     P = S.shape[0]
     k_eff = min(k + 8, P)
@@ -264,7 +267,7 @@ def _randomized_topk_eigh(S, k: int, gen: torch.Generator, n_iter: int = 2):
         Y = S @ Q
     Q, _ = torch.linalg.qr(Y)
     B = Q.T @ (S @ Q)
-    ev, U = jacobi.eigh(0.5 * (B + B.T))
+    ev, U = eigh(0.5 * (B + B.T))
     V = Q @ U
     return ev[-k:], V[:, -k:]
 
@@ -627,26 +630,17 @@ class TDVP:
             cfg = dataclasses.replace(cfg, compute_snr=keep_snr)
         self.cfg = cfg
 
-        # The small eigensolves on a CUDA device, chosen here once. The
-        # top-k Ritz matrix (order k + 8) goes to the Jacobi kernel, which
-        # waits for nothing on the host; one it cannot take is refused.
-        # The P-space spectral solve (method eigh) takes the kernel where P
-        # fits it and torch.linalg.eigh above that (a host wait: such a
-        # TDVP runs its batches eagerly, graphs_refusal).
+        # The small eigensolves, routed here once by their order: the
+        # top-k Ritz matrix (order k + 8) and the P-space spectral solve
+        # (method eigh) take the Jacobi kernel on the card, which waits for
+        # nothing on the host, up to its reach, and torch.linalg.eigh above
+        # it (a host wait: such a TDVP runs its batches eagerly,
+        # graphs_refusal).
         sdt = self.precision.solve
-        on_card = self.device.type == "cuda"
-        if (on_card and method == "cholesky" and cfg.solve_on_device
-                and cfg.spectrum_topk > 0):
-            order = min(cfg.spectrum_topk + 8, self.n_params)
-            if not jacobi.fits(order, sdt):
-                raise ValueError(
-                    f"spectrum_topk={cfg.spectrum_topk}: the Ritz matrix of "
-                    f"order {order} is larger than the Jacobi eigensolve "
-                    f"kernel takes in {sdt} (kernels/jacobi.fits); lower "
-                    f"spectrum_topk")
-        self._spectral_eigh = (
-            jacobi.eigh if not on_card or jacobi.fits(self.n_params, sdt)
-            else torch.linalg.eigh)
+        self._ritz_order = min(cfg.spectrum_topk + 8, self.n_params)
+        self._ritz_eigh = jacobi.eigh_for(self._ritz_order, sdt, self.device)
+        self._spectral_eigh = jacobi.eigh_for(self.n_params, sdt,
+                                              self.device)
 
         # torch has no x64 switch to forget, so the JAX package's "needs
         # x64" refusal of f64/f64acc has no counterpart here
@@ -1468,7 +1462,8 @@ class TDVP:
             V_k = None
             if cfg.spectrum_topk > 0:
                 k = min(cfg.spectrum_topk, S.shape[0])
-                ev_k, V_k = _randomized_topk_eigh(S_s, k, self._gen(k_spec))
+                ev_k, V_k = _randomized_topk_eigh(S_s, k, self._gen(k_spec),
+                                                  eigh=self._ritz_eigh)
                 lam_max = ev_k[-1]
                 tr = torch.trace(S_s)
                 aux["ev_topk"] = ev_k
@@ -1952,7 +1947,11 @@ class TDVP:
         if (self.solver_method == "eigh"
                 and self._spectral_eigh is not jacobi.eigh):
             return (f"the spectral solve of P={self.n_params} by "
-                    f"torch.linalg.eigh (above the Jacobi kernel's size)")
+                    f"torch.linalg.eigh (above the Jacobi kernel's reach)")
+        if (self.solver_method == "cholesky" and self.cfg.spectrum_topk > 0
+                and self._ritz_eigh is not jacobi.eigh):
+            return (f"the top-k Ritz solve of order {self._ritz_order} by "
+                    f"torch.linalg.eigh (above the Jacobi kernel's reach)")
         return None
 
     @property
