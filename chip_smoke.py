@@ -272,14 +272,16 @@ c.phase_oracles()"``):
 48. (after phase 5) the Jacobi eigensolve kernel (csrc/jacobi.cu)
    against torch.linalg.eigh on the main path's own Ritz matrix (72 x 72
    f32, caught from one fokkerPlanck32 RHS) and on the same matrix in
-   f64, in one block, and in its thread block cluster at orders 208 and
-   365 f32 and 256 f64: eigenvalues against an f64 eigh within 64 n eps
-   of the norm, V diag(w) V^T and V^T V - I within 1e-4 (f32) or 1e-12
-   (f64), both timed in turns (eigh, kernel, kernel, eigh), the kernel's
-   device ms, the sweeps and the bound; one fokkerPlanck32 step at
-   spectrum_topk=200 (2 cluster launches); the diffusion preset's eigh
-   solve (P=365) at --steps-per-dispatch 8 as a CUDA graph against K=1,
-   bit for bit, s/step both ways (as M1 below);
+   f64, in one block, and in its block variant at orders 365, 411, 684,
+   762, 1024 and 2048 f32 and 256, 320, 411, 762 and 2048 f64:
+   eigenvalues against an f64 eigh within 64 n eps of the norm, V diag(w)
+   V^T and V^T V - I within 1e-4 (f32) or 1e-12 (f64), both timed in
+   turns (eigh, kernel, kernel, eigh), the kernel's device ms, the sweeps,
+   the bound and its share; one fokkerPlanck32 step at spectrum_topk=200
+   (2 block-variant launches); the eigh solves of diffusion (P=365) and
+   diffusion_anisotropic (P=762) at --steps-per-dispatch 8 as CUDA graphs
+   against K=1, bit for bit, s/step both ways (as M1 below), the solves
+   counted by the kernel on the device and in a trace;
 49. (M1, after phase 25) ``--steps-per-dispatch 8`` on fokkerPlanck32 at
    N=16384 through ``driver.run`` against the K=1 run, theta and every
    recorded row bit for bit: fixed Heun, SSPRK3, and Heun with
@@ -371,12 +373,12 @@ KERNELS = {
                            "vmc_pde_tpu/kernels/metropolis.py:191"),
     # no Pallas kernel: the JAX package's jnp.linalg.eigh of the Ritz
     # matrix, which XLA runs inside the step program, in one block; and of
-    # the P-space spectral solve (the diffusion preset's P=365), in the
-    # thread block cluster
+    # the P-space spectral solve (the diffusion presets' P=365 and 762), in
+    # the block variant
     "jacobi": ("vmc_pde_torch/kernels/csrc/jacobi.cu",
                "vmc_pde_tpu/solver/tdvp.py:308"),
-    "jacobi_cluster": ("vmc_pde_torch/kernels/csrc/jacobi.cu",
-                       "vmc_pde_tpu/solver/tdvp.py:241"),
+    "jacobi_blocks": ("vmc_pde_torch/kernels/csrc/jacobi.cu",
+                      "vmc_pde_tpu/solver/tdvp.py:241"),
 }
 WRAPPERS = {"persample": persample.per_sample_cuda,
             "persample_split": persample.per_sample_split_cuda,
@@ -739,14 +741,14 @@ def phase_quant8(split):
 def _zero_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
-    jacobi.eigh_cuda.cluster_launches = 0
+    jacobi.eigh_cuda.block_launches = 0
 
 
 def _counts():
-    """The wrappers' launches by kernel; jacobi_cluster: the Jacobi
-    wrapper's cluster launches."""
+    """The wrappers' launches by kernel; jacobi_blocks: the Jacobi
+    wrapper's launches of its block variant."""
     return {**{name: fn.launches for name, fn in WRAPPERS.items()},
-            "jacobi_cluster": jacobi.eigh_cuda.cluster_launches}
+            "jacobi_blocks": jacobi.eigh_cuda.block_launches}
 
 
 def _drive(args, label, n_steps, dim=32, cfg=None, callbacks=(),
@@ -1378,8 +1380,8 @@ def _crn_entropy(n=65536, seed=123):
 def phase_diffusion():
     """Phase C: the d=8 Student-t diffusion preset through the CLI with
     the per-sample kernel (P=365: auto would leave it on torch), 20 steps:
-    exactly one plain-mode launch and one cluster Jacobi launch (the eigh
-    solve of P=365) per RHS (direct statistics, the
+    exactly one plain-mode launch and one block-variant Jacobi launch (the
+    eigh solve of P=365) per RHS (direct statistics, the
     observables on the same batch), no NaN, residual below 1e-3, the
     entropy on common random numbers rising every step; then 10 steps with
     --is-gamma 0.5 (one launch per RHS; observables resample without the
@@ -1390,9 +1392,9 @@ def phase_diffusion():
                                "diffusion (d=8, Student-t) N=10000", n_steps,
                                dim=8, callbacks=[cb])
     if (counts["persample"] != 2 * n_steps
-            or counts["jacobi_cluster"] != 2 * n_steps):
+            or counts["jacobi_blocks"] != 2 * n_steps):
         fail(f"diffusion launched {counts}, expected {2 * n_steps} "
-             f"per-sample and cluster Jacobi kernels (one a RHS)")
+             f"per-sample and block-variant Jacobi kernels (one a RHS)")
     rise = np.diff(ent)
     nu = np.exp(arrays["dist_params"][:, 0]) + 1.0
     print(f"diffusion: f64 entropy on common random numbers (N=65536) "
@@ -1401,7 +1403,7 @@ def phase_diffusion():
           f"entropy {arrays['entropy'][0]:.5f} -> {arrays['entropy'][-1]:.5f}")
     if not (rise > 0).all():
         fail(f"diffusion entropy did not rise every step: {rise}")
-    launches = counts["persample"], counts["jacobi_cluster"]
+    launches = counts["persample"], counts["jacobi_blocks"]
 
     n_is = 10
     _, arrays, counts = _drive(
@@ -4118,18 +4120,30 @@ def _device_ms(fn, reps, keys):
                and any(k in e.name() for k in keys)) / 1e6 / reps
 
 
+# phase 48's orders of the block variant: the presets' spectral solves in
+# f32 (diffusion's P=365, harmonicOsc_diff's 411, bench.py's d=8 reference
+# shape's 684, diffusion_anisotropic's 762) up to the reach, and the same
+# span in f64 (the tpu_f64stats and f64 precisions' solves)
+JACOBI_ORDERS = ((365, torch.float32), (411, torch.float32),
+                 (684, torch.float32), (762, torch.float32),
+                 (1024, torch.float32), (2048, torch.float32),
+                 (256, torch.float64), (320, torch.float64),
+                 (411, torch.float64), (762, torch.float64),
+                 (2048, torch.float64))
+
+
 def _jacobi_vs_eigh(label, A, reps=20):
     """The Jacobi kernel on A against torch.linalg.eigh: eigenvalues
     against an f64 eigh within 64 n eps of A's norm, V diag(w) V^T and
     V^T V - I within 1e-4 (f32) or 1e-12 (f64), ascending; the sweeps;
     call ms of the kernel and of torch.linalg.eigh (its plain version and
     the one PyTorch call that computes the same) in turns in this call
-    (eigh, kernel, kernel, eigh; CUDA events, means of ``reps`` calls),
-    the kernel's device ms (profiler); the bound: the function's own
-    work, whatever the algorithm (jacobi.flops: ~9 n^3), and the bytes of
-    A, w and V."""
+    (eigh, kernel, kernel, eigh; CUDA events, means of ``reps`` calls);
+    the bound: the function's own work, whatever the algorithm
+    (jacobi.flops: ~9 n^3) at the card's peak for the dtype (f64 on the
+    tensor cores), and the bytes of A, w and V; the share of the bound."""
     n, dt = A.shape[0], A.dtype
-    cluster = jacobi.in_cluster(n, dt)
+    blocks = jacobi.in_blocks(n, dt)
     sweeps = torch.zeros(1, dtype=torch.int32, device=A.device)
     w, V = jacobi.eigh_cuda(A, sweeps)
     w64 = torch.linalg.eigh(A.double())[0]
@@ -4148,43 +4162,29 @@ def _jacobi_vs_eigh(label, A, reps=20):
     bound, by = bounds.bound_ms(
         item * (2 * n * n + n), jacobi.flops(n),
         bounds.F32_FLOP_S if item == 4 else bounds.F64_FLOP_S)
-    kind = "the cluster" if cluster else "one block"
+    ms, plain = (k1 + k2) / 2, (e1 + e2) / 2
+    kind = "blocks" if blocks else "one block"
     print(f"jacobi eigh n={n} {str(dt)[6:]} ({label}; {kind}): eigenvalues "
           f"vs f64 eigh max abs err "
           f"{err:.3e} (tol {tol:.3e}, |A| {nrm:.3e}), V diag(w) V^T rel "
           f"{recon:.3e}, V^T V - I {orth:.3e} (gate {gate:g}), {n_sweeps} "
           f"sweeps; in turns torch.linalg.eigh {e1:.4f}, kernel {k1:.4f} "
           f"{k2:.4f}, torch.linalg.eigh {e2:.4f} ms; bound {bound:.5f} ms "
-          f"({by})")
+          f"({by}), share {bound / ms:.5f}")
     if (err > tol or recon > gate or orth > gate
             or not bool((w[1:] >= w[:-1]).all())):
         fail(f"the Jacobi kernel disagrees with torch.linalg.eigh at n={n} "
              f"{dt}")
-    ms, plain = (k1 + k2) / 2, (e1 + e2) / 2
     return dict(max_abs_err=err, recon=recon, orth=orth, ms=ms,
                 ms_turns=[k1, k2], plain_ms=plain, eigh_ms_turns=[e1, e2],
-                bound_ms=bound, bound_by=by, library_ms=plain,
-                sweeps=n_sweeps, cluster=cluster)
+                bound_ms=bound, bound_by=by, share_of_bound=bound / ms,
+                library_ms=plain, sweeps=n_sweeps, blocks=blocks)
 
 
-def phase_jacobi(dev):
-    """Phase 48: the Jacobi eigensolve kernel (csrc/jacobi.cu) against
-    torch.linalg.eigh (_jacobi_vs_eigh) on the main path's own input, the
-    (72, 72) f32 Ritz matrix of one fokkerPlanck32 RHS at N=16384 caught
-    from that RHS's call, and on the same matrix in f64; the cluster at
-    orders 208 and 365 f32 (the diffusion preset's P) and 256 f64; one
-    fokkerPlanck32 step at spectrum_topk=200 (a Ritz matrix of order 208:
-    2 cluster launches); the kernel's device ms from a child process
-    (_jacobi_device_ms); the diffusion graph after phase M
-    (phase_jacobi_traced). Returns the one-block and the cluster
-    records."""
-    t_phase = time.perf_counter()
-    lib = build.library("jacobi")
-    for dt, f64 in ((torch.float32, 0), (torch.float64, 1)):
-        got = (lib.jacobi_reach(f64, 0), lib.jacobi_reach(f64, 1))
-        if got != (jacobi.ONE_BLOCK_REACH[dt], jacobi.REACH[dt]):
-            fail(f"jacobi: the library's reach {got} in {dt} is not the "
-                 f"wrapper's, which routes by it")
+def _caught_ritz_matrix():
+    """The main path's own eigensolve input: the (72, 72) f32 Ritz matrix
+    of one fokkerPlanck32 RHS at N=16384, caught from that RHS's call;
+    returns it with the problem's state and TDVP."""
     caught = []
     eigh = jacobi.eigh
 
@@ -4200,24 +4200,51 @@ def phase_jacobi(dev):
         tdvp.rhs(state.get_parameters(), 0.0, 11)
     finally:
         jacobi.eigh = eigh
-    B = caught[0]
+    return caught[0], state, tdvp
+
+
+def phase_jacobi(dev):
+    """Phase 48: the Jacobi eigensolve kernel (csrc/jacobi.cu) against
+    torch.linalg.eigh (_jacobi_vs_eigh) on the main path's own input, the
+    (72, 72) f32 Ritz matrix of one fokkerPlanck32 RHS at N=16384 caught
+    from that RHS's call, and on the same matrix in f64 (one block); the
+    block variant at JACOBI_ORDERS (random Grams, `_gram`); one
+    fokkerPlanck32 step at spectrum_topk=200 (a Ritz matrix of order 208:
+    2 block-variant launches); the kernel's device ms from a child process
+    (_jacobi_device_ms); the diffusion graphs after phase M
+    (phase_jacobi_traced). Returns the one-block and the block variant's
+    records."""
+    t_phase = time.perf_counter()
+    lib = build.library("jacobi")
+    for dt, f64 in ((torch.float32, 0), (torch.float64, 1)):
+        got = (lib.jacobi_reach(f64, 0), lib.jacobi_reach(f64, 1))
+        if got != (jacobi.ONE_BLOCK_REACH[dt], jacobi.REACH[dt]):
+            fail(f"jacobi: the library's reach {got} in {dt} is not the "
+                 f"wrapper's, which routes by it")
+    B, state, tdvp = _caught_ritz_matrix()
     one = _jacobi_vs_eigh("the main path's Ritz matrix", B)
     one["f64"] = _jacobi_vs_eigh("the same matrix in f64", B.double())
     if one["ms_turns"][1] >= min(one["eigh_ms_turns"]):
         print(f"jacobi: the kernel ({one['ms']:.4f} ms) is not under "
               f"torch.linalg.eigh ({one['plain_ms']:.4f} ms) at n="
               f"{B.shape[0]}")
-    mats = {f"n={n} {str(dt)[6:]}": _gram(n, dt, dev) for n, dt in (
-        (208, torch.float32), (365, torch.float32), (256, torch.float64))}
-    orders = {key: _jacobi_vs_eigh("a random Gram", A)
+    mats = {f"n={n} {str(dt)[6:]}": _gram(n, dt, dev)
+            for n, dt in JACOBI_ORDERS}
+    orders = {key: _jacobi_vs_eigh("a random Gram", A,
+                                   20 if A.shape[0] <= 800 else 5)
               for key, A in mats.items()}
+    under = [k for k, r in orders.items()
+             if max(r["ms_turns"]) < min(r["eigh_ms_turns"])]
+    print(f"jacobi blocks: every kernel turn under every torch.linalg.eigh "
+          f"turn at {under}; not at "
+          f"{[k for k in orders if k not in under]}")
     dev_ms = _jacobi_device_ms({"f32": B, "f64": B.double(), **mats})
     one["device_ms"], one["f64"]["device_ms"] = dev_ms["f32"], dev_ms["f64"]
     for key, rec in orders.items():
         rec["device_ms"] = dev_ms[key]
     print(f"jacobi eigh: the kernel's device ms (profiler, a child "
           f"process) {dev_ms}")
-    cluster = dict(orders["n=365 float32"], orders=orders)
+    blocks = dict(orders["n=365 float32"], orders=orders)
     # spectrum_topk is the TDVP's (no CLI flag sets it)
     label = "fokkerPlanck32 N=16384 spectrum_topk=200"
     big = TDVP(state, tdvp.equation, dataclasses.replace(
@@ -4240,17 +4267,17 @@ def phase_jacobi(dev):
           f"residual {float(aux['solver_res']):.3e}, top Ritz value "
           f"{float(aux['ev_topk'][-1]):.6e} ({aux['ev_topk'].shape[-1]} "
           f"values), graphs_refusal {big.graphs_refusal}")
-    if (counts["jacobi_cluster"] != 2 or counts["jacobi"] != 0 or not finite
+    if (counts["jacobi_blocks"] != 2 or counts["jacobi"] != 0 or not finite
             or aux["ev_topk"].shape[-1] != 200
             or big.graphs_refusal is not None):
         fail(f"{label}: launches {counts}, finite {finite}, refusal "
              f"{big.graphs_refusal}")
-    cluster["topk200"] = dict(s_per_step=steps[-1],
-                              solver_res=float(aux["solver_res"]),
-                              launches=counts["jacobi_cluster"])
+    blocks["topk200"] = dict(s_per_step=steps[-1],
+                             solver_res=float(aux["solver_res"]),
+                             launches=counts["jacobi_blocks"])
     del big, dy, aux
     print(f"phase 48: {time.perf_counter() - t_phase:.1f} s")
-    return one, cluster
+    return one, blocks
 
 
 def _jacobi_device_ms_child(path):
@@ -4260,9 +4287,10 @@ def _jacobi_device_ms_child(path):
     out = {}
     for key, A in torch.load(path).items():
         A = A.cuda()
-        cluster = jacobi.in_cluster(A.shape[0], A.dtype)
-        out[key] = _device_ms(lambda: jacobi.eigh_cuda(A), 5, TRACE_KERNELS[
-            "jacobi_cluster" if cluster else "jacobi"])
+        variant = ("jacobi_blocks" if jacobi.in_blocks(A.shape[0], A.dtype)
+                   else "jacobi")
+        out[key] = _device_ms(lambda: jacobi.eigh_cuda(A), 5,
+                              TRACE_KERNELS[variant])
     print(json.dumps(out))
 
 
@@ -4292,24 +4320,34 @@ def _jacobi_device_ms(mats):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
-def phase_jacobi_traced(one, cluster):
-    """Phase 48's graph, after phase M (whose traces are this process's
-    first profiler sessions, see _jacobi_device_ms): the diffusion
-    preset's eigh solve (P=365, f32) at --steps-per-dispatch 8 as a CUDA
-    graph against K=1, bit for bit (_graph_path: 2 cluster launches a
-    step). Returns the cluster's launches by path."""
-    cluster["diffusion_graph"] = _graph_path(
-        "J diffusion (eigh, P=365) fixed_heun", preset(
-            "diffusion", device="cuda"), M_K, {"jacobi_cluster": 2},
-        gate_batched_trace=False)
-    return {
-        f"diffusion K=1 ({M_K} steps)":
-            cluster["diffusion_graph"]["launches_per_step_run"][
-                "jacobi_cluster"],
-        "fokkerPlanck32 N=16384 spectrum_topk=200 (1 step)":
-            cluster["topk200"]["launches"],
-        f"diffusion K={M_K}, one replay (a step) in a profiler trace":
-            cluster["diffusion_graph"]["replay_launches"]["jacobi_cluster"]}
+def phase_jacobi_traced(one, blocks):
+    """Phase 48's graphs, after phase M (whose traces are this process's
+    first profiler sessions, see _jacobi_device_ms): the eigh solves of
+    the diffusion preset (P=365, f32) and of diffusion_anisotropic (P=762,
+    f32: above the block variant's parent's reach, it ran eagerly) at
+    --steps-per-dispatch 8 as CUDA graphs against K=1, bit for bit
+    (_graph_path: 2 block-variant solves a step, counted by the kernel on
+    the device in both runs and, in the batched one, in a trace of the
+    device's activity too). Returns the block variant's launches by
+    path."""
+    paths = {}
+    for key, name in (("diffusion_graph", "diffusion"),
+                      ("anisotropic_graph", "diffusion_anisotropic")):
+        cfg = preset(name, device="cuda")
+        blocks[key] = rec = _graph_path(
+            f"J {name} (eigh) fixed_heun", cfg, M_K, {"jacobi_blocks": 2},
+            gate_batched_trace=False,
+            device_counts={"jacobi_blocks": jacobi.block_solves_on_device})
+        paths[f"{name} K=1 ({M_K} steps)"] = \
+            rec["launches_per_step_run"]["jacobi_blocks"]
+        paths[f"{name} K={M_K}, the kernel's own count of its solves (the "
+              f"capture's warm-up and {M_K} replays)"] = \
+            rec["device_launches"]["jacobi_blocks"]
+        paths[f"{name} K={M_K}, one replay (a step) in a profiler trace"] = \
+            rec["replay_launches"]["jacobi_blocks"]
+    paths["fokkerPlanck32 N=16384 spectrum_topk=200 (1 step)"] = \
+        blocks["topk200"]["launches"]
+    return paths
 
 
 # -- phase M: multi-step dispatch as CUDA graphs (M1-M4) ---------------------
@@ -4322,11 +4360,10 @@ TRACE_KERNELS = {"persample": ("persample_kernel<false",
                  "persample_split": ("persample_kernel<true",
                                      "persample_kernelILb1"),
                  "quant8": ("quant_force_kernel",), "syrk": ("tiles_kernel",),
-                 "jacobi": ("jacobi_kernel<false", "jacobi_kernelILb0"),
-                 "jacobi_cluster": ("jacobi_kernel<true",
-                                    "jacobi_kernelILb1")}
+                 "jacobi": ("jacobi_kernel<", "jacobi_kernelI"),
+                 "jacobi_blocks": ("jacobi_block_kernel",)}
 TRACE_LETTERS = {"persample": "P", "persample_split": "S", "quant8": "Q",
-                 "syrk": "Y", "jacobi": "J", "jacobi_cluster": "C"}
+                 "syrk": "Y", "jacobi": "J", "jacobi_blocks": "B"}
 M_K = 8  # steps per batch on M1, M2's adaptive Heun and M4's fluidpaper
 M2_RK23_K = 4  # RK23 at tol 2e-5 (no retry there: Heun shows it)
 M3_K = 4  # at the production point, where a step takes ~2.6 s
@@ -4470,7 +4507,7 @@ def _batch_inputs(cfg, K):
 
 
 def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None,
-                gate_batched_trace=True):
+                gate_batched_trace=True, device_counts=None):
     """One path of phase M: driver.run at steps_per_dispatch 1 and K for K
     steps (one batch), the rows and theta against each other (fixed: bit
     for bit; adaptive: attempts equal, times to rtol 1e-12, theta within
@@ -4486,12 +4523,16 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None,
     the batched run's TDVP, untraced, under torch's sync debug mode (its
     host waits, its replay's host time); one replay of the captured step
     in a profiler trace (its launches by kernel).
-    ``gate_batched_trace=False``: the batched run is not traced (on a
-    path of tens of thousands of small kernels a run the trace slows the
+    ``gate_batched_trace=False``: the batched run's trace is not gated (on
+    a path of tens of thousands of small kernels a run the trace slows the
     steps and once missed one record of eighteen); one replay's trace
-    must show ``per_run`` exactly."""
+    must show ``per_run`` exactly. ``device_counts``: {kernel: a function
+    returning the kernel's own count of its launches on the device}: both
+    runs must show ``per_run`` in it exactly, and the batched run is
+    traced, its trace's count reported beside the kernel's."""
     t_path = time.perf_counter()
     runs = {}
+    device_counts = device_counts or {}
     for k in (1, K):
         _zero_counts()
         with _Kept() as kept:
@@ -4501,10 +4542,11 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None,
                 got.append(driver.run(dataclasses.replace(
                     cfg, steps_per_dispatch=k, verbose=False), max_steps=K))
 
+            dev0 = {name: f() for name, f in device_counts.items()}
             if k == 1:
                 run()
                 launches = _counts()
-            elif gate_batched_trace:
+            elif gate_batched_trace or device_counts:
                 t0 = time.perf_counter()
                 launches, _, wall = _trace(run)
                 trace_s = time.perf_counter() - t0 - wall
@@ -4512,9 +4554,11 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None,
             else:
                 run()
                 launches, trace_s = {}, 0.0
+            device = {name: f() - dev0[name]
+                      for name, f in device_counts.items()}
         state, rec = got[0]
         runs[k] = dict(theta=state.get_parameters(), rows=rec.as_arrays(),
-                       launches=launches, kept=kept)
+                       launches=launches, device=device, kept=kept)
         if k == 1:
             kept.problems[0][1].release_graphs()
     (a1, aK) = runs[1]["rows"], runs[K]["rows"]
@@ -4560,6 +4604,18 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None,
             fail(f"{label}: the K={k} run launched {runs[k]['launches']}, "
                  f"expected {want}" + (f"; its trace in start order: "
                                       f"{sequence}" if k == K else ""))
+    for k in (1, K):
+        want = {n: per_run[n] * units[k] for n in device_counts}
+        if runs[k]["device"] != want:
+            fail(f"{label}: the K={k} run's kernels counted "
+                 f"{runs[k]['device']} launches on the device, expected "
+                 f"{want}")
+    for n in device_counts:
+        seen, made = runs[K]["launches"][n], runs[K]["device"][n]
+        print(f"{label}: K={K} run: {made} launches of {n} counted on the "
+              f"device, {seen} in the trace of the device's activity"
+              + ("" if seen == made else
+                 f" (the trace lost {made - seen} records)"))
     step_s = kept.calls["adaptive_multi" if adaptive else "heun_multi"][0]
     # the per-step run's fused calls (an adaptive step's attempts summed)
     per_step = sum(sum(v) for k, v in runs[1]["kept"].calls.items())
@@ -4570,6 +4626,7 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None,
                                        and not adaptive else None))
     out.update(capture_s=prog.capture_s, pool_mb=prog.pool_bytes / 2**20,
                sites=len(prog.sites), launches=runs[K]["launches"],
+               device_launches=runs[K]["device"],
                launches_per_step_run=runs[1]["launches"],
                first_batch_s=step_s, per_step_s=per_step / K,
                trace_overhead_s=trace_s,
@@ -4820,7 +4877,7 @@ def main():
     state, counts = phase_main_path()
     theta5 = state.get_parameters()
     launches = {"persample": counts["persample"], "jacobi": counts["jacobi"]}
-    results["jacobi"], results["jacobi_cluster"] = phase_jacobi(dev)
+    results["jacobi"], results["jacobi_blocks"] = phase_jacobi(dev)
     phase_chunked_vs_f32(state.get_parameters())
     counts = phase_chunked_path()
     launches.update(persample_split=counts["persample_split"],
@@ -4854,10 +4911,10 @@ def main():
         prod["persample"]
     phase_fluidpaper_adaptive(steppers)
     multistep = phase_multistep()
-    cluster_paths = phase_jacobi_traced(results["jacobi"],
-                                        results["jacobi_cluster"])
-    # the cluster's path: the diffusion preset's eigh solve
-    launches["jacobi_cluster"] = next(iter(cluster_paths.values()))
+    block_paths = phase_jacobi_traced(results["jacobi"],
+                                      results["jacobi_blocks"])
+    # the block variant's path: the diffusion preset's eigh solve
+    launches["jacobi_blocks"] = next(iter(block_paths.values()))
     solvers, solver_paths, split_paths, q8_paths = phase_solvers(theta5)
     paths.update(solver_paths)
     qhi, qhi_paths, qhi_split, qhi_q8 = phase_qmc_hessian_integrals(
@@ -4915,8 +4972,8 @@ def main():
             steppers["launches"]["syrk"]}
     results["jacobi"]["launches_by_path"] = {
         MAIN_LABEL + " (the top-k Ritz solve)": launches["jacobi"]}
-    results["jacobi_cluster"]["launches_by_path"] = dict(
-        cluster_paths, **{"diffusion (phase C, 20 steps)": paths_c})
+    results["jacobi_blocks"]["launches_by_path"] = dict(
+        block_paths, **{"diffusion (phase C, 20 steps)": paths_c})
     for key, path in multistep.items():
         for name in TRACE_KERNELS:
             if isinstance(path, dict) and path.get("launches", {}).get(name):

@@ -999,11 +999,13 @@ def test_graph_adaptive_batch_matches_per_step(dev):
 def test_eigensolves_beyond_the_jacobi_kernel(dev):
     """The small eigensolves are routed by order when the TDVP is built
     (kernels/jacobi.eigh_for): a spectrum_topk of 200 (a Ritz matrix of
-    order 208, the kernel's cluster) builds, replays its step as a CUDA
-    graph and steps with a finite theta; a Ritz order above the kernel's
-    reach and a P-space eigh solve above it call torch.linalg.eigh, and
-    their batches run eagerly with that reason; the diffusion preset's
-    eigh solve (P=365, f32) takes the kernel and replays graphs."""
+    order 208, the kernel's block variant) builds, replays its step as a
+    CUDA graph and steps with a finite theta; a Ritz order above the
+    kernel's reach (2048) and a P-space eigh solve above it call
+    torch.linalg.eigh, and their batches run eagerly with that reason; the
+    eigh solves of diffusion (P=365, f32) and diffusion_anisotropic
+    (P=762, above the kernel's reach before its block variant) take the
+    kernel and replay graphs."""
     import dataclasses
 
     from vmc_pde_torch import driver
@@ -1018,11 +1020,11 @@ def test_eigensolves_beyond_the_jacobi_kernel(dev):
         tdvp.cfg, spectrum_topk=200), n_samples=tdvp.n_samples)
     assert big._ritz_eigh is jacobi.eigh and big.graphs_refusal is None
     theta = state.get_parameters()
-    jacobi.eigh_cuda.cluster_launches = 0
+    jacobi.eigh_cuda.block_launches = 0
     th, auxs = big.heun_multi(theta, [0.0], [1e-3], [fold_in(7, 0)])
     assert bool(torch.isfinite(th).all()) and not torch.equal(th, theta)
     assert auxs["ev_topk"].shape[-1] == 200
-    assert jacobi.eigh_cuda.cluster_launches >= 2  # the warm-up step's
+    assert jacobi.eigh_cuda.block_launches >= 2  # the warm-up step's
     big.release_graphs()
     top = jacobi.REACH[torch.float32]
     over = TDVP(state, tdvp.equation, dataclasses.replace(
@@ -1035,9 +1037,10 @@ def test_eigensolves_beyond_the_jacobi_kernel(dev):
     assert "torch.linalg.eigh" in eig.graphs_refusal
     small = _graph_problem("fixed_heun", solver_method="eigh")[1]
     assert small._spectral_eigh is jacobi.eigh and small.graphs_available
-    diff = driver.build_problem(preset("diffusion", device="cuda"))[1]
-    assert diff.solver_method == "eigh" and diff.n_params == 365
-    assert diff._spectral_eigh is jacobi.eigh and diff.graphs_available
+    for name, P in (("diffusion", 365), ("diffusion_anisotropic", 762)):
+        diff = driver.build_problem(preset(name, device="cuda"))[1]
+        assert diff.solver_method == "eigh" and diff.n_params == P
+        assert diff._spectral_eigh is jacobi.eigh and diff.graphs_available
 
 
 @pytest.mark.parametrize("n,dtype", [
@@ -1045,14 +1048,16 @@ def test_eigensolves_beyond_the_jacobi_kernel(dev):
     (69, torch.float32), (72, torch.float32), (73, torch.float32),
     (168, torch.float32), (169, torch.float32), (208, torch.float32),
     (365, torch.float32), (384, torch.float32), (464, torch.float32),
+    (762, torch.float32), (2048, torch.float32),
     (9, torch.float64), (69, torch.float64), (72, torch.float64),
     (73, torch.float64), (118, torch.float64), (119, torch.float64),
-    (200, torch.float64), (256, torch.float64), (320, torch.float64)])
+    (200, torch.float64), (256, torch.float64), (320, torch.float64),
+    (365, torch.float64), (762, torch.float64), (2048, torch.float64)])
 def test_jacobi_kernel_matches_eigh(dev, n, dtype):
     """The Jacobi kernel against an f64 torch.linalg.eigh, in one block
-    and in the cluster (above order 168 in f32, 118 in f64): eigenvalues
-    within 64 n eps of the matrix's norm, V diag(w) V^T within 1e-4 (f32)
-    or 1e-12 (f64) of it, ascending order."""
+    and in its block variant (above order 168 in f32, 118 in f64, up to
+    2048): eigenvalues within 64 n eps of the matrix's norm, V diag(w) V^T
+    within 1e-4 (f32) or 1e-12 (f64) of it, ascending order."""
     from vmc_pde_torch.kernels import jacobi
 
     X = torch.randn(n, n, dtype=torch.float64,
@@ -1068,11 +1073,44 @@ def test_jacobi_kernel_matches_eigh(dev, n, dtype):
     assert bool((w[1:] >= w[:-1]).all())
 
 
+@pytest.mark.parametrize("n,dtype", [(365, torch.float32),
+                                     (256, torch.float64)])
+def test_jacobi_blocks_replay_in_a_graph(dev, n, dtype):
+    """The block variant's one cooperative launch (and the memset of its
+    barrier word) captured into a CUDA graph: each replay gives the eager
+    solve's w and V bit for bit, and the kernel counts every replay's
+    solve on the device, where the wrapper counts only the capture's."""
+    from vmc_pde_torch.kernels import jacobi
+
+    X = torch.randn(n, n, dtype=torch.float64,
+                    generator=torch.Generator().manual_seed(n))
+    A = (X @ X.T).to(dtype).to(dev)
+    w0, V0 = jacobi.eigh_cuda(A)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        jacobi.eigh_cuda(A)  # warm-up on the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    jacobi.eigh_cuda.block_launches = 0
+    with torch.cuda.graph(graph):
+        w, V = jacobi.eigh_cuda(A)
+    assert jacobi.eigh_cuda.block_launches == 1
+    before = jacobi.block_solves_on_device()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(w, w0) and torch.equal(V, V0)
+    assert jacobi.block_solves_on_device() - before == 3
+    assert jacobi.eigh_cuda.block_launches == 1
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_jacobi_reach_is_the_librarys(dev, dtype):
     """The wrapper's reach of each variant (kernels/jacobi.py, which
-    routes by it) against the library's, computed from the kernel's
-    shared-memory layout; an order past the reach is refused."""
+    routes by it) against the library's, computed from the one block's
+    shared-memory layout and the block variant's plan; an order past the
+    reach is refused."""
     from vmc_pde_torch.kernels import build, jacobi
 
     lib = build.library("jacobi")

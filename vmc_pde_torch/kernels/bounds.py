@@ -2,11 +2,11 @@
 larger of the bytes it must move (each input read once, each output
 written once) over the memory rate, and its operations over the peak rate
 of their type. Peaks from NVIDIA's H100 SXM data sheet, dense, at the full
-700 W: 3.35 TB/s HBM, 67 TFLOP/s f32 and 34 f64 outside the tensor
-cores, 989
-TFLOP/s bf16 on them; 32-bit integer multiplies at 64 per clock per SM
-(the CUDA C++ Programming Guide's arithmetic-instruction throughput table,
-compute capability 9.0) on 132 SMs at the card's maximum SM clock.
+700 W: 3.35 TB/s HBM, 67 TFLOP/s f32 outside the tensor cores (f64 34
+there), 989 TFLOP/s bf16 and 67 f64 on them; 32-bit integer multiplies
+at 64 per clock per SM (the CUDA C++ Programming Guide's
+arithmetic-instruction throughput table, compute capability 9.0) on 132
+SMs at the card's maximum SM clock.
 chip_smoke.py reports these bounds beside the measured times;
 
     python -m vmc_pde_torch.kernels.bounds
@@ -19,7 +19,7 @@ from __future__ import annotations
 
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
-F64_FLOP_S = 34e12  # f64 outside the tensor cores
+F64_FLOP_S = 67e12  # f64 on the tensor cores (DMMA), the card's f64 peak
 BF16_FLOP_S = 989e12
 # the maximum SM clock of an H100 80GB HBM3, as
 # `nvidia-smi --query-gpu=clocks.max.sm` reports it: 1980 MHz

@@ -49,9 +49,11 @@ SIGNATURES = {
         "syrk_tiles_bf16": [_vp] + [_ci] * 3 + [_vp, _ci] + [_vp] * 2,
     },
     "jacobi": {
-        "jacobi_eigh_f32": [_vp] + [_ci] * 2 + [_vp] * 4,
-        "jacobi_eigh_f64": [_vp] + [_ci] * 2 + [_vp] * 4,
+        "jacobi_eigh_f32": [_vp] + [_ci] * 2 + [_vp] * 5,
+        "jacobi_eigh_f64": [_vp] + [_ci] * 2 + [_vp] * 5,
         "jacobi_reach": [_ci] * 2,
+        "jacobi_scratch_bytes": [_ci] * 3,
+        "jacobi_block_solves": [],
     },
     "graphcond": {
         "cond_if_begin": [_vp] * 3,
