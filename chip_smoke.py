@@ -310,6 +310,35 @@ c.phase_oracles()"``):
    s/step graphed and eager, the device's busy share over one step,
    graphed and per step.
 
+Phase W (53-55, after phase 48's traced part): the per-sample kernel on
+flows past dim 64, coupling halves of 32, widths of 64 and four linear
+layers, and without coupling blocks, as the JAX kernel takes them: each
+fokkerPlanck32 with its dim, depth or widths changed (``WIDE``):
+53. (W1) A = ``driver.run(preset("fokkerPlanck32", dim=128, depth=2,
+   hidden=(16,)))`` (P=25,408, 64 trace directions), which ``auto`` sends
+   to the kernel (uses_kernel): 4 fixed-Heun steps at N=16384 one at a
+   time and as one graphed batch at steps_per_dispatch 4, bit for bit,
+   2 plain-mode launches a step (the wrappers' counts; the batched run's
+   in a trace of the device's activity, as phase M counts them); then the
+   chunked tri2 + int8 path at N=131072 in chunks of 65536 for 2 steps: 8
+   split, 16 quant8 launches and the pilots;
+54. (W2) B = the preset with hidden (16, 16, 16, 16) (five linear layers,
+   P=22,320) through ``driver.run`` for 3 steps at N=16384: 6 launches;
+55. (W3) every WIDE flow (A, d=96 depth 4, B, width 96,
+   scripts/bench_persample.py's d=128 depth 4 hidden 64 at P=141,504, A
+   with the Student-t latent and the global affine, SanityFlow at d=4):
+   the kernel timed at N=16384 in both modes (bound and share) with the
+   wrapper's plans, the timed calls held against the plain version to
+   TOL on 512 rows of whole tiles from blocks across the grid (a block's
+   later tiles too) and split mode's column sums and max over all 16384
+   rows against plain f32's; at a perturbed theta both modes on all
+   16384 standard normal x, to TOL or graded as phase 15's; then at
+   N=2048 beside torch.func, which it must beat; the flows ``auto``
+   leaves off the kernel with
+   ``per_sample_backend='cuda'``: the P=141,504 flow through driver.run
+   with minSR at N=1024 for 2 steps (4 launches), and one SanityFlow
+   (d=4) RHS at N=16384 against the CPU's (1 launch, 1e-5).
+
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -517,7 +546,12 @@ def _grade_ok(name, a, r, p, tol, where):
         e = (v.double() - r).abs()
         return (e if e.ndim == 1 else e.amax(1)) / scale
 
-    ek, ep = per_sample(a), per_sample(p)
+    return _graded(name, per_sample(a), per_sample(p), tol, where)
+
+
+def _graded(name, ek, ep, tol, where):
+    """_grade_ok on the per-sample errors of the kernel (``ek``) and of
+    plain f32 (``ep``), each relative to the largest reference value."""
     qs = torch.tensor(GRADE_Q, dtype=torch.float64, device=ek.device)
     qk, qp = torch.quantile(ek, qs).tolist(), torch.quantile(ep, qs).tolist()
     mk, mp = float(ek.max()), float(ep.max())
@@ -3991,9 +4025,9 @@ def phase_radial(dev):
 
 
 def phase_sanity_plots_examples(dev, cloud):
-    """L7: one TDVP RHS with SanityFlow(dim=3) on the card (the per-sample
-    kernel refuses the flow: no launch; the update within 1e-5 of the
-    CPU's on the same draws); plot_data_diff's grid density of
+    """L7: one TDVP RHS with SanityFlow(dim=3) on the card (``auto`` keeps
+    its P = 15 off the per-sample kernel: no launch; the update within
+    1e-5 of the CPU's on the same draws); plot_data_diff's grid density of
     fluidpaper's flow, card against CPU (and the figure's integrated
     |diff| where matplotlib imports); the custom_equation example on the
     card with its own gates (f64 as on the CPU if the tpu precision misses
@@ -4860,6 +4894,393 @@ def phase_oracles():
                        "(the cloud)": out["L3"]["launches"]}}
 
 
+# Phase W: the per-sample kernel on flows past dim 64, halves of 32,
+# widths of 64 and four linear layers, each a fokkerPlanck32 preset with
+# these arguments changed (the JAX package runs its Pallas kernel on every
+# one: ``auto`` on the first four at f32 and 2048 <= P <= 32768,
+# ``pallas`` when forced on the others), and SanityFlow
+WIDE = {
+    "A d=128 depth 2 hidden 16": dict(dim=128, offset=(0.0,) * 128, depth=2,
+                                      hidden=(16,)),
+    "d=96 depth 4 hidden 16": dict(dim=96, offset=(0.0,) * 96, depth=4,
+                                   hidden=(16,)),
+    "B five linear layers": dict(hidden=(16,) * 4),
+    "width 96": dict(depth=2, hidden=(96,)),
+    "bench_persample d=128 depth 4 hidden 64": dict(
+        dim=128, offset=(0.0,) * 128, depth=4, hidden=(64,)),
+    "A Student-t + global affine": dict(
+        dim=128, offset=(0.0,) * 128, depth=2, hidden=(16,),
+        latent_name="Student_t", global_affine=True),
+    "SanityFlow d=4": dict(dim=4, offset=(0.0,) * 4),
+}
+W_K = 4  # A's steps, one at a time and as one graphed batch
+W_ROWS = 512  # rows of a W_N launch held against the plain version
+W_N = 16384  # the main path's N, where the kernel is timed and checked
+W_SAME_N = 2048  # where the kernel and torch.func are timed side by side
+
+
+def _wide_flow(label, dev):
+    """(flow, initial theta, directions) of a WIDE entry (any other label:
+    the preset's own): the preset's flow as build_problem makes it, or
+    SanityFlow with its scale at 1.3, with the preset's trace directions
+    at its dim."""
+    from vmc_pde_torch.models.sanity import SanityFlow
+
+    cfg = preset("fokkerPlanck32", **WIDE.get(label, {}))
+    eq = make_equation(cfg.equation, cfg.dim, **cfg.equation_params)
+    dirs = torch.as_tensor(eq.hessian_trace_dirs(cfg.dim),
+                           dtype=torch.float32, device=dev)
+    if label.startswith("SanityFlow"):
+        flow = SanityFlow(cfg.dim)
+        theta = torch.as_tensor(flow.layout.ravel(flow.init()),
+                                dtype=torch.float32, device=dev)
+        theta[flow.layout.offset(("scale",))] = 1.3
+        return flow, theta, dirs
+    flow, theta = build_flow(cfg.seed, cfg.dim, depth=cfg.depth,
+                             hidden=cfg.hidden_resolved(),
+                             variant=cfg.variant, out_scale=cfg.init_scale,
+                             latent_name=cfg.latent_name,
+                             global_affine=cfg.global_affine,
+                             offset=cfg.offset, dtype=torch.float32,
+                             device=dev)
+    return flow, theta, dirs
+
+
+def _tile_rows(plan, n, rows=W_ROWS):
+    """About ``rows`` rows of an n-sample launch under ``plan`` (an index
+    tensor): whole tiles of blocks spread over its grid, up to 4 tiles of
+    each (b, b + grid, b + 2 grid, ...), so that a block that runs several
+    tiles is held on its later tiles too."""
+    n_tiles = -(-n // plan.T)
+    m = min(-(-n_tiles // plan.grid), 4)
+    blocks = np.unique(np.linspace(0, plan.grid - 1,
+                                   max(1, rows // (m * plan.T))).round())
+    tiles = sorted(t for b in blocks.astype(int)
+                   for t in range(b, n_tiles, plan.grid)[:m])
+    return torch.as_tensor(np.concatenate([
+        np.arange(t * plan.T, min((t + 1) * plan.T, n)) for t in tiles]))
+
+
+def _wide_check(flow, theta, x, dirs, got, shift, where, rows=None,
+                modes=("plain", "split")):
+    """W3's check of the kernel's outputs ``got`` ({mode: the outputs of a
+    launch on all of x}, split mode's for ``shift``) on ``rows`` of x (all
+    of them: None) against the plain pipeline in f64 on those rows, in
+    chunks of W_SAME_N: each sample's largest error relative to the
+    output's largest reference value, to TOL (the split pair to TOL plus
+    its dropped residual 2^-16); on all rows, where the kernel misses TOL,
+    as phase 15 grades (_graded: plain f32 must miss it too, the
+    quantiles GRADE_Q within twice plain f32's, the largest within
+    GRADE_MAX times). Returns {mode: the largest abs error of O (split:
+    of hi + lo)}."""
+    idx = (torch.arange(x.shape[0]) if rows is None else rows).to(x.device)
+    th64, d64 = theta.double(), dirs.double()
+    names = {mode: ("logp", "g", "quad", "O" if mode == "plain" else "hi+lo")
+             for mode in modes}
+    errs = {(mode, name): ([], [], 0.0) for mode in modes
+            for name in names[mode]}
+
+    def pair(o):
+        hi, lo = stats._split_bf16(o - shift)
+        return hi.double() + lo.double()
+
+    for c in range(0, len(idx), W_SAME_N):
+        ic = idx[c:c + W_SAME_N]
+        ref = persample.per_sample_plain(flow, th64, x[ic].double(), d64)
+        p32 = persample.per_sample_plain(flow, theta, x[ic], dirs)
+        for mode in modes:
+            a = [v[ic] for v in got[mode][:3]]
+            r, p = list(ref[:3]), list(p32[:3])
+            if mode == "plain":
+                a.append(got[mode][3][ic])
+                r.append(ref[3])
+                p.append(p32[3])
+            else:
+                hi, lo = got[mode][3]
+                a.append(hi[ic].double() + lo[ic].double())
+                r.append(ref[3] - shift.double())
+                p.append(pair(p32[3]))
+            if mode == "plain" and c == 0 and rows is not None:
+                _print_rows(where, len(ic), a[3], r[3], p[3],
+                            _row_groups(flow))
+            for name, av, rv, pv in zip(names[mode], a, r, p):
+                if av.shape != rv.shape or not torch.isfinite(av).all():
+                    fail(f"{where}, {mode} mode {name}: shape "
+                         f"{tuple(av.shape)} vs {tuple(rv.shape)}, or not "
+                         f"finite")
+                ek, ep, top = errs[mode, name]
+                for v, out in ((av, ek), (pv, ep)):
+                    e = (v.double() - rv).abs()
+                    out.append(e if e.ndim == 1 else e.amax(1))
+                errs[mode, name] = (ek, ep, max(top, float(rv.abs().max())))
+        del ref, p32
+    worst = {}
+    for (mode, name), (ek, ep, top) in errs.items():
+        ek, ep = torch.cat(ek), torch.cat(ep)
+        worst[mode] = float(ek.max())
+        ek, ep = ek / max(top, 1.0), ep / max(top, 1.0)
+        rel, rel32 = float(ek.max()), float(ep.max())
+        tol = TOL["O"] + 2**-16 if name == "hi+lo" else TOL[name]
+        here = (f"{'split ' if mode == 'split' else ''}kernel vs plain, "
+                f"{where}, {len(idx)} rows")
+        print(f"{here}, {name}: relative {rel:.3e} (tol {tol:.1e}; plain "
+              f"f32 {rel32:.3e})")
+        if rel < tol:
+            continue
+        if rows is not None or rel32 < tol or not _graded(name, ek, ep, tol,
+                                                           here):
+            fail(f"{here}: kernel {name} disagrees with the plain version: "
+                 f"{rel:.3e}")
+    return worst
+
+
+def _wide_columns(flow, theta, x, dirs, shift, got, where):
+    """Split mode's column sums and max |O - shift| of a launch on all of
+    x against plain f32's, its O in chunks of W_SAME_N (sums in f64): the
+    sums to TOL of each column's sum of |O - shift| plus the largest (a
+    tile dropped or counted twice moves a sum by about T/N of its mass),
+    the max to TOL of the largest."""
+    P = flow.layout.size
+    csum = torch.zeros(P, dtype=torch.float64, device=x.device)
+    cabs = torch.zeros_like(csum)
+    cmax = torch.zeros(P, device=x.device)
+    for c in range(0, x.shape[0], W_SAME_N):
+        o = persample.per_sample_plain(flow, theta, x[c:c + W_SAME_N],
+                                       dirs)[3] - shift
+        csum += o.double().sum(0)
+        cabs += o.double().abs().sum(0)
+        cmax = torch.maximum(cmax, o.abs().amax(0))
+        del o
+    o_scale = cmax.double().max().clamp_min(1.0)
+    for name, a, r, scale in (("colsum", got[4], csum, cabs + o_scale),
+                              ("colmax", got[5], cmax, o_scale)):
+        if a.shape != r.shape or not torch.isfinite(a).all():
+            fail(f"{where}, split {name}: shape {tuple(a.shape)}, or not "
+                 f"finite")
+        rel = float(((a.double() - r.double()).abs() / scale).max())
+        print(f"split kernel vs plain f32, {where}, {name} over all "
+              f"{x.shape[0]} rows: relative {rel:.3e} (tol {TOL['O']:.1e})")
+        if not rel < TOL["O"]:
+            fail(f"{where}: split kernel {name} disagrees with plain f32's "
+                 f"over all rows: {rel:.3e}")
+
+
+def _wide_kernel(label, dev):
+    """W3 on one flow, at the main path's N = W_N in both modes, each with
+    the wrapper's own plan. On the initial theta and draws pushed through
+    the flow: the kernel timed (bound and share), and the timed call then
+    held against its plain version to TOL on W_ROWS rows of whole tiles
+    from blocks across the grid (_tile_rows: a block's later tiles too,
+    where it runs several), and split mode's column sums and max over all
+    W_N rows against plain f32's (_wide_columns; the shift, in both
+    modes' timing too, the plain f32 mean O of the first W_SAME_N rows).
+    At a perturbed theta (output weights +-0.03) on W_N standard normal x
+    (pushed through these flows a few x reach samples where f32 keeps no
+    digit): both modes on all W_N rows, to TOL or, where the kernel
+    misses it, graded as phase 15 grades (_wide_check). Then the kernel at
+    W_SAME_N beside torch.func (plain, and plain + split), which it must
+    beat."""
+    flow, theta0, dirs = _wide_flow(label, dev)
+    if not persample.supports(flow, dirs, None):
+        fail(f"W3 {label}: supports refuses the flow")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    perturbed = perturb_theta(flow, theta0, np.random.default_rng(18),
+                              out_scale=0.03)
+    if label.startswith("SanityFlow"):
+        perturbed[flow.layout.offset(("scale",))] = 0.8
+    P, d, k = flow.layout.size, flow.dim, dirs.shape[0]
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = {mode: persample.tile_plan(flow, k, W_N, n_sm, mode == "split")
+             for mode in ("plain", "split")}
+    out = dict(P=P, k=k, plan=tuple(plans["plain"]),
+               split_plan=tuple(plans["split"]), max_abs_err=0.0,
+               split_max_abs_err=0.0)
+    layers, n_ga = bounds.flow_layers(flow), bounds.flow_ga(flow)
+    reps = 10 if P < 100000 else 3
+    for name, theta in (("initial", theta0), ("perturbed", perturbed)):
+        params = flow.layout.unravel(theta)
+        x = (flow.push(params, flow.latent_sample(gen, params, W_N,
+                                                  torch.float32))[0]
+             if name == "initial" else
+             torch.randn((W_N, d), generator=gen, device=dev))
+        where = f"W3 {label}, {name} theta, N={W_N}"
+        shift = persample.per_sample_plain(flow, theta, x[:W_SAME_N],
+                                           dirs)[3].mean(0)
+        calls = {"plain": lambda v: persample.per_sample_cuda(
+                     flow, theta, v, dirs),
+                 "split": lambda v: persample.per_sample_split_cuda(
+                     flow, theta, v, dirs, shift)}
+        got = {}
+        for mode, call in calls.items():
+            if name == "initial":
+                ms = _time_ms(lambda: call(x), reps)
+                bound = bounds.persample(layers, d, P, W_N, k,
+                                         mode == "split", n_ga)
+                out[mode] = dict(ms=ms, bound_ms=bound[0],
+                                 bound_by=bound[1],
+                                 share_of_bound=bound[0] / ms)
+            got[mode] = call(x)
+        if name == "initial":
+            # each mode on whole tiles of its own launch
+            for mode in got:
+                err = _wide_check(flow, theta, x, dirs, got, shift, where,
+                                  _tile_rows(plans[mode], W_N), (mode,))
+                key = "split_max_abs_err" if mode == "split" else \
+                    "max_abs_err"
+                out[key] = max(out[key], err[mode])
+            _wide_columns(flow, theta, x, dirs, shift, got["split"], where)
+            xs, shift0 = x[:W_SAME_N].contiguous(), shift
+        else:
+            err = _wide_check(flow, theta, x, dirs, got, shift, where)
+            out["max_abs_err"] = max(out["max_abs_err"], err["plain"])
+            out["split_max_abs_err"] = max(out["split_max_abs_err"],
+                                           err["split"])
+        del got
+        torch.cuda.empty_cache()
+    for mode, cuda, plain in (
+            ("plain", lambda v: persample.per_sample_cuda(flow, theta0, v,
+                                                          dirs),
+             lambda v: persample.per_sample_plain(flow, theta0, v, dirs)),
+            ("split", lambda v: persample.per_sample_split_cuda(
+                flow, theta0, v, dirs, shift0),
+             lambda v: persample.per_sample_split_plain(flow, theta0, v,
+                                                        dirs, shift0))):
+        ms_same = _time_ms(lambda: cuda(xs), reps)
+        plain_ms = _time_ms(lambda: plain(xs), 1)
+        torch.cuda.empty_cache()
+        bound_same = bounds.persample(layers, d, P, W_SAME_N, k,
+                                      mode == "split", n_ga)[0]
+        rec = out[mode]
+        print(f"W3 {label} ({mode}, P={P}, k={k}, plan "
+              f"{tuple(plans[mode])}): CUDA kernel {rec['ms']:.3f} ms at "
+              f"N={W_N}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}"
+              f"), share {rec['share_of_bound']:.4f}; at N={W_SAME_N} "
+              f"kernel {ms_same:.4f} ms against torch.func"
+              f"{' + split' if mode == 'split' else ''} {plain_ms:.2f} ms "
+              f"({plain_ms / ms_same:.1f}x), bound {bound_same:.4f}")
+        if not ms_same < plain_ms:
+            fail(f"W3 {label}: the {mode} kernel ({ms_same:.3f} ms) is not "
+                 f"under torch.func ({plain_ms:.3f} ms) at N={W_SAME_N}")
+        rec.update(same_n_ms=ms_same, same_n_plain_ms=plain_ms,
+                   same_n_bound_ms=bound_same)
+    return out
+
+
+def _wide_sanity_rhs(dev):
+    """One TDVP RHS with SanityFlow(dim=4) at N=16384 in f32 with
+    per_sample_backend='cuda' (the kernel: one launch) on the card,
+    against the CPU's (the plain version) on the same draws: the update
+    within 1e-5, as L7 holds the torch.func RHS."""
+    from vmc_pde_torch.models.sanity import SanityFlow
+    from vmc_pde_torch.utils.dtypes import resolve
+
+    flow = SanityFlow(4)
+    params = flow.init()
+    params["scale"] = np.array([1.25])
+    params["latent"]["mu"] = np.array([0.1, -0.2, 0.3, 0.0])
+    z = torch.randn((16384, 4), generator=_gen(dev, 9), device=dev)
+    updates, out = {}, {}
+    for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        theta = torch.as_tensor(flow.layout.ravel(params),
+                                dtype=torch.float32, device=where)
+        prec = resolve("f32")
+        state = VarState(flow, theta, precision=prec,
+                         sampler=sampling.Sampler(4, dtype=torch.float32))
+        tdvp = TDVP(state, make_equation("diffusion", 4),
+                    tdvp_mod.TDVPConfig(per_sample_backend="cuda"),
+                    n_samples=16384, precision=prec)
+        _zero_counts()
+        aux = tdvp._rhs_impl(theta, 0.0, 0, z.to(where))
+        updates[label] = aux["update"].double().cpu()
+        if label == "card":
+            out["launches"] = _counts()["persample"]
+            if not tdvp.uses_kernel or out["launches"] != 1:
+                fail(f"W3 SanityFlow: uses_kernel {tdvp.uses_kernel}, "
+                     f"{out['launches']} launches, expected 1")
+    out["update_card_vs_cpu"] = _rel(updates["card"], updates["cpu"])
+    print(f"W3 SanityFlow(dim=4) RHS at N=16384, f32, per_sample_backend "
+          f"cuda: {out['launches']} launch, card vs CPU update "
+          f"{out['update_card_vs_cpu']:.2e} (1e-5)")
+    if not out["update_card_vs_cpu"] <= 1e-5:
+        fail(f"W3 SanityFlow: the RHS differs between card and CPU: "
+             f"{out['update_card_vs_cpu']}")
+    return out
+
+
+def phase_wide():
+    """Phase W: the per-sample kernel widened to every flow the JAX kernel
+    takes. W1: A through driver.run (uses_kernel), W_K fixed-Heun steps
+    one at a time and as one graphed batch (_graph_path: bit for bit,
+    launches counted), then the chunked tri2 + int8 path (split and quant8
+    at P=25,408); W2: B through driver.run; W3: every WIDE flow's kernel
+    against its plain version and timed (_wide_kernel)."""
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    out = {"paths": {}, "flows": {}}
+    for label in ("A d=128 depth 2 hidden 16", "B five linear layers"):
+        cfg = preset("fokkerPlanck32", device="cuda", **WIDE[label])
+        tdvp = driver.build_problem(cfg)[1]
+        if not tdvp.uses_kernel:
+            fail(f"W: {label} does not take the kernel under auto")
+        del tdvp
+    cfg = preset("fokkerPlanck32", device="cuda",
+                 **WIDE["A d=128 depth 2 hidden 16"])
+    graph = _graph_path("W1 A d=128 fixed_heun", cfg, W_K,
+                        {"persample": 2, "jacobi": 2})
+    out["W1"] = {k: graph[k] for k in (
+        "theta_max_diff", "launches", "launches_per_step_run",
+        "per_step_s", "batched_s_per_step", "capture_s", "replay_launches",
+        "seconds")}
+    out["paths"]["W1 A d=128 N=16384 fixed_heun, per step (4 steps)"] = \
+        graph["launches_per_step_run"]["persample"]
+    out["paths"]["W1 A d=128 N=16384 fixed_heun at K=4, from the batched "
+                 "run's trace (the warm-up step and 4 replays)"] = \
+        graph["launches"]["persample"]
+    n_steps = 2
+    _, _, counts = _drive(None, "W1 A d=128 N=131072 chunked tri2+int8",
+                          n_steps, dim=128, cfg=dataclasses.replace(
+                              cfg, n_samples_tdvp=131072,
+                              n_samples_obs=131072, chunk_size=65536,
+                              gram_backend="tri2", gram_cross="int8"))
+    want = n_steps * 2 * 2
+    if (counts["persample_split"], counts["quant8"]) != (want, 2 * want) \
+            or counts["persample"] == 0:
+        fail(f"W1 chunked: launches {counts}, expected {want} split, "
+             f"{2 * want} quant8 and the pilots")
+    out["chunked_counts"] = counts
+    b_steps = 3
+    _, _, counts = _drive(None, "W2 B five linear layers N=16384", b_steps,
+                          cfg=preset("fokkerPlanck32", device="cuda",
+                                     **WIDE["B five linear layers"]))
+    if counts["persample"] != 2 * b_steps:
+        fail(f"W2: {counts['persample']} launches, expected {2 * b_steps}")
+    out["paths"]["W2 B five linear layers N=16384 fixed_heun (3 steps)"] = \
+        counts["persample"]
+    # the flows auto leaves off the kernel, forced: the P=141,504 flow in
+    # its regime (minSR, N=1024 < P; its f32 Gram would take 80 GB) and
+    # SanityFlow's one RHS against the CPU's
+    label = "bench_persample d=128 depth 4 hidden 64"
+    _, _, counts = _drive(None, f"W3 {label} minsr N=1024", 2, dim=128,
+                          cfg=preset("fokkerPlanck32", device="cuda",
+                                     solver_method="minsr",
+                                     n_samples_tdvp=1024, n_samples_obs=1024,
+                                     per_sample_backend="cuda", **WIDE[label]))
+    if counts["persample"] != 4:
+        fail(f"W3 {label}: {counts['persample']} launches in 2 minSR "
+             f"steps, expected 4")
+    out["paths"][f"W3 {label} (P=141,504) minsr N=1024, per_sample_backend "
+                 f"cuda (2 steps)"] = counts["persample"]
+    out["sanity_rhs"] = _wide_sanity_rhs(dev)
+    out["paths"]["W3 SanityFlow d=4 one RHS, per_sample_backend cuda"] = \
+        out["sanity_rhs"]["launches"]
+    for label in WIDE:
+        out["flows"][label] = _wide_kernel(label, dev)
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase W: {out['seconds']:.1f} s")
+    return out
+
+
 def main():
     phase_device()
     _watch_profilers()
@@ -4915,6 +5336,8 @@ def main():
                                       results["jacobi_blocks"])
     # the block variant's path: the diffusion preset's eigh solve
     launches["jacobi_blocks"] = next(iter(block_paths.values()))
+    wide = phase_wide()
+    paths.update(wide["paths"])
     solvers, solver_paths, split_paths, q8_paths = phase_solvers(theta5)
     paths.update(solver_paths)
     qhi, qhi_paths, qhi_split, qhi_q8 = phase_qmc_hessian_integrals(
@@ -4950,14 +5373,22 @@ def main():
         ranks[0]["paths"]["direct"]["counts"]["persample"]
     mesh_paths = {name: {k: v for k, v in path.items() if k != "counts"}
                   for name, path in ranks[0]["paths"].items()}
-    scope = {"persample": "Gauss and Student_t latents, with and without "
-                          "the global affine (fokkerPlanck32 flows at "
-                          "P=9264 and P=9397, diffusion_anisotropic's)",
-             "persample_split": "Gauss and Student_t latents, with and "
-                                "without the global affine (P=9264, 9397)"}
-    for name in scope:
-        results[name] = dict(results[name], scope=scope[name],
-                             student_t_global_affine=student[name])
+    flows = ("the JAX kernel's: Gauss and Student_t latents, with and "
+             "without the global affine, any dim, coupling half, "
+             "conditioner width and depth, any number of coupling blocks "
+             "(fokkerPlanck32 flows at P=9264 and 9397; " + ", ".join(
+                 f"{label} P={rec['P']}"
+                 for label, rec in wide["flows"].items()))
+    scope = {"persample": flows + "; diffusion_anisotropic's)",
+             "persample_split": flows + ")"}
+    for name, mode in (("persample", "plain"), ("persample_split", "split")):
+        results[name] = dict(
+            results[name], scope=scope[name],
+            student_t_global_affine=student[name],
+            wide_flows={label: dict(rec[mode], P=rec["P"], k=rec["k"],
+                                    plan=rec["plan" if mode == "plain"
+                                             else "split_plan"])
+                        for label, rec in wide["flows"].items()})
     results["persample"]["launches_by_path"] = paths
     for name, more in (("persample_split", split_paths),
                        ("quant8", q8_paths)):
@@ -4965,7 +5396,9 @@ def main():
             "fokkerPlanck32 N=524288 chunked tri2+int8 fixed_heun":
                 launches[name],
             "fokkerPlanck32 N=524288 chunked tri2+int8 adaptive_heun":
-                prod[name], **more}
+                prod[name],
+            "W1 A d=128 N=131072 chunked tri2+int8 fixed_heun (2 steps)":
+                wide["chunked_counts"][name], **more}
     results["syrk"]["launches_by_path"] = {
         "fokkerPlanck32 N=16384 syrk fixed_heun": launches["syrk"],
         "one direct batch with the dense SExp (S0, A, SExp)":
@@ -4996,6 +5429,7 @@ def main():
     print(json.dumps({"run_state": run_state}))
     print(json.dumps({"oracles": oracles}, default=str))
     print(json.dumps({"multistep": multistep}, default=str))
+    print(json.dumps({"wide": wide}, default=str))
     print(json.dumps({"kernels": [
         dict(name=name, route="cuda", source=KERNELS[name][0],
              replaces=KERNELS[name][1], launches=launches[name],

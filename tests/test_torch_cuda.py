@@ -25,6 +25,8 @@ bit-identical to the plain version's, and its f agree to 1e-5 of the
 largest value (f32 sums of exact bf16 products in another order).
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from vmc_pde_torch.models.coupling import VARIANTS
 from vmc_pde_torch.models.flow import build_flow, perturb_theta
 from vmc_pde_torch.ops.evolution import make_equation
 from vmc_pde_torch.parallel import stats
+from tools.persample_witness import kernel_order
 
 pytestmark = pytest.mark.cuda
 
@@ -90,17 +93,19 @@ def _close(name, a, r, p, tol):
     assert ek.max() < max(tol, 10.0 * ep.max()), (name, err, ep.max())
 
 
-def _check(flow, theta, x, dirs, graded=False):
+def _check(flow, theta, x, dirs, graded=False, order=False):
     """The kernel against the plain version in f64 to TOL (``graded``:
-    or to plain f32's own error, _close)."""
+    or to plain f32's own error, _close; with ``order``, plain f32 summed
+    in the kernel's order, tools/persample_witness.kernel_order)."""
     dirs64 = None if dirs is None else torch.as_tensor(
         dirs, dtype=torch.float64, device=x.device)
     ref = persample.per_sample_plain(flow, theta, x, dirs64)
     got = persample.per_sample_cuda(flow, theta.float(), x.float(), dirs)
-    p32 = (persample.per_sample_plain(
-        flow, theta.float(), x.float(),
-        None if dirs64 is None else dirs64.float()) if graded
-        else (None,) * 4)
+    with kernel_order() if order else contextlib.nullcontext():
+        p32 = (persample.per_sample_plain(
+            flow, theta.float(), x.float(),
+            None if dirs64 is None else dirs64.float()) if graded
+            else (None,) * 4)
     torch.cuda.synchronize()
     for name, a, r, p in zip(("logp", "g", "quad", "O"), got, ref, p32):
         if r is None:
@@ -150,9 +155,9 @@ def test_kernel_rejects_f64(dev):
         persample.per_sample_cuda(flow, theta, x, None)
 
 
-def _check_split(flow, theta, x, dirs, graded=False):
-    """Split mode against the plain version in f64 (``graded``: as
-    _check)."""
+def _check_split(flow, theta, x, dirs, graded=False, order=False):
+    """Split mode against the plain version in f64 (``graded``,
+    ``order``: as _check)."""
     dirs64 = None if dirs is None else torch.as_tensor(
         dirs, dtype=torch.float64, device=x.device)
     P = flow.layout.size
@@ -160,10 +165,11 @@ def _check_split(flow, theta, x, dirs, graded=False):
     ref = persample.per_sample_plain(flow, theta, x, dirs64)
     got = persample.per_sample_split_cuda(flow, theta.float(), x.float(),
                                           dirs, shift)
-    p32 = (persample.per_sample_split_plain(
-        flow, theta.float(), x.float(),
-        None if dirs64 is None else dirs64.float(), shift) if graded
-        else (None,) * 4)
+    with kernel_order() if order else contextlib.nullcontext():
+        p32 = (persample.per_sample_split_plain(
+            flow, theta.float(), x.float(),
+            None if dirs64 is None else dirs64.float(), shift) if graded
+            else (None,) * 4)
     torch.cuda.synchronize()
     for name, a, r, p in zip(("logp", "g", "quad"), got, ref, p32):
         if r is None:
@@ -272,19 +278,24 @@ def _check_plan(flow, k, n, dev, plan):
     assert persample.tile_plan(flow, k, n, n_sm)[:5] == plan
 
 
+SHARED = persample.ALL & ~persample.FC  # every region but the constants
+
+
 @pytest.mark.parametrize("dim,depth,hidden,variant,n,plan", [
-    (32, 4, (32,), "affine", 1001, (8, 128, 128, 0, True)),
-    (24, 3, (20, 20), "scale_shift", 4097, (16, 256, 192, 0, True)),
-    (64, 4, (16,), "affine", 1001, (8, 128, 128, 0, True)),
-    (64, 4, (32,), "affine", 16385, (8, 128, 128, 0, False))])
+    (32, 4, (32,), "affine", 1001, (8, 128, 128, 0, SHARED)),
+    (24, 3, (20, 20), "scale_shift", 4097, (16, 256, 192, 0, SHARED)),
+    (64, 4, (16,), "affine", 1001, (8, 128, 128, 0, SHARED)),
+    (64, 4, (32,), "affine", 16385, (16, 256, 256, 0, persample.TILE))])
 def test_kernel_generic_jets(dev, dim, depth, hidden, variant, n, plan):
     """Flows with a layer or a coupling half wider than the register width
-    take the generic jet body (MW = 0): a hidden width of 32, two hidden
+    take the chunked jet body (MW = 0): a hidden width of 32, two hidden
     layers of 20 (rows padded to 24) and fokkerPlanck32's flow at d=64
-    with hidden 16 (halves of 32), theta in shared memory; and
+    with hidden 16 (halves of 32), theta in shared memory (the constants
+    read through L1); and
     fokkerPlanck32's flow at d=64 with its hidden width d/2 = 32 (P =
     35936, the ROADMAP's d=64 cell), where theta does not fit beside a
-    tile and is read from global memory. Ragged batches, both modes
+    tile and is read from global memory, and the work rows sit in the
+    workspace. Ragged batches, both modes
     against the plain version. The draws themselves are x, as for the
     other perturbed flows here; where plain f32 misses TOL on them (the
     wide layers' sums) the kernel is held to plain f32's own error
@@ -305,10 +316,17 @@ def test_kernel_generic_jets(dev, dim, depth, hidden, variant, n, plan):
     _check_split(flow, theta, x, dirs, graded=True)
 
 
-def test_kernel_theta_in_global_memory_matches_resident(dev, monkeypatch):
-    """The launch with theta in global memory gives the same bits as the
-    launch with theta in shared memory, plain and split, on a flow that
-    fits both ways (hidden 32: the generic body)."""
+@pytest.mark.parametrize("where", [
+    persample.ALL & ~persample.TH, 0, persample.TILE | persample.WORK,
+    persample.TH | persample.FC])
+def test_kernel_theta_in_global_memory_matches_resident(dev, monkeypatch,
+                                                        where):
+    """The launch with theta -- or any other of the block's regions -- in
+    global memory (the constants read from their input, the tile's arrays
+    and the work rows in the workspace) gives the same bits as the launch
+    with every region in shared memory, plain and split, on a flow that
+    fits both ways (hidden 32: the chunked body); with a workspace the
+    grid is 2 blocks per SM, each running several tiles."""
     flow, theta, x = _case(dev, "affine", 32, 4, (32,), 1001,
                            out_scale=0.03, push=False)
     theta, x = theta.float(), x.float()
@@ -316,21 +334,146 @@ def test_kernel_theta_in_global_memory_matches_resident(dev, monkeypatch):
                          coupled=True).hessian_trace_dirs(32)
     shift = torch.linspace(-0.5, 0.5, flow.layout.size, device=dev)
     k = len(dirs)
-    T, threads, J, MW, resident, _ = persample.tile_plan(flow, k, 1001)
-    assert (MW, resident) == (0, True)
-    res = (persample.per_sample_cuda(flow, theta, x, dirs),
-           persample.per_sample_split_cuda(flow, theta, x, dirs, shift))
+    plan = persample.tile_plan(flow, k, 1001)
+    assert plan.MW == 0 and plan.ws == 0
     meta, n_sv = persample.block_plan(flow, k)
-    smem = 4 * persample.smem_floats(
-        int(meta[11]), persample._n_fconst(flow, k), meta.size, n_sv,
-        flow.dim, k, T, J, int(meta[14]), resident=False)
-    monkeypatch.setattr(persample, "tile_plan", lambda *a: (
-        T, threads, J, 0, False, smem))
-    glob = (persample.per_sample_cuda(flow, theta, x, dirs),
-            persample.per_sample_split_cuda(flow, theta, x, dirs, shift))
-    for a, b in zip(res[0] + res[1][:3] + res[1][3] + res[1][4:],
-                    glob[0] + glob[1][:3] + glob[1][3] + glob[1][4:]):
+
+    def launch(where):
+        smem, ws = persample.smem_floats(
+            int(meta[11]), persample._n_fconst(flow, k), meta.size, n_sv,
+            flow.dim, k, plan.T, plan.J, int(meta[14]), int(meta[15]),
+            where)
+        grid = min(plan.grid, 2) if ws else plan.grid
+        monkeypatch.setattr(persample, "tile_plan", lambda *a, **kw: (
+            plan._replace(where=where, smem=4 * smem, ws=ws, grid=grid)))
+        return (persample.per_sample_cuda(flow, theta, x, dirs),
+                persample.per_sample_split_cuda(flow, theta, x, dirs, shift))
+
+    res, glob = launch(persample.ALL), launch(where)
+    for a, b in zip(res[0] + res[1][:3] + res[1][3],
+                    glob[0] + glob[1][:3] + glob[1][3]):
         assert torch.equal(a, b)
+    # the column statistics: the max in any order, the sums over the
+    # grid's partials in another order
+    assert torch.equal(res[1][5], glob[1][5])
+    scale = float(res[1][5].max())
+    assert float((res[1][4] - glob[1][4]).abs().max()) <= (
+        1001 * 2**-16 * scale)
+
+
+def _fp32_wide(dev, n, seed=3, latent_name="Gauss", global_affine=False,
+               **kw):
+    """A fokkerPlanck32 flow with the preset's arguments changed by ``kw``
+    (its dim, depth and hidden widths), at a small perturbation, n draws
+    that are x themselves (as for the wide flows above: pushed through
+    these perturbed flows a few reach samples where plain f32 keeps no
+    digit -- half the largest g at the 0.999 quantile at d=96), and its
+    trace directions."""
+    from vmc_pde_torch.config import preset
+
+    cfg = preset("fokkerPlanck32", **kw)
+    flow, theta, x = _case(dev, cfg.variant, cfg.dim, cfg.depth,
+                           cfg.hidden_resolved(), n, out_scale=0.03,
+                           push=False, seed=seed, latent_name=latent_name,
+                           global_affine=global_affine)
+    eq = make_equation(cfg.equation, cfg.dim, **cfg.equation_params)
+    return flow, theta, x, eq.hessian_trace_dirs(cfg.dim)
+
+
+WIDE = {
+    "d128": dict(dim=128, offset=(0.0,) * 128, depth=2, hidden=(16,)),
+    "d96": dict(dim=96, offset=(0.0,) * 96, depth=4, hidden=(16,)),
+    "five layers": dict(hidden=(16, 16, 16, 16)),
+    "width 96": dict(depth=2, hidden=(96,)),
+    "d128 depth 4 hidden 64": dict(dim=128, offset=(0.0,) * 128, depth=4,
+                                   hidden=(64,)),
+    "d256 hidden 8": dict(dim=256, offset=(0.0,) * 256, depth=2,
+                          hidden=(8,)),
+}
+
+
+# Where the kernel misses TOL on the perturbed wide flows (WIDE), it is
+# graded (_close's rule) against plain f32 summed in the kernel's order
+# (tools/persample_witness.kernel_order: each layer's sum a chain of FMAs
+# over its inputs, the latent's through the explicit U^{-1}): at the few
+# samples of 2003 where these flows amplify rounding by 1e4 and more, the
+# order of the sums alone moves plain f32's largest error by up to 9x
+# either way (d=96's quad: 1.8e-4 of its largest value in batched
+# matmuls, 1.7e-3 in the kernel's order, the kernel's 1.8e-3; an H100
+# 80GB HBM3 at 700 W, tools/persample_witness.py).
+
+
+@pytest.mark.parametrize("label", list(WIDE))
+def test_kernel_wide_flows(dev, label):
+    """Flows past d = 64, halves of 32, widths of 64 and four linear
+    layers (theta and W^T too large for shared memory too: d=256 keeps
+    its work rows in the workspace) at a ragged batch
+    of 2003 (so that the graded rule's 0.999 quantile is not the worst
+    sample alone, which of two f32 evaluations errs more at it being a
+    coin toss; 203 at d=256, where the plain pipeline's quad trace over
+    128 directions would take 125 GB at 2003), both modes against the
+    plain version, graded against plain f32 in the kernel's order."""
+    n = 203 if label == "d256 hidden 8" else 2003
+    flow, theta, x, dirs = _fp32_wide(dev, n, **WIDE[label])
+    assert persample.supports(flow, dirs, None)
+    if label == "d256 hidden 8":
+        plan = persample.tile_plan(flow, len(dirs), n)
+        assert plan.ws and not plan.where & persample.FC
+    _check(flow, theta, x, dirs, graded=True, order=True)
+    _check_split(flow, theta, x, dirs, graded=True, order=True)
+
+
+def test_kernel_wide_student_t_global_affine(dev):
+    """The d=128 flow with the Student-t latent and the global affine in
+    every block, both modes."""
+    flow, theta, x, dirs = _fp32_wide(dev, 2003, latent_name="Student_t",
+                                      global_affine=True, **WIDE["d128"])
+    _check(flow, theta, x, dirs, graded=True, order=True)
+    _check_split(flow, theta, x, dirs, graded=True, order=True)
+
+
+@pytest.mark.parametrize("latent_name", ["Gauss", "Student_t"])
+def test_kernel_sanity_flow(dev, latent_name):
+    """SanityFlow (no coupling blocks, P = 15 at d=4 Gauss): the latent
+    behind the learned scale, its scale row among the O rows, both modes
+    and without directions."""
+    from vmc_pde_torch.models.sanity import SanityFlow
+
+    flow = SanityFlow(4, latent_name=latent_name)
+    theta = torch.as_tensor(flow.layout.ravel(flow.init()), device=dev)
+    theta[flow.layout.offset(("scale",))] = 1.3
+    x = torch.randn((77, 4), generator=torch.Generator(
+        device=dev).manual_seed(5), dtype=torch.float64, device=dev)
+    dirs = np.random.default_rng(6).standard_normal((3, 4))
+    _check(flow, theta, x, dirs)
+    _check(flow, theta, x, None)
+    _check_split(flow, theta, x, dirs)
+
+
+def test_split_grid_below_the_tiles(dev, monkeypatch):
+    """Split mode with the grid cut below the tiles (SPLIT_PART_BYTES):
+    each block sums its tiles into its partial in order; the pair and
+    the column max equal the one-block-per-tile launch's bits, the
+    column sums agree to the sums' rounding, and two launches agree bit
+    for bit."""
+    flow, theta, x, dirs = _fp32_case(dev, 4097)
+    theta, x = theta.float(), x.float()
+    shift = torch.linspace(-0.5, 0.5, flow.layout.size, device=dev)
+    full = persample.per_sample_split_cuda(flow, theta, x, dirs, shift)
+    monkeypatch.setattr(persample, "SPLIT_PART_BYTES", 8 * flow.layout.size)
+    persample.tile_plan.cache_clear()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = persample.tile_plan(flow, len(dirs), 4097, n_sm, True)
+    assert plan.grid == n_sm < -(-4097 // plan.T)
+    cut = persample.per_sample_split_cuda(flow, theta, x, dirs, shift)
+    again = persample.per_sample_split_cuda(flow, theta, x, dirs, shift)
+    persample.tile_plan.cache_clear()
+    for a, b, c in zip(full[:3] + full[3] + full[5:], cut[:3] + cut[3]
+                       + cut[5:], again[:3] + again[3] + again[5:]):
+        assert torch.equal(a, b) and torch.equal(b, c)
+    assert torch.equal(cut[4], again[4])
+    scale = float(full[5].max())
+    assert float((full[4] - cut[4]).abs().max()) <= 4097 * 2**-16 * scale
 
 
 @pytest.mark.parametrize("n", [4096, 4097])
@@ -371,13 +514,12 @@ def test_kernel_saves_dump_matches_forward(dev):
     params = flow.layout.unravel(theta)
     for b, ((u1, u2, v1), spec) in enumerate(zip(
             forward_values(flow, params, x), flow.blocks)):
-        r = persample.HDR + b * persample.BLOCK_REC
-        last = r + 8 + persample.NETS.index("s2") * persample.NET_REC + 5 * (
-            len(spec.hidden))
+        r = persample.block_record(meta, b)
+        last = persample.layer_record(meta, b, "s2", len(spec.hidden))
         s2 = mlp.apply(params["blocks"][b]["s2"], u2, spec.alpha)
         for slot, ref, scale in ((meta[r + 4], u1, 1.0), (meta[r + 5], u2, 1.0),
                                  (meta[r + 6], v1, 1.0),
-                                 (meta[last + 4], s2, spec.alpha)):
+                                 (last[4], s2, spec.alpha)):
             dump = saves[slot:slot + ref.shape[1]].T.double() * scale
             err = float((dump - ref).abs().max() / ref.abs().max())
             assert err < TOL["logp"], (b, slot, err)

@@ -121,8 +121,9 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_block_plan_matches_layout():
     """The plan the CUDA kernel reads: every layer's bias/weight offsets
     are the flat layout's, the saves tile [0, n_saves) without overlap,
-    the partitions are the blocks', and every theta row is covered once
-    (so every O row is written)."""
+    the partitions are the blocks', the variable-length records follow
+    each other after the table of their starts, and every theta row is
+    covered once (so every O row is written)."""
     flow, _ = build_flow(0, 6, depth=3, hidden=(3, 4), variant="affine")
     meta, n_sv = persample.block_plan(flow, n_dirs=2)
     lay = flow.layout
@@ -132,27 +133,29 @@ def test_block_plan_matches_layout():
                               lay.offset(("latent", "mu")), n_sv]
     rows = np.zeros(lay.size, int)
     saves = np.zeros(n_sv, int)
+    at = persample.HDR + len(flow.blocks)
     for b, spec in enumerate(flow.blocks):
-        r = persample.HDR + b * persample.BLOCK_REC
+        r = persample.block_record(meta, b)
         n_up, n_down = len(spec.ind_up), len(spec.ind_down)
+        assert r == at
+        at += (persample.BLOCK_HDR + 4 * 3 * persample.LAYER_REC + n_up
+               + n_down)
         assert list(meta[r:r + 4]) == [1, n_up, n_down, 3]
         for slot, width in ((4, n_up), (5, n_down), (6, n_up)):
             saves[meta[r + slot]:meta[r + slot] + width] += 1
-        for ni, net in enumerate(persample.NETS):
+        for net in persample.NETS:
             dims = [spec.net_dims(net)[0], 3, 4, spec.net_dims(net)[1]]
             for layer in range(3):
-                q = r + 8 + ni * persample.NET_REC + 5 * layer
-                n_in, n_out, b_off, w_off, sv = meta[q:q + 5]
+                n_in, n_out, b_off, w_off, sv = persample.layer_record(
+                    meta, b, net, layer)[:5]
                 assert (n_in, n_out) == (dims[layer], dims[layer + 1])
                 assert b_off == lay.offset(("blocks", b, net, "b", layer))
                 assert w_off == lay.offset(("blocks", b, net, "w", layer))
                 rows[b_off:b_off + n_out] += 1
                 rows[w_off:w_off + n_in * n_out] += 1
                 saves[sv:sv + n_out] += 1
-        ind = r + 8 + 4 * persample.NET_REC
-        assert tuple(meta[ind:ind + n_up]) == spec.ind_up
-        assert tuple(meta[ind + persample.MAX_HALF:
-                          ind + persample.MAX_HALF + n_down]) == spec.ind_down
+        assert persample.halves(meta, b) == (spec.ind_up, spec.ind_down)
+    assert at == meta.size
     for name in ("L", "L_diag", "mu"):
         off = lay.offset(("latent", name))
         size = int(np.prod(lay.shapes["latent"][name]))
@@ -161,17 +164,25 @@ def test_block_plan_matches_layout():
 
 
 def test_supports_gate():
+    """The JAX kernel's gate: trace mode or no Hessian, a Gauss or
+    Student-t latent, and no limit on dim, half, width or depth (a layer
+    of 65, five linear layers and d = 66 are taken, and planned); block
+    mode and the cosine-bump latent are refused."""
     flow, _ = build_flow(0, 32, depth=4, hidden=(16,), variant="affine")
     dirs = np.eye(32)[1::2]
     assert persample.supports(flow, dirs, tuple(range(1, 32, 2)))
     assert persample.supports(flow, None, None)          # no Hessian needed
     assert not persample.supports(flow, None, (0, 1))    # block mode
     wide, _ = build_flow(0, 8, depth=2, hidden=(65,))
-    assert not persample.supports(wide, np.eye(8), None)
+    assert persample.supports(wide, np.eye(8), None)
     deep, _ = build_flow(0, 8, depth=2, hidden=(4,) * 4)
-    assert not persample.supports(deep, np.eye(8), None)
+    assert persample.supports(deep, np.eye(8), None)
     big, _ = build_flow(0, 66, depth=2, hidden=(4,))
-    assert not persample.supports(big, np.eye(66), None)
+    assert persample.supports(big, np.eye(66), None)
+    for f, k in ((wide, 8), (deep, 8), (big, 66)):
+        assert persample.tile_plan(f, k, 16384).smem <= persample.SMEM_LIMIT
+    bump, _ = build_flow(0, 2, depth=2, hidden=(4,), latent_name="cos_dist")
+    assert not persample.supports(bump, None, None)
 
 
 # -- the CUDA kernel's launch plan (pure Python; the kernel runs on the card)
@@ -207,19 +218,19 @@ def _preset_flows():
 
 
 def _parent_supports(flow, n_dirs):
-    """The capability check before the tile layout: the same limits, and
+    """The capability check before the tile layout: dim <= 64, halves <=
+    32, layers <= 64 wide, at most 4 linear layers per conditioner, and
     theta with the constants and the plan (154-int block records) within
     SMEM_LIMIT."""
     d, nb = flow.dim, len(flow.blocks)
     n_fconst = d * d + d + n_dirs * d + nb + 3
-    n_meta = persample.HDR + nb * 154
+    n_meta = 16 + nb * 154
     return (flow.latent_name in persample.LATENT_CODES
-            and d <= persample.MAX_DIM
-            and all(len(s.hidden) + 1 <= persample.MAX_LAYERS
+            and nb > 0 and d <= 64
+            and all(len(s.hidden) + 1 <= 4
                     and max((*s.hidden, len(s.ind_up), len(s.ind_down)))
-                    <= persample.MAX_WIDTH
-                    and max(len(s.ind_up), len(s.ind_down))
-                    <= persample.MAX_HALF for s in flow.blocks)
+                    <= 64 and max(len(s.ind_up), len(s.ind_down)) <= 32
+                    for s in flow.blocks)
             and 4 * (flow.layout.size + n_fconst + n_meta)
             <= persample.SMEM_LIMIT)
 
@@ -229,23 +240,29 @@ def _parent_supports(flow, n_dirs):
 def test_tile_plan_keeps_the_envelope_and_fits(label, flow, dirs):
     """Every preset flow the kernel took before the tile layout it still
     takes, and at every batch size the chosen tile (T of TILES, jet slots
-    within the threads and the pairs, the register width only with theta
-    resident) fits the block's shared memory, counted region by region."""
+    within the threads and the pairs, the register width only with every
+    region in shared memory) fits the block's shared memory, counted
+    region by region, with a workspace only for the regions outside it
+    and a grid of whole tiles."""
     k = 0 if dirs is None else len(dirs)
     assert persample.supports(flow, dirs, None) >= _parent_supports(flow, k)
     if not persample.supports(flow, dirs, None):
         return
     meta, n_sv = persample.block_plan(flow, k)
     for n in (1, 7, 2048, 4096, 4097, 16384, 65536):
-        T, threads, J, MW, resident, smem = persample.tile_plan(flow, k, n)
+        plan = persample.tile_plan(flow, k, n)
+        T, threads, J, MW, where, smem, ws, grid = plan
         assert T in persample.TILES and threads % 32 == 0 and T <= threads
         assert (J == 0) == (k == 0) and J <= min(threads, T * k)
         assert MW in (0, persample.register_width(flow))
-        assert resident or MW == 0
-        assert smem == 4 * persample.smem_floats(
-            int(meta[11]), persample._n_fconst(flow, k), meta.size, n_sv,
-            flow.dim, k, T, J, int(meta[14]), resident)
+        assert where == persample.ALL or MW == 0
+        assert (smem, ws) == tuple(v * f for v, f in zip(
+            persample.smem_floats(
+                int(meta[11]), persample._n_fconst(flow, k), meta.size,
+                n_sv, flow.dim, k, T, J, int(meta[14]),
+                0 if MW else int(meta[15]), where), (4, 1)))
         assert smem <= persample.SMEM_LIMIT
+        assert 1 <= grid <= -(-n // T) and (ws or grid == -(-n // T))
 
 
 def test_tile_plan_fills_the_card():
@@ -256,9 +273,10 @@ def test_tile_plan_fills_the_card():
     assert flow.layout.size == 9264
     plan = {n: persample.tile_plan(flow, 16, n)[:5]
             for n in (2048, 4096, 16384, 65536)}
-    assert plan[16384] == plan[65536] == (32, 256, 256, 16, True)
-    assert plan[4096] == (16, 256, 256, 16, True)
-    assert plan[2048] == (8, 128, 128, 16, True)
+    ALL = persample.ALL
+    assert plan[16384] == plan[65536] == (32, 256, 256, 16, ALL)
+    assert plan[4096] == (16, 256, 256, 16, ALL)
+    assert plan[2048] == (8, 128, 128, 16, ALL)
 
 
 @pytest.mark.parametrize("kw", [
@@ -272,24 +290,21 @@ def test_kernel_layout_repacks_theta(kw):
     register width) at the table's offsets, the global affine's and the
     latent's vectors at theirs, and the plan's header pointing at them."""
     flow, theta = build_flow(0, **kw)
-    kidx, table, mu, ld = persample.kernel_layout(flow)
+    kidx, table, mu, ld, scale = persample.kernel_layout(flow)
+    assert scale == -1
     tk = torch.cat([theta, theta.new_zeros(1)])[torch.as_tensor(kidx)]
     params = flow.layout.unravel(theta)
     MW = persample.register_width(flow)
     meta, _ = persample.block_plan(flow, 2)
-    ktab = meta[10]
     assert (meta[11], meta[12], meta[13]) == (len(kidx), mu, ld)
     for b, spec in enumerate(flow.blocks):
-        assert (meta[ktab + b * persample.KL_REC:
-                     ktab + (b + 1) * persample.KL_REC] == table[b]).all()
-        for ni, net in enumerate(persample.NETS):
-            if net not in spec.nets:
-                continue
+        for net in spec.nets:
             n_in, n_out = spec.net_dims(net)
             dims = [n_in, *spec.hidden, n_out]
             for layer in range(len(dims) - 1):
-                b_off, w_off, stride = table[b, 3 * (
-                    ni * persample.MAX_LAYERS + layer):][:3]
+                b_off, w_off, stride = table[b, net, layer]
+                assert tuple(persample.layer_record(meta, b, net, layer)[
+                    5:]) == (b_off, w_off, stride)
                 assert b_off % 4 == w_off % 4 == stride % 4 == 0
                 assert stride == (MW or -(-dims[layer + 1] // 4) * 4)
                 rows = tk[w_off:w_off + (MW or dims[layer]) * stride]
@@ -301,7 +316,7 @@ def test_kernel_layout_repacks_theta(kw):
                 assert torch.equal(tk[b_off:b_off + dims[layer + 1]],
                                    params["blocks"][b][net]["b"][layer])
         if spec.global_affine:
-            g, g_off = table[b, -2:]
+            g, g_off = table[b, "g"]
             assert tk[g] == params["blocks"][b]["g_scale"]
             assert torch.equal(tk[g_off:g_off + flow.dim],
                                params["blocks"][b]["g_offset"])
@@ -311,9 +326,9 @@ def test_kernel_layout_repacks_theta(kw):
 
 def test_constants_match_the_kernel_source():
     """The plan's and the launch's constants here equal csrc/persample.cu's
-    (parsed from the source): record sizes, limits, threads, shared
-    scratch rows, the coupling variants' codes, the tiles and the register
-    width the launch accepts."""
+    (parsed from the source): record sizes, threads, shared scratch rows,
+    the register width, the regions' bits, the coupling variants' codes,
+    the tiles and the register widths the launch accepts."""
     import pathlib
     import re
 
@@ -323,10 +338,13 @@ def test_constants_match_the_kernel_source():
     for name, expr in re.findall(r"^constexpr int (\w+) = ([^;]+);", src,
                                  re.M):
         env[name] = eval(expr, {}, dict(env))  # noqa: S307
-    for name in ("HDR", "MAX_HALF", "MAX_WIDTH", "MAX_LAYERS",
-                 "NET_REC", "BLOCK_REC", "GA_REC", "KL_REC", "MAX_THREADS",
-                 "N_SCRATCH", "N_PER_SAMPLE"):
+    for name in ("HDR", "BLOCK_HDR", "LAYER_REC", "MAX_THREADS",
+                 "N_SCRATCH", "N_PER_SAMPLE", "REGISTER_WIDTH"):
         assert env[name] == getattr(persample, name), name
+    regions = re.search(r"enum Region \{([^}]*)\}", src).group(1)
+    assert {k: int(v) for k, v in re.findall(r"(\w+) = (\d+)", regions)} \
+        == {k: getattr(persample, k) for k in ("TH", "FC", "TILE", "WORK",
+                                                "ALL")}
     enum = re.search(r"enum Variant \{([^}]*)\}", src).group(1)
     codes = {k.strip().lower(): int(v) for k, v in
              re.findall(r"(\w+) = (\d+)", enum)}

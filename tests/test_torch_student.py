@@ -165,21 +165,21 @@ def test_from_jax_and_layout_order():
 def test_block_plan_student_t_and_global_affine():
     """The plan's new fields: the latent code and the dist_params offset
     in the header, the global-affine flag in each block record and the
-    g_scale/g_offset offsets at GA_REC; every theta row is still covered
-    once."""
+    g_scale/g_offset offsets in theta and in the repacked theta after it;
+    every theta row is still covered once."""
     _, _, flow, _ = _student_pair(seed=2, global_affine=True,
                                   variant="affine")
     meta, _ = persample.block_plan(flow, n_dirs=2)
     lay = flow.layout
     assert meta[8] == persample.LATENT_CODES["Student_t"]
     assert meta[9] == lay.offset(("latent", "dist_params"))
+    table = persample.kernel_layout(flow)[1]
     for b in range(len(flow.blocks)):
-        r = persample.HDR + b * persample.BLOCK_REC
+        r = persample.block_record(meta, b)
         assert meta[r + 7] == 1
-        assert meta[r + persample.GA_REC] == lay.offset(
-            ("blocks", b, "g_scale"))
-        assert meta[r + persample.GA_REC + 1] == lay.offset(
-            ("blocks", b, "g_offset"))
+        assert meta[r + 8] == lay.offset(("blocks", b, "g_scale"))
+        assert meta[r + 9] == lay.offset(("blocks", b, "g_offset"))
+        assert tuple(meta[r + 10:r + 12]) == table[b, "g"]
     consts = persample.student_t_consts(flow, torch.zeros(lay.size))
     nu = 2.0
     c0 = (math.lgamma(3.0) - math.lgamma(1.0) - 2.0 * math.log(2 * math.pi))

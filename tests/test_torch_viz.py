@@ -35,6 +35,7 @@ from vmc_pde_torch.ops.evolution import make_equation
 from vmc_pde_torch.utils.dtypes import Precision
 from vmc_pde_torch.utils.grid import Grid
 from vmc_pde_torch.viz import paper, plots
+from vmc_pde_tpu.kernels import persample as jpersample
 from vmc_pde_tpu.models.sanity import SanityFlow as JSanityFlow
 from vmc_pde_tpu.models.state import VarState as JVarState
 from vmc_pde_tpu.ops import evolution as jevolution
@@ -64,7 +65,9 @@ def _sanity_pair(dim, scale=2.0):
 def test_sanity_flow_roundtrip_and_density():
     """tests/test_fluidpaper.py:54 on the port, batched, against the JAX
     flow: theta in ravel_pytree's order, the transform, its inverse and
-    log p; the per-sample kernel refuses the flow (no coupling blocks)."""
+    log p; the per-sample kernel takes the flow as the JAX gate does (no
+    coupling blocks: the latent behind the learned scale) and plans its
+    launch within the block's shared memory."""
     jflow, jparams, flow, theta = _sanity_pair(3)
     assert isinstance(flow, SanityFlow) and flow.blocks == ()
     np.testing.assert_array_equal(theta.numpy(),
@@ -81,14 +84,20 @@ def test_sanity_flow_roundtrip_and_density():
     want = jax.jit(jax.vmap(lambda c: jflow.log_prob(jparams, c)))(
         jnp.asarray(x.numpy()))
     assert rel_err(flow.log_prob(params, x), want) < 1e-12
-    assert not persample.supports(flow, np.eye(3), None)
-    assert persample.tile_plan(flow, 3, 16384) is None
+    assert persample.supports(flow, np.eye(3), None)
+    assert jpersample.supports(jflow, np.eye(3), None)
+    meta, _ = persample.block_plan(flow, 3)
+    assert (meta[1], meta[16]) == (0, flow.layout.offset(("scale",)))
+    plan = persample.tile_plan(flow, 3, 16384)
+    assert plan.grid == 16384 // plan.T and plan.ws == 0
+    assert plan.smem <= persample.SMEM_LIMIT
 
 
 def test_sanity_flow_tdvp_rhs_matches_jax():
     """One RHS of the Fokker-Planck problem of tests/test_torch_tdvp.py
-    with SanityFlow (P = 15) on shared draws: the torch.func pipeline (the
-    kernel refuses the flow), the update and the observables."""
+    with SanityFlow (P = 15) on shared draws: the torch.func pipeline
+    (``auto`` keeps a P below 2048 off the kernel, as the JAX package
+    does), the update and the observables."""
     dim = 4
     jflow, jparams, flow, theta = _sanity_pair(dim, scale=1.3)
     ctx = ParallelCtx.single_device()

@@ -141,7 +141,7 @@ def main(argv=None):
               f"{rel(k[w], r[w]):.3e}   {rel(p[w], r[w]):.3e}")
 
     for b in range(len(flow.blocks)):
-        r0 = persample.HDR + b * persample.BLOCK_REC
+        r0 = persample.block_record(meta, b)
         n_up, n_down = len(flow.blocks[b].ind_up), len(flow.blocks[b].ind_down)
         for j, (name, width) in enumerate((("u1", n_up), ("u2", n_down),
                                            ("v1", n_up))):

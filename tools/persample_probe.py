@@ -5,8 +5,9 @@ either). Needs a CUDA card:
 
     python -m tools.persample_probe [--reps 20] [--out FILE]
 
-- ``phases``: block 0's thread 0 records clock64() at the kernel's section
-  boundaries -- loading theta, the constants and the tile; the forward;
+- ``phases``: block 0's thread 0 records clock64() at the section
+  boundaries of its last tile -- loading the tile's samples (after the
+  block's loads of theta, the constants and the plan); the forward;
   the latent and its O rows; the conditioners' backward with their O rows
   (and g); the jets -- read back after the launch.
 - ``no_stores``: every streaming O store (``__stcs``) happens only where
@@ -40,12 +41,13 @@ HBM_TBS = 3.35
 PHASES = ("load", "forward", "latent", "backward", "jets")
 # (line of the kernel, stamp, placed before or after it): stamps 0..5
 # bound the five phases
-ANCHORS = (("    float* __restrict__ saves_out) {", 0, "after"),
+ANCHORS = (("    const Store<SPLIT>& out, float* __restrict__ saves_out) {", 0,
+            "after"),
            ("  // ---- forward:", 1, "before"),
            ("  if (DUMP) {", 2, "before"),
            ("  // scratch rows: four for bwd_nets", 3, "before"),
            ("  // ---- Hessian quadratic trace", 4, "before"),
-           ("  jets<MW>(C, C.th, quad_out);", 5, "after"))
+           ("  jets<MW>(C, quad_out);", 5, "after"))
 PRELUDE = {
     "phases": r"""
 __device__ long long probe_clock[6];
@@ -124,7 +126,7 @@ def launcher(lib, flow, theta, x, dirs, split):
     """A closure that launches ``lib``'s kernel on inputs and outputs made
     once, and the outputs (logp, and O or the hi/lo pair)."""
     inputs = persample._launch_inputs(flow, theta, x, dirs)
-    args = persample._launch_args(*inputs[:6])
+    args = persample._launch_args(*inputs[:7])
     n, d, P, dev = x.shape[0], flow.dim, flow.layout.size, x.device
     f32 = dict(dtype=torch.float32, device=dev)
     logp, g, quad = (torch.empty(n, **f32), torch.empty((d, n), **f32),
@@ -143,8 +145,7 @@ def launcher(lib, flow, theta, x, dirs, split):
     hi, lo = (torch.empty((P, n), dtype=torch.bfloat16, device=dev)
               for _ in range(2))
     colsum, omax = torch.empty(P, **f32), torch.empty(P, **f32)
-    n_tiles = -(-n // args[8])
-    psum, pmax = (torch.empty((n_tiles, P), **f32) for _ in range(2))
+    psum, pmax = (torch.empty((inputs[5].grid, P), **f32) for _ in range(2))
 
     def call():
         build.check(lib.persample_split_f32(

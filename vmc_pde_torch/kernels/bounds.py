@@ -39,15 +39,20 @@ def bound_ms(n_bytes, n_ops, ops_rate=F32_FLOP_S):
 
 def persample_flops(layers, dim, k_dirs, n_ga=0):
     """Scalar f32 operations of one sample of the per-sample kernel,
-    counted from the conditioners' (in, out) layer shapes: 2 in out
-    forward, 3 in out backward (the weight rows and the input cotangent)
-    and 4 in out per trace direction for the two jet tangents; the latent's
-    d x d products likewise; each of ``n_ga`` global affines 2 dim forward,
-    3 dim backward and 2 dim per direction. The Student-t latent adds a
-    few operations per sample and per direction, not counted."""
+    counted from the conditioners' (in, out) layer shapes (none for a flow
+    without coupling blocks): 2 in out forward, 3 in out backward (the
+    weight rows and the input cotangent) and 4 in out per trace direction
+    for the two jet tangents; each of ``n_ga`` global affines 2 dim
+    forward, 3 dim backward and 2 dim per direction; the latent's
+    products with its triangular W = U^{-1} (d (d + 1) / 2 multiply-adds
+    each): W u and W^T y, the d (d - 1) / 2 strictly-upper O rows at 2
+    operations each, and per direction |W z'|^2 with the 6 d operations of
+    its dot products. The Student-t latent adds a few operations per
+    sample and per direction, not counted."""
     per = sum((5 + 4 * k_dirs) * a * b for a, b in layers)
     per += n_ga * (5 + 2 * k_dirs) * dim
-    return per + (4.5 + 4 * k_dirs) * dim**2
+    tri = dim * (dim + 1)
+    return per + 2 * tri + dim * (dim - 1) + k_dirs * (tri + 6 * dim)
 
 
 def flow_ga(flow):

@@ -33,8 +33,8 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 # argument types of every C entry point, by source
 SIGNATURES = {
     "persample": {
-        "persample_f32": [_vp] * 5 + [_ci] * 9 + [_vp] * 6,
-        "persample_split_f32": [_vp] * 5 + [_ci] * 9 + [_vp] * 11,
+        "persample_f32": [_vp] * 5 + [_ci] * 11 + [_vp] * 7,
+        "persample_split_f32": [_vp] * 5 + [_ci] * 11 + [_vp] * 12,
     },
     "quant8": {
         "quant_force_bf16": [_vp] * 3 + [_ci] * 3 + [_vp] * 3,

@@ -39,14 +39,23 @@ f32 work, 90% of it the 16 second-order jets (0.155 ms at the 67 TFLOP/s
 FFMA peak): a balanced bound. The design (csrc/persample.cu says more):
 
 - one block per tile of T samples (``tile_plan``: the largest T of 32, 16
-  and 8 whose shared memory fits and whose grid still covers the SMs; the
-  shared memory is theta, W^T, the directions, the plan, the tile's
-  forward saves and the jets' tangents, ``smem_floats``), so the pilot's
-  2048 rows and a rank's 4096 already fill the card;
+  and 8 whose shared memory fits and whose grid still covers the SMs), so
+  the pilot's 2048 rows and a rank's 4096 already fill the card. A block's
+  regions -- theta, the constants (W^T, the directions, ...), the tile's
+  forward saves, W^T y and quad terms, the backward's rows and the jets'
+  tangents -- sit in shared memory where they fit (the plan's ``where``,
+  ``smem_floats`` counts them), else theta and the constants are read from
+  global memory and the rest from the block's slice of a global workspace;
+  a launch with a workspace runs WS_BLOCKS_PER_SM blocks per SM, each
+  taking every grid-th tile, so any flow has a plan;
+- the block plan is one variable-length record per block (``block_plan``,
+  with the records' starts after its header), so no dim, half, width or
+  depth is bounded by a record size;
 - forward and backward over (sample, unit) items, the jets one (sample,
   direction) pair per thread with each layer's activations in registers
-  (``register_width``: widths up to 16; wider flows take a generic jet
-  body whose arrays sit in local memory) and each weight row read as
+  (``register_width``: every layer and half at most 16 wide; wider flows
+  take the chunked body: a layer's outputs in chunks of 16 in registers,
+  its input tangents in the work rows) and each weight row read as
   16-byte broadcast loads from a repacked theta (``kernel_layout``:
   layers zero-padded to 16 x 16 at that width, rows 16-byte aligned);
   the sum over directions in a fixed order;
@@ -59,10 +68,11 @@ FFMA peak): a balanced bound. The design (csrc/persample.cu says more):
   from the host;
 - the ragged tail is masked (its lanes run the last sample and store
   nothing), so any N runs -- the TPU wrapper needs N % tile == 0;
-- split mode: each row's T values reduce in a fixed order into (n_tiles,
-  P) partials that a second small kernel sums in tile order
-  (deterministic, no atomics). Its bound at the chunked path's shape (P =
-  9264, N = 65536) is the 2.43 GB pair store, ~0.73 ms.
+- split mode: each row's T values reduce in a fixed order into the
+  block's (grid, P) partials, its tiles in order, which a second small
+  kernel sums in block order (deterministic, no atomics); the grid is cut
+  to keep the partials within SPLIT_PART_BYTES. Its bound at the chunked
+  path's shape (P = 9264, N = 65536) is the 2.43 GB pair store, ~0.73 ms.
 
 Measured on an H100 (PERF.md, section 6): 1.04-1.05 ms of kernel time at N =
 16384 (17% of the bound), 5.1-5.4 ms split at N = 65536 (13-14%), 0.16 ms
@@ -76,18 +86,17 @@ load of its own), no 0/1 selection matrices (direct indexing), no fused
 (s, t) conditioner pair, no outer-product relayouts.
 
 Scope (``supports``): the JAX kernel's -- Gauss or Student-t latent, any
-coupling variant, the global affine allowed, trace-mode Hessians -- within
-the port's own limits: f32, dim <= 64, each coupling half <= 32
-coordinates, layer widths <= 64, at most
-MAX_LAYERS linear layers per conditioner, and a tile of 8 samples (with
-theta in global memory if need be) within the card's 227 KB per block.
+coupling variant, the global affine allowed, trace-mode Hessians, any
+dim, coupling half, conditioner width and depth, any number of coupling
+blocks (SanityFlow's none: the latent behind its learned scale) -- in
+f32.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -98,17 +107,10 @@ from ..parallel import stats
 from ..utils.dtypes import device_constant
 
 # Block-plan format and launch constants shared with csrc/persample.cu
-# (same names there; tests/test_torch_persample.py checks them); MAX_DIM
-# is the wrapper's scope alone.
-HDR = 16
-MAX_DIM = 64
-MAX_HALF = 32
-MAX_WIDTH = 64
-MAX_LAYERS = 4
-NET_REC = 5 * MAX_LAYERS
-GA_REC = 8 + 4 * NET_REC + 2 * MAX_HALF  # g_scale, g_offset offsets
-BLOCK_REC = GA_REC + 2
-KL_REC = 3 * 4 * MAX_LAYERS + 2  # kernel-layout table, per block
+# (same names there; tests/test_torch_persample.py checks them).
+HDR = 20
+BLOCK_HDR = 12
+LAYER_REC = 8
 MAX_THREADS = 256
 N_SCRATCH = 8
 N_PER_SAMPLE = 5
@@ -117,8 +119,29 @@ VARIANT_CODES = {"additive": 0, "affine": 1, "scale": 2, "scale_shift": 3}
 LATENT_CODES = {"Gauss": 0, "Student_t": 1}
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
 TILES = (32, 16, 8)  # samples per block, largest first
-REGISTER_WIDTH = 16  # the jets' register arrays (template MW; 0: generic)
+REGISTER_WIDTH = 16  # the jets' register arrays (template MW; 0: chunked)
 H100_SMS = 132
+# A block's regions that may sit in shared or in global memory, by their
+# bit in a plan's ``where`` (set: in shared memory): the repacked theta
+# and the constants (else read from their inputs), the tile's arrays (its
+# saves, W^T y and quad terms) and the work rows (the backward's rows and
+# the jets' tangents; else in a per-block slice of a global workspace).
+TH, FC, TILE, WORK = 1, 2, 4, 8
+ALL = TH | FC | TILE | WORK
+WS_BLOCKS_PER_SM = 2  # blocks per SM of a launch with a workspace
+SPLIT_PART_BYTES = 1 << 28  # split mode's (grid, P) sum and max partials
+
+
+class Plan(NamedTuple):
+    """The shape of one launch (``tile_plan``)."""
+    T: int        # samples per tile
+    threads: int  # per block
+    J: int        # jet slots: (sample, direction) pairs at a time
+    MW: int       # the jets' register width (0: the chunked body)
+    where: int    # the regions in shared memory (bits TH, FC, TILE, WORK)
+    smem: int     # shared bytes of a block
+    ws: int       # floats of a block's slice of the global workspace
+    grid: int     # blocks; block b runs tiles b, b + grid, b + 2 grid, ...
 
 
 def _up(v: int, m: int) -> int:
@@ -126,16 +149,30 @@ def _up(v: int, m: int) -> int:
 
 
 def _widest(flow) -> int:
-    """The widest conditioner layer or coupling half of the flow."""
-    return max(max(spec.hidden + (len(spec.ind_up), len(spec.ind_down)))
-               for spec in flow.blocks)
+    """The widest conditioner layer or coupling half of the flow (0
+    without coupling blocks)."""
+    return max((max(spec.hidden + (len(spec.ind_up), len(spec.ind_down)))
+                for spec in flow.blocks), default=0)
+
+
+def jet_buffer(flow) -> int:
+    """Floats per jet slot of the chunked body's layer buffers: the
+    tangent pair of the widest hidden layer, twice when a conditioner
+    has two hidden layers or more (one buffer is read while the other is
+    written)."""
+    hid = [spec.hidden for spec in flow.blocks if spec.hidden]
+    if not hid:
+        return 0
+    return 2 * max(max(h) for h in hid) * min(2, max(map(len, hid)))
 
 
 def register_width(flow) -> int:
     """MW, the kernel's template width: REGISTER_WIDTH when every
     conditioner layer and half fits the jets' register arrays, else 0 (the
-    generic jet body, its arrays in local memory)."""
-    return REGISTER_WIDTH if _widest(flow) <= REGISTER_WIDTH else 0
+    chunked jet body: a layer's outputs in chunks of REGISTER_WIDTH, its
+    input tangents in the work rows)."""
+    return (REGISTER_WIDTH if flow.blocks and _widest(flow) <= REGISTER_WIDTH
+            else 0)
 
 
 def kernel_layout(flow):
@@ -144,16 +181,16 @@ def kernel_layout(flow):
     padded to a multiple of 4 (16-byte aligned, so the jets read a row as
     float4s) -- for a flow of the register width, every layer padded with
     zeros to MW x MW, so that the jets' body needs no bounds; then every
-    global affine's g_scale and g_offset, then the latent's mu and L_diag.
-    Returns (index (Pk,) int64 into theta, with P for the zero padding;
-    table (n_blocks, KL_REC) int32 of (bias, weights, row stride) offsets
-    per net and layer, then g_scale and g_offset; offset of mu; offset of
-    L_diag)."""
+    global affine's g_scale and g_offset, then the latent's mu and L_diag
+    (and SanityFlow's scale). Returns (index (Pk,) int64 into theta, with
+    P for the zero padding; {(block, net, layer): (bias, weights, row
+    stride)} and {(block, "g"): (g_scale, g_offset)} offsets; offset of
+    mu; of L_diag; of the scale, -1 without one)."""
     lay = flow.layout
     MW = register_width(flow)
     pad = lay.size
     idx = []
-    table = np.zeros((len(flow.blocks), KL_REC), dtype=np.int32)
+    table = {}
 
     def put(flat, rows, cols, stride=None, n_rows=None):
         """rows x cols of theta from ``flat`` on, each row padded to
@@ -168,28 +205,26 @@ def kernel_layout(flow):
         return start
 
     for b, spec in enumerate(flow.blocks):
-        for ni, net in enumerate(NETS):
-            if net not in spec.nets:
-                continue
+        for net in spec.nets:
             n_in, n_out = spec.net_dims(net)
             dims = [n_in, *spec.hidden, n_out]
             for layer in range(len(dims) - 1):
-                q = 3 * (ni * MAX_LAYERS + layer)
                 stride = MW or _up(dims[layer + 1], 4)
-                table[b, q] = put(lay.offset(("blocks", b, net, "b", layer)),
-                                  1, dims[layer + 1])
-                table[b, q + 1] = put(
-                    lay.offset(("blocks", b, net, "w", layer)),
-                    dims[layer], dims[layer + 1], stride, MW or None)
-                table[b, q + 2] = stride
+                table[b, net, layer] = (
+                    put(lay.offset(("blocks", b, net, "b", layer)), 1,
+                        dims[layer + 1]),
+                    put(lay.offset(("blocks", b, net, "w", layer)),
+                        dims[layer], dims[layer + 1], stride, MW or None),
+                    stride)
         if spec.global_affine:
-            table[b, KL_REC - 2] = put(lay.offset(("blocks", b, "g_scale")),
-                                       1, 1)
-            table[b, KL_REC - 1] = put(
-                lay.offset(("blocks", b, "g_offset")), 1, flow.dim)
+            table[b, "g"] = (
+                put(lay.offset(("blocks", b, "g_scale")), 1, 1),
+                put(lay.offset(("blocks", b, "g_offset")), 1, flow.dim))
     mu = put(lay.offset(("latent", "mu")), 1, flow.dim)
     ld = put(lay.offset(("latent", "L_diag")), 1, flow.dim)
-    return np.asarray(idx, dtype=np.int64), table, mu, ld
+    scale = (put(lay.offset(("scale",)), 1, 1) if "scale" in lay.shapes
+             else -1)
+    return np.asarray(idx, dtype=np.int64), table, mu, ld, scale
 
 
 def _n_fconst(flow, n_dirs: int) -> int:
@@ -200,82 +235,143 @@ def _n_fconst(flow, n_dirs: int) -> int:
             + 3 * (flow.latent_name == "Student_t"))
 
 
-def smem_floats(Pk, n_fconst, n_meta, n_saves, d, k, T, J, SW,
-                resident=True) -> int:
-    """Floats of one block's shared memory (csrc/persample.cu smem_layout,
-    region by region): theta when ``resident``, constants and plan (each
-    padded to 4), the tile's saves, the (d, T) W^T y, N_PER_SAMPLE
-    per-sample scalars and the (k, T) quad terms; then one region that the
+def region_floats(Pk, n_fconst, n_meta, n_saves, d, k, T, J, SW, JB):
+    """Floats of each region of one block (csrc/persample.cu
+    block_layout): theta, the constants and the plan (each padded to 4),
+    the N_PER_SAMPLE per-sample scalars; ``tile``: the tile's saves, the
+    (d, T) W^T y and the (k, T) quad terms; ``work``: one region that the
     backward's four (d, T) rows and N_SCRATCH (SW, T) rows (SW: the widest
-    layer or half) share with the jets' (2 d, J) tangents (never live
-    together)."""
+    layer or half) share with the jets' (2 d + JB, J) tangents and layer
+    buffers (never live together)."""
     back = 4 * d * T + N_SCRATCH * SW * T
-    jet = 2 * d * J if k else 0
-    return (_up(Pk, 4) * resident + _up(n_fconst, 4) + _up(n_meta, 4)
-            + n_saves * T + d * T + N_PER_SAMPLE * T + k * T
-            + max(back, jet))
+    jet = (2 * d + JB) * J if k else 0
+    return {"th": _up(Pk, 4), "fc": _up(n_fconst, 4), "meta": _up(n_meta, 4),
+            "ps": N_PER_SAMPLE * T, "tile": (n_saves + d + k) * T,
+            "work": _up(max(back, jet), 4)}
 
 
-@functools.lru_cache(maxsize=256)
-def tile_plan(flow, n_dirs: int, n: int, n_sm: int = H100_SMS):
-    """(T, threads, J, MW, resident, shared bytes) of a launch on n samples,
-    or None if no block fits SMEM_LIMIT. For each tile T of TILES (256
-    threads, 128 at T = 8), theta in shared memory (with the register
-    width MW) or not (the generic jet body, MW = 0), the most jet
-    slots J (at most the threads and the T k pairs) that fit. Preferred, in
-    order: every thread with a pair in the jets; theta resident; then the
-    largest T whose grid covers the ``n_sm`` SMs, else the smallest T.
-    None for a flow without coupling blocks (models/sanity.SanityFlow)."""
-    if not flow.blocks:
-        return None
+def smem_floats(Pk, n_fconst, n_meta, n_saves, d, k, T, J, SW, JB=0,
+                where=ALL):
+    """(shared floats, workspace floats) of one block: the regions whose
+    bit is set in ``where`` in shared memory, the plan and the per-sample
+    scalars always; the tile's arrays and the work rows, where not shared,
+    in the block's slice of the workspace; theta and the constants, where
+    not shared, are read from their inputs."""
+    r = region_floats(Pk, n_fconst, n_meta, n_saves, d, k, T, J, SW, JB)
+    shared = (r["th"] * bool(where & TH) + r["fc"] * bool(where & FC)
+              + r["meta"] + r["ps"] + r["tile"] * bool(where & TILE)
+              + r["work"] * bool(where & WORK))
+    return shared, (r["tile"] * (not where & TILE)
+                    + r["work"] * (not where & WORK))
+
+
+# The placements a plan may take, best first (tools/persample_plans.py):
+# every region in shared memory (the register width needs it); else the
+# constants out of it (read through L1, whose share of the SM's memory
+# they would shrink), and of the other three the tile's arrays, then
+# theta, then the work rows kept in shared memory first.
+PLACEMENTS = (ALL, TILE | TH | WORK, TILE | TH, TILE | WORK, TILE,
+              TH | WORK, TH, WORK, 0)
+
+
+def candidates(flow, n_dirs: int) -> list:
+    """Every launch shape that fits, as Plans without their grid (0): for
+    each placement of PLACEMENTS (the register width MW only at ALL, and
+    ALL only with it) and tile T of TILES (256 threads, 128 at T = 8), the
+    most jet slots J (at most the threads and the T k pairs) that fit
+    SMEM_LIMIT."""
     meta, n_sv = block_plan(flow, n_dirs)
-    Pk, SW, d = int(meta[11]), int(meta[14]), flow.dim
+    Pk, SW, JB, d = int(meta[11]), int(meta[14]), int(meta[15]), flow.dim
+    nf = _n_fconst(flow, n_dirs)
+    MW = register_width(flow)
     fits = []
-    for resident in (True, False):
-        # the register-width body reads theta from shared memory only
-        MW = register_width(flow) if resident else 0
+    for where in PLACEMENTS[0 if MW else 1:]:
         for T in TILES:
             threads = MAX_THREADS if T >= 16 else MAX_THREADS // 2
             full = min(threads, T * n_dirs)
             for J in ((full, full // 2, full // 4, min(full, 32))
                       if n_dirs else (0,)):
-                smem = 4 * smem_floats(Pk, _n_fconst(flow, n_dirs),
-                                       meta.size, n_sv, d, n_dirs, T, J, SW,
-                                       resident)
-                if smem <= SMEM_LIMIT and (J or not n_dirs):
-                    fits.append((T, threads, J, MW, resident, smem,
-                                 J == full))
+                sh, ws = smem_floats(Pk, nf, meta.size, n_sv, d, n_dirs, T,
+                                     J, SW, 0 if where == ALL else JB, where)
+                if 4 * sh <= SMEM_LIMIT:
+                    fits.append(Plan(T, threads, J, MW * (where == ALL),
+                                     where, 4 * sh, ws, 0))
                     break
-    if not fits:
-        return None
+    return fits
+
+
+def grid_of(plan: Plan, flow, n: int, n_sm: int = H100_SMS,
+            split: bool = False) -> Plan:
+    """``plan`` with its grid for n samples: one block per tile,
+    WS_BLOCKS_PER_SM per SM with a workspace, and in ``split`` mode at most
+    what keeps the (grid, P) partials within SPLIT_PART_BYTES (at least
+    one block per SM)."""
+    grid = -(-n // plan.T)
+    if plan.ws:
+        grid = min(grid, WS_BLOCKS_PER_SM * n_sm)
+    if split:
+        grid = min(grid, max(n_sm, SPLIT_PART_BYTES // (8 * flow.layout.size)))
+    return plan._replace(grid=grid)
+
+
+@functools.lru_cache(maxsize=256)
+def tile_plan(flow, n_dirs: int, n: int, n_sm: int = H100_SMS,
+              split: bool = False) -> Plan:
+    """The Plan of a launch on n samples, of the ``candidates``: preferred,
+    in order, the register width; a grid that covers the ``n_sm`` SMs, and
+    then the most jet slots, the earlier placement, the most threads and
+    the largest T at the register width, the smallest in the chunked body
+    (whose constants, read from global memory there, keep more of L1;
+    tools/persample_plans.py) -- or, where no grid
+    covers them, the smallest T, then the slots and the placement. Its
+    grid: ``grid_of``."""
+    fits = candidates(flow, n_dirs)
+    if not fits:  # the plan alone overflows: no flow of a sane size
+        raise ValueError("the per-sample kernel's block plan does not fit "
+                         "shared memory")
 
     def rank(f):
-        covers = -(-n // f[0]) >= n_sm
-        return (f[6], f[4], covers, f[0] if covers else -f[0])
+        place = -PLACEMENTS.index(f.where)
+        if -(-n // f.T) >= n_sm:
+            return (f.MW, True, f.J, place, f.threads,
+                    f.T if f.MW else -f.T)
+        return (f.MW, False, -f.T, f.J, place)
 
-    return max(fits, key=rank)[:6]
+    return grid_of(max(fits, key=rank), flow, n, n_sm, split)
 
 
 def supports(flow, hess_dirs: Optional[np.ndarray], hess_idx) -> bool:
-    """Static capability check for the CUDA kernel."""
-    n_dirs = 0 if hess_dirs is None else int(np.shape(hess_dirs)[0])
-    return ((hess_idx is None or hess_dirs is not None)  # trace mode only
-            and _supports(flow, n_dirs))
+    """Static capability check for the CUDA kernel: the JAX kernel's
+    (vmc_pde_tpu/kernels/persample.py supports) -- a Gauss or Student-t
+    latent, trace-mode (or no) Hessians; any dim, coupling half,
+    conditioner width and depth, any number of coupling blocks."""
+    return (flow.latent_name in LATENT_CODES
+            and (hess_idx is None or hess_dirs is not None))
 
 
-@functools.lru_cache(maxsize=64)
-def _supports(flow, n_dirs: int) -> bool:
-    return (
-        len(flow.blocks) > 0  # the kernel walks coupling blocks
-        and flow.latent_name in LATENT_CODES
-        and flow.dim <= MAX_DIM
-        and all(len(s.hidden) + 1 <= MAX_LAYERS
-                and max((*s.hidden, len(s.ind_up), len(s.ind_down)))
-                <= MAX_WIDTH
-                and max(len(s.ind_up), len(s.ind_down)) <= MAX_HALF
-                for s in flow.blocks)
-        and tile_plan(flow, n_dirs, 1) is not None
-    )
+def block_record(meta, b: int) -> int:
+    """Where block b's record starts in the plan."""
+    return int(meta[HDR + b])
+
+
+def layer_record(meta, b: int, net: str, layer: int) -> np.ndarray:
+    """The LAYER_REC ints of a conditioner layer of block b: in, out,
+    bias and weight offsets in the flat theta (the O rows), the save
+    offset of its tanh output, its bias and weight offsets and row stride
+    in the repacked theta (kernel_layout)."""
+    r = block_record(meta, b)
+    q = r + BLOCK_HDR + (NETS.index(net) * int(meta[r + 3]) + layer) \
+        * LAYER_REC
+    return meta[q:q + LAYER_REC]
+
+
+def halves(meta, b: int):
+    """(ind_up, ind_down) of block b, from its record."""
+    r = block_record(meta, b)
+    n_up, n_down, nl = (int(v) for v in meta[r + 1:r + 4])
+    ind = r + BLOCK_HDR + 4 * nl * LAYER_REC
+    return (tuple(meta[ind:ind + n_up]),
+            tuple(meta[ind + n_up:ind + n_up + n_down]))
 
 
 @functools.lru_cache(maxsize=64)
@@ -285,61 +381,71 @@ def block_plan(flow, n_dirs: int):
 
     meta[:HDR] = d, n_blocks, n_dirs, P, offset of latent L, of L_diag,
     of mu, n_saves, the latent's code (LATENT_CODES), offset of
-    dist_params (Student-t's nu row; 0 otherwise), the start of the
-    kernel-layout table, its theta's length Pk, mu's and L_diag's
-    offsets in it (kernel_layout), and the widest layer or half. Then one BLOCK_REC record per block:
+    dist_params (Student-t's nu row; 0 otherwise), the widest hidden
+    layer, the repacked theta's length Pk, mu's and L_diag's offsets in it
+    (kernel_layout), the widest layer or half, the jet buffer's floats
+    per slot (jet_buffer), SanityFlow's scale offset in theta and in the
+    repacked theta (-1 without one), then zeros. meta[HDR:HDR + n_blocks]:
+    where each block's record starts. A record, of variable length:
     variant, n_up, n_down, n_layers, save offsets of u1, u2 and v1, a
-    global-affine flag; for each net (s1, s2, t1, t2) and layer: in, out,
-    bias offset, weight offset and save offset of the layer's tanh output;
-    then ind_up and ind_down, each padded to MAX_HALF; then, at GA_REC,
-    the offsets of g_scale and g_offset (0 without the global affine).
-    The offsets are the flat layout's (the O rows). Last the
-    kernel-layout table, KL_REC per block. Read-only (cached)."""
+    global-affine flag, the offsets of g_scale and g_offset in theta and
+    in the repacked theta (0 without the global affine); then for each net
+    (s1, s2, t1, t2; zeros for a net the variant lacks) and layer a
+    LAYER_REC (layer_record); then ind_up and ind_down. Read-only
+    (cached)."""
     lay = flow.layout
+    extra = set(lay.shapes) - {"latent", "blocks", "scale"}
+    if extra:
+        raise ValueError(f"the per-sample kernel does not know the flow's "
+                         f"parameters {sorted(extra)}")
     nb = len(flow.blocks)
-    kidx, ktable, mu_k, ld_k = kernel_layout(flow)
-    ktab = HDR + nb * BLOCK_REC
-    meta = np.zeros(ktab + nb * KL_REC, dtype=np.int32)
-    n_sv = 0
+    kidx, ktable, mu_k, ld_k, scale_k = kernel_layout(flow)
+    recs, n_sv = [], 0
     for b, spec in enumerate(flow.blocks):
-        r = HDR + b * BLOCK_REC
         n_up, n_down = len(spec.ind_up), len(spec.ind_down)
-        n_layers = len(spec.hidden) + 1
-        meta[r:r + 4] = (VARIANT_CODES[spec.variant], n_up, n_down,
-                         n_layers)
+        nl = len(spec.hidden) + 1
+        rec = np.zeros(BLOCK_HDR + 4 * nl * LAYER_REC + n_up + n_down,
+                       dtype=np.int32)
+        rec[:4] = (VARIANT_CODES[spec.variant], n_up, n_down, nl)
         for slot, width in ((4, n_up), (5, n_down), (6, n_up)):
-            meta[r + slot] = n_sv
+            rec[slot] = n_sv
             n_sv += width
+        if spec.global_affine:
+            rec[7] = 1
+            rec[8:10] = (lay.offset(("blocks", b, "g_scale")),
+                         lay.offset(("blocks", b, "g_offset")))
+            rec[10:12] = ktable[b, "g"]
         for ni, net in enumerate(NETS):
             if net not in spec.nets:
                 continue
             n_in, n_out = spec.net_dims(net)
             dims = [n_in, *spec.hidden, n_out]
-            for layer in range(n_layers):
-                q = r + 8 + ni * NET_REC + 5 * layer
-                meta[q:q + 5] = (
+            for layer in range(nl):
+                q = BLOCK_HDR + (ni * nl + layer) * LAYER_REC
+                rec[q:q + LAYER_REC] = (
                     dims[layer], dims[layer + 1],
                     lay.offset(("blocks", b, net, "b", layer)),
                     lay.offset(("blocks", b, net, "w", layer)),
-                    n_sv)
+                    n_sv, *ktable[b, net, layer])
                 n_sv += dims[layer + 1]
-        ind = r + 8 + 4 * NET_REC
-        meta[ind:ind + n_up] = spec.ind_up
-        meta[ind + MAX_HALF:ind + MAX_HALF + n_down] = spec.ind_down
-        if spec.global_affine:
-            meta[r + 7] = 1
-            meta[r + GA_REC:r + GA_REC + 2] = (
-                lay.offset(("blocks", b, "g_scale")),
-                lay.offset(("blocks", b, "g_offset")))
+        ind = BLOCK_HDR + 4 * nl * LAYER_REC
+        rec[ind:ind + n_up] = spec.ind_up
+        rec[ind + n_up:] = spec.ind_down
+        recs.append(rec)
+    meta = np.concatenate([np.zeros(HDR + nb, dtype=np.int32), *recs])
+    meta[HDR:HDR + nb] = HDR + nb + np.cumsum([0] + [r.size
+                                                     for r in recs[:-1]])
     student = flow.latent_name == "Student_t"
-    meta[:15] = (flow.dim, nb, n_dirs, lay.size,
+    hidden = max((max(s.hidden, default=0) for s in flow.blocks), default=0)
+    meta[:18] = (flow.dim, nb, n_dirs, lay.size,
                  lay.offset(("latent", "L")),
                  lay.offset(("latent", "L_diag")),
                  lay.offset(("latent", "mu")), n_sv,
                  LATENT_CODES[flow.latent_name],
                  lay.offset(("latent", "dist_params")) if student else 0,
-                 ktab, kidx.size, mu_k, ld_k, _widest(flow))
-    meta[ktab:] = ktable.reshape(-1)
+                 hidden, kidx.size, mu_k, ld_k, _widest(flow),
+                 jet_buffer(flow),
+                 lay.offset(("scale",)) if scale_k >= 0 else -1, scale_k)
     meta.setflags(write=False)
     return meta, n_sv
 
@@ -373,13 +479,14 @@ def _device_plan(flow, n_dirs: int, dev: torch.device):
             torch.cuda.get_device_properties(dev).multi_processor_count)
 
 
-def _launch_inputs(flow, theta, x, dirs):
+def _launch_inputs(flow, theta, x, dirs, split=False):
     """Checks the arguments of a kernel launch and builds what every
     launch passes: (x, repacked theta, fconst, meta, meta's host header,
-    tile plan, n_saves, n_dirs). Nothing here waits for the card."""
+    tile plan, the workspace, n_saves, n_dirs). Nothing here waits for
+    the card."""
     n_dirs = 0 if dirs is None else int(np.shape(dirs)[0])
     d, P = flow.dim, flow.layout.size
-    if not _supports(flow, n_dirs):
+    if flow.latent_name not in LATENT_CODES:
         raise ValueError("per-sample CUDA kernel does not support this flow "
                          "(see kernels.persample.supports)")
     if x.device.type != "cuda" or theta.device != x.device:
@@ -401,10 +508,12 @@ def _launch_inputs(flow, theta, x, dirs):
 
     meta, kidx, lat, hdr, offset, alphas, n_sm = _device_plan(flow, n_dirs,
                                                               dev)
-    plan = tile_plan(flow, n_dirs, x.shape[0], n_sm)
+    plan = tile_plan(flow, n_dirs, x.shape[0], n_sm, split)
+    ws = theta.new_empty(plan.grid * plan.ws) if plan.ws else None
     theta_k = torch.cat([theta, theta.new_zeros(1)])[kidx]
     lat = {k: theta[a:b] for k, (a, b) in lat.items()}
     U = latent.chol_factor(lat, d)
+    # W is upper triangular, its lower part exact zeros (the jets skip it)
     W = torch.linalg.solve_triangular(
         U, torch.eye(d, dtype=theta.dtype, device=dev), upper=True)
     WT = theta.new_zeros((d, _up(d, 8)))
@@ -424,15 +533,14 @@ def _launch_inputs(flow, theta, x, dirs):
     fconst = torch.cat(parts)
     if fconst.numel() != _n_fconst(flow, n_dirs):
         raise RuntimeError("fconst does not have the planned length")
-    return x, theta_k, fconst, meta, hdr, plan, int(hdr[7]), n_dirs
+    return x, theta_k, fconst, meta, hdr, plan, ws, int(hdr[7]), n_dirs
 
 
-def _launch_args(x, theta_k, fconst, meta, hdr, plan):
-    """The C entry points' leading arguments, through the shared bytes."""
-    T, threads, J, MW, resident, smem = plan
+def _launch_args(x, theta_k, fconst, meta, hdr, plan, ws):
+    """The C entry points' leading arguments, through the workspace."""
     return (x.data_ptr(), theta_k.data_ptr(), fconst.data_ptr(),
             meta.data_ptr(), hdr.ctypes.data, x.shape[0], fconst.numel(),
-            meta.numel(), T, threads, J, MW, int(resident), smem)
+            meta.numel(), *plan, None if ws is None else ws.data_ptr())
 
 
 def _latent_slices(flow):
@@ -474,7 +582,7 @@ def per_sample_cuda(flow, theta, x, dirs=None, saves=None):
     it)."""
     from . import build
 
-    x, theta_k, fconst, meta, hdr, plan, n_sv, n_dirs = _launch_inputs(
+    x, theta_k, fconst, meta, hdr, plan, ws, n_sv, n_dirs = _launch_inputs(
         flow, theta, x, dirs)
     n, d, P, dev = x.shape[0], flow.dim, flow.layout.size, x.device
     logp = torch.empty((n,), dtype=torch.float32, device=dev)
@@ -491,7 +599,7 @@ def per_sample_cuda(flow, theta, x, dirs=None, saves=None):
     lib = build.library("persample")
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.persample_f32(
-        *_launch_args(x, theta_k, fconst, meta, hdr, plan),
+        *_launch_args(x, theta_k, fconst, meta, hdr, plan, ws),
         logp.data_ptr(), g_t.data_ptr(),
         None if quad is None else quad.data_ptr(), O_t.data_ptr(),
         None if saves is None else saves.data_ptr(), stream)
@@ -529,8 +637,8 @@ def per_sample_split_cuda(flow, theta, x, dirs, shift):
     outputs."""
     from . import build
 
-    x, theta_k, fconst, meta, hdr, plan, _, n_dirs = _launch_inputs(
-        flow, theta, x, dirs)
+    x, theta_k, fconst, meta, hdr, plan, ws, _, n_dirs = _launch_inputs(
+        flow, theta, x, dirs, split=True)
     n, d, P, dev = x.shape[0], flow.dim, flow.layout.size, x.device
     if (shift.device != dev or shift.dtype != torch.float32
             or shift.shape != (P,)):
@@ -544,14 +652,13 @@ def per_sample_split_cuda(flow, theta, x, dirs, shift):
     lo_t = torch.empty((P, n), dtype=torch.bfloat16, device=dev)
     colsum = torch.empty((P,), **f32)
     omax = torch.empty((P,), **f32)
-    n_tiles = -(-n // plan[0])
-    psum = torch.empty((n_tiles, P), **f32)
-    pmax = torch.empty((n_tiles, P), **f32)
+    psum = torch.empty((plan.grid, P), **f32)
+    pmax = torch.empty((plan.grid, P), **f32)
 
     lib = build.library("persample")
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.persample_split_f32(
-        *_launch_args(x, theta_k, fconst, meta, hdr, plan),
+        *_launch_args(x, theta_k, fconst, meta, hdr, plan, ws),
         shift.data_ptr(), logp.data_ptr(), g_t.data_ptr(),
         None if quad is None else quad.data_ptr(),
         hi_t.data_ptr(), lo_t.data_ptr(), colsum.data_ptr(),

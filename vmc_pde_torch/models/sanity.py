@@ -10,8 +10,10 @@ is a drop-in Flow replacement (log_prob/push/latent_sample all work).
 Its parameters are {"latent", "scale"}, flattened in that (sorted) order
 as ``jax.flatten_util.ravel_pytree`` orders the JAX package's, so a theta
 carried across by models/convert.from_jax means the same density. It has
-no coupling blocks, so the per-sample kernel does not serve it
-(kernels/persample.supports) and the TDVP takes the torch.func pipeline.
+no coupling blocks: the per-sample kernel serves it as the latent behind
+the scale (kernels/persample.supports), where it is asked for by
+``per_sample_backend='cuda'``; ``auto`` keeps its small P on the torch.func
+pipeline.
 """
 
 from __future__ import annotations
