@@ -301,7 +301,7 @@ c.phase_oracles()"``):
    host wait in a batch; one replay from t=0 launches 5 plain-mode
    kernels per attempt;
 51. (M3) the production point (N=524288 in chunks of 65536, tri2 + int8)
-   at K=4 against K=1, bit for bit; one replay launches 16 split, 32
+   at K=2 against K=1, bit for bit; one replay launches 16 split, 32
    quant8, 2 pilot plain-mode and 2 Jacobi kernels;
 52. (M4) fluidpaper at K=8 and doubleWell at K=4 through
    ``TDVP.heun_multi`` (their grid keeps the driver per step): the
@@ -338,6 +338,27 @@ fokkerPlanck32 with its dim, depth or widths changed (``WIDE``):
    ``per_sample_backend='cuda'``: the P=141,504 flow through driver.run
    with minSR at N=1024 for 2 steps (4 launches), and one SanityFlow
    (d=4) RHS at N=16384 against the CPU's (1 launch, 1e-5).
+
+Phase S (56-61, after phase L): the accuracy studies
+(vmc_pde_torch/studies/, the JAX package's scripts/ of the same names) at
+the scripts' default widths and sizes (``phase_studies``):
+56. (S1) northstar_l2: mwe in f64 at N=10^4 to t_end 1 on the 501^2 grid,
+   L2 at most 1e-5;
+57. (S2) make_paper_figures.regenerate_runs: accuracy_d8 Gauss and
+   Student-t (N=10^4, t_end 5, K=8, --qmc) in the JAX record's 541 steps
+   to t = 5.0044, the Gauss entropy error at most 0.118; the fp6 heat
+   chain to t_end 5 with its sphere integrals;
+58. (S3) check_fp6 at 60000 particles on the heat chain, and on
+   harmonicOsc_diff at T = 10 to t_end 0.5 beside the JAX package's run;
+59. (S4) diffusion_anisotropic (d=12) to t_end 0.5 at K=8, check_aniso;
+60. (S5) evolve_minsr_largep at its defaults (P = 18,604, N = 4096):
+   the per-sample kernel launched, the chunked replay within 4 times the
+   f32 order control's gap (two direct runs on the same draws in two
+   sample orders) of the direct steps' change, and its first 2 steps
+   within 2e-4 replayed in f64 (the CPU test's bar);
+61. (S6) make_paper_figures' collection (no drawing; the grid oracle to
+   t_end 0.5) and the lag of S2's Student-t curve against that grid.
+No study may record a NaN.
 
 Any failure raises and exits nonzero. On success the second-to-last line
 is the per-kernel JSON record and the last line
@@ -3682,35 +3703,12 @@ def phase_run_state():
 
 D32 = dict(n_oracle=20000, n_model=16384, dim=32, T=10.0, dt=2e-3,
            steps=48)
-D32_PARAMS = {"m": 1.0, "omega": 1.0, "gamma": 1.0, "T": 10.0, "lam": 0.0}
 
 
 def _gen(dev, seed):
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     return gen
-
-
-def _lyapunov_diag(times, T, gamma=1.0, n_sub=4000):
-    """(len(times), 2) diagonal of the exact covariance of one (q, p) pair
-    from C(0) = I: dC/dt = A C + C A^T + B, A = [[0, 1], [-1, -gamma]],
-    B = diag(0, 2 gamma T), RK4 at h = t / n_sub for every record at once
-    (scripts/evolve_d32_fp.py:93-113, exact to ~1e-13)."""
-    A = np.array([[0.0, 1.0], [-1.0, -gamma]])
-    B = np.diag([0.0, 2.0 * gamma * T])
-    h = (np.asarray(times, dtype=np.float64) / n_sub)[:, None, None]
-    C = np.tile(np.eye(2), (len(times), 1, 1))
-
-    def f(C):
-        return A @ C + C @ A.T + B
-
-    for _ in range(n_sub):
-        k1 = f(C)
-        k2 = f(C + h / 2 * k1)
-        k3 = f(C + h / 2 * k2)
-        k4 = f(C + h * k3)
-        C = C + h / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
-    return np.diagonal(C, axis1=1, axis2=2)
 
 
 def _timed(fn):
@@ -3722,20 +3720,21 @@ def _timed(fn):
 
 
 def phase_oracle_d32(dev):
-    """L1: the SDE oracle at evolve_d32_fp.py's shape on the card in f64:
-    20000 particles, d=32, phase_space at T=10, dt 2e-3, 49 records; the
-    covariance diagonal against the Lyapunov ODE at every record, within
-    5 sqrt(2/n) relative (n the particles)."""
+    """L1: the SDE oracle of vmc_pde_torch.studies.evolve_d32_fp on the
+    card in f64: 20000 particles (the JAX package's normals of PRNGKey(5),
+    replayed on the host before the clock starts), d=32, phase_space at T=10, dt 2e-3, 49 records;
+    the covariance diagonal against the Lyapunov ODE at every record,
+    within 5 sqrt(2/n) relative (n the particles)."""
     from vmc_pde_torch.oracle import sde
+    from vmc_pde_torch.studies import evolve_d32_fp
 
     n, d = D32["n_oracle"], D32["dim"]
-    cloud = torch.randn((n, d), generator=_gen(dev, 5), dtype=torch.float64,
-                        device=dev)
-    (_, inf), sec = _timed(lambda: sde.evolve(
-        cloud, 0.0, D32["dt"], D32["steps"] + 1, drift_name="phase_space",
-        params=D32_PARAMS, gen=_gen(dev, 6)))
+    cloud = evolve_d32_fp.oracle_cloud(D32["n_model"], dev)
+    inf, sec = _timed(lambda: evolve_d32_fp.oracle(
+        cloud, D32["dt"], D32["steps"], D32["T"]))
     od = np.diagonal(inf["covar"], axis1=1, axis2=2)
-    ed = np.tile(_lyapunov_diag(inf["times"], D32["T"]), (1, d // 2))
+    ed = np.tile(evolve_d32_fp.lyapunov_diag(inf["times"], D32["T"]),
+                 (1, d // 2))
     rel = np.abs(od - ed) / ed
     bound = 5 * math.sqrt(2 / n)
     print(f"L1 SDE oracle d={d}, n={n}, {D32['steps'] + 1} records in f64: "
@@ -3746,9 +3745,11 @@ def phase_oracle_d32(dev):
     if not (rel <= bound).all():
         fail(f"L1: the oracle's covariance leaves the Lyapunov solution by "
              f"{rel.max():.3e} > {bound:.3e}")
+    cloud = torch.randn((n, d), generator=_gen(dev, 5), dtype=torch.float64,
+                        device=dev)
     sites = _sync_sites(lambda: sde.evolve(
         cloud, 0.0, D32["dt"], 3, drift_name="phase_space",
-        params=D32_PARAMS, gen=_gen(dev, 6)))
+        params=evolve_d32_fp.oracle_params(D32["T"]), gen=_gen(dev, 6)))
     print(f"L1 host waits in a 3-step evolve: {len(sites)} "
           f"{sorted(set(sites))}")
     return inf, dict(seconds=sec, cov_diag_lyapunov_rel_err_max=rel.max(),
@@ -3757,22 +3758,20 @@ def phase_oracle_d32(dev):
 
 
 def phase_model_d32(oracle_infos):
-    """L2: evolve_d32_fp.py's RunConfig through driver.run at N=16384 for
-    48 fixed-Heun steps, steps_per_dispatch 8, precision tpu: exactly 2
-    plain-mode launches a step, no NaN, residual below 1e-3; the script's
-    summary against L1's cloud and the Lyapunov ODE, the latter gated at
-    the model's own Monte Carlo bound 5 sqrt(2/N) relative."""
-    from vmc_pde_torch.config import RunConfig
+    """L2: vmc_pde_torch.studies.evolve_d32_fp's RunConfig through
+    driver.run at N=16384 for 48 fixed-Heun steps, steps_per_dispatch 8,
+    precision tpu: exactly 2 plain-mode launches a step, no NaN, residual
+    below 1e-3; the study's summary against L1's cloud and the Lyapunov
+    ODE, the latter gated at the model's own Monte Carlo bound
+    5 sqrt(2/N) relative."""
+    from vmc_pde_torch.studies import evolve_d32_fp
 
-    N, d, steps = D32["n_model"], D32["dim"], D32["steps"]
-    cfg = RunConfig(
-        name="d32_fp", dim=d, offset=(0.0,) * d,
-        equation="advection_hamiltonian_wDiss",
-        equation_params={"T": D32["T"]}, variant="affine",
-        latent_name="Gauss", dt0=D32["dt"], max_step=D32["dt"],
-        t_end=D32["dt"] * (steps + 1), n_samples_tdvp=N, n_samples_obs=N,
-        precision="tpu", verbose=False, steps_per_dispatch=8,
-        device="cuda")
+    N, steps = D32["n_model"], D32["steps"]
+    args = evolve_d32_fp.parse_args(["--device", "cuda"])
+    if (args.n, args.steps, args.dt, args.temperature) != (
+            N, steps, D32["dt"], D32["T"]):
+        fail("L2: evolve_d32_fp's defaults are not phase L's shape")
+    cfg = evolve_d32_fp.make_config(args)
     label = f"L2 evolve_d32_fp N={N}"
     t0 = time.perf_counter()
     state, arrays, counts = _drive(None, label, steps, cfg=cfg)
@@ -3782,28 +3781,16 @@ def phase_model_d32(oracle_infos):
     if counts["persample"] != 2 * steps:
         fail(f"L2: {counts['persample']} plain-mode launches, expected "
              f"{2 * steps}")
-    m_t = arrays["times"]
-    n_rec = min(len(m_t), len(oracle_infos["covar"]))
-    md = np.diagonal(arrays["covar"][:n_rec], axis1=1, axis2=2)
-    od = np.diagonal(oracle_infos["covar"][:n_rec], axis1=1, axis2=2)
-    ed = np.tile(_lyapunov_diag(m_t[:n_rec], D32["T"]), (1, d // 2))
-    rel = np.abs(md - od) / np.maximum(np.abs(od), 1e-9)
-    rel_exact = np.abs(md - ed) / np.maximum(np.abs(ed), 1e-9)
     bound = 5 * math.sqrt(2 / N)
-    summary = dict(
-        steps=int(len(m_t)), wall_s=wall, P=state.numParameters,
-        residual_median=float(np.median(arrays["solver_res"])),
-        cov_diag_rel_err_max=float(rel.max()),
-        cov_diag_rel_err_mean=float(rel.mean()),
-        cov_diag_exact_rel_err_max=float(rel_exact.max()),
-        cov_diag_exact_rel_err_mean=float(rel_exact.mean()),
-        momentum_var_growth=float(md[-1, 1::2].mean() / md[0, 1::2].mean()),
-        entropy_finite=bool(np.isfinite(arrays["entropy"]).all()),
-        exact_bound=bound, launches=counts["persample"])
+    summary = dict(evolve_d32_fp.summarize(arrays, oracle_infos, D32["T"],
+                                           wall),
+                   wall_s=wall, P=state.numParameters, exact_bound=bound,
+                   launches=counts["persample"])
     print(f"{label} summary: {json.dumps(summary)}")
-    if not (rel_exact <= bound).all():
+    if not summary["cov_diag_exact_rel_err_max"] <= bound:
         fail(f"L2: the model's covariance diagonal leaves the Lyapunov "
-             f"solution by {rel_exact.max():.3e} > 5 sqrt(2/N) = {bound:.3e}")
+             f"solution by {summary['cov_diag_exact_rel_err_max']:.3e} > "
+             f"5 sqrt(2/N) = {bound:.3e}")
     return summary
 
 
@@ -3881,16 +3868,15 @@ def phase_oracle_cli_workdir(root):
 
 
 def phase_oracle_double_well(dev):
-    """L5: double_well_init_cloud at evolve_doublewell.py's 100000
-    particles: x against the quadrature CDF (Kolmogorov-Smirnov distance
-    below 5/sqrt(n)), the variance of p within 5 SE of DW_T0; then 1001
-    phase_space steps at T=0.5, lam=1, v2=-4, timed."""
+    """L5: vmc_pde_torch.studies.evolve_doublewell's oracle cloud at its
+    100000 particles: x against the quadrature CDF (Kolmogorov-Smirnov
+    distance below 5/sqrt(n)), the variance of p within 5 SE of DW_T0;
+    then its 1001 phase_space steps at T=0.5, lam=1, v2=-4, timed."""
     from vmc_pde_torch.models.latent import DW_T0, dw_x_quadrature
-    from vmc_pde_torch.oracle import sde
+    from vmc_pde_torch.studies import evolve_doublewell
 
-    n = 100000
-    cloud, init_sec = _timed(lambda: sde.double_well_init_cloud(
-        _gen(dev, 3), n))
+    n = evolve_doublewell.parse_args([]).oracle_n
+    cloud, init_sec = _timed(lambda: evolve_doublewell.oracle_cloud(n, dev))
     xs, pdf = dw_x_quadrature()
     cdf = np.cumsum(pdf)
     cdf /= cdf[-1]
@@ -3899,11 +3885,8 @@ def phase_oracle_double_well(dev):
     ks = max((np.arange(1, n + 1) / n - F).max(), (F - np.arange(n) / n).max())
     var_p = float(cloud[:, 1].var(unbiased=False))
     se = math.sqrt(2 / n) * DW_T0
-    params = {"m": 1.0, "omega": 1.0, "gamma": 1.0, "T": 0.5, "lam": 1.0,
-              "v2": -4.0}
-    (final, inf), sec = _timed(lambda: sde.evolve(
-        cloud, 0.0, 2e-3, 1001, drift_name="phase_space", params=params,
-        gen=_gen(dev, 4)))
+    (final, inf), sec = _timed(lambda: evolve_doublewell.oracle(
+        cloud, 2e-3, 1001))
     finite = bool(torch.isfinite(final).all()) and all(
         np.isfinite(v).all() for v in inf.values())
     var_end = np.diag(inf["covar"][-1])
@@ -3932,7 +3915,8 @@ def phase_radial(dev):
     """L6: evolve_radial on the card in f64. The Gaussian grid of
     tests/test_oracle_and_e2e.py:337 (d=8, r_max 30, n_r 1200, t_end 0.5)
     against the closed-form entropy (5e-3) and variance (2e-3), mass drift
-    below 1e-10; compare_student_grid.py's graded grid: the t=0 entropy
+    below 1e-10; vmc_pde_torch.studies.compare_student_grid's graded grid
+    (grid_reference): the t=0 entropy
     within 5e-3 of student_t_entropy(2, 8), eager and graphed runs on the
     card against the CPU's to t_end 0.01 (2500 steps) within 1e-12
     relative, and a graphed run of the same t_end as a single recording
@@ -3947,6 +3931,7 @@ def phase_radial(dev):
     from functools import partial
 
     from vmc_pde_torch.oracle import radial
+    from vmc_pde_torch.studies import compare_student_grid as csg
 
     gauss = partial(radial.gauss_radial, d=8)
     out, gauss_sec = _timed(lambda: radial.evolve_radial(
@@ -3963,9 +3948,7 @@ def phase_radial(dev):
     if not (ent_err < 5e-3 and var_err < 2e-3 and drift < 1e-10):
         fail("L6: the radial oracle misses the Gaussian closed forms")
 
-    faces = radial.radial_faces(1500.0, dr0=0.02, r_core=12.0, growth=1.02)
-    student = partial(radial.student_t_radial, nu=2.0, d=8)
-    kw = dict(d=8, faces=faces)
+    faces = csg.grid_faces()
     runs = {}
     for label, extra in (
             ("eager", dict(device=dev, cuda_graph=False, n_record=4)),
@@ -3977,8 +3960,7 @@ def phase_radial(dev):
             ("one record", dict(device=dev, n_record=1)),
             ("one record eager", dict(device=dev, cuda_graph=False,
                                       n_record=1))):
-        runs[label] = _timed(lambda: radial.evolve_radial(
-            student, t_end=0.01, **kw, **extra))
+        runs[label] = _timed(lambda: csg.grid_reference(0.01, **extra))
 
     def rel_gap(a, b):
         return max(np.abs(a[k] - b[k]).max() / np.abs(b[k]).max()
@@ -4001,8 +3983,8 @@ def phase_radial(dev):
     if abs(t0_ent - s0) >= 5e-3 or not gap <= 1e-12:
         fail("L6: the graded grid misses its t=0 entropy or the CPU path")
     t_run = 0.5
-    out, sec = _timed(lambda: radial.evolve_radial(
-        student, t_end=t_run, n_record=250, device=dev, **kw))
+    out, sec = _timed(lambda: csg.grid_reference(t_run, n_record=250,
+                                                 device=dev))
     graph_ms = 1e3 * sec / _radial_steps(faces, t_run, 250)[0]
     projected = graph_ms * _radial_steps(faces, 5.0, 250)[0] / 1e3
     drift = np.abs(out["mass"] - out["mass"][0]).max()
@@ -4014,8 +3996,8 @@ def phase_radial(dev):
           f"{drift:.2e}")
     if drift >= 1e-10 or not rising:
         fail("L6: the graded run lost mass or entropy")
-    sites = _sync_sites(lambda: radial.evolve_radial(
-        student, t_end=0.002, n_record=4, device=dev, **kw))
+    sites = _sync_sites(lambda: csg.grid_reference(0.002, n_record=4,
+                                                   device=dev))
     print(f"L6 host waits in a graphed run: {len(sites)} "
           f"{sorted(set(sites))}")
     return dict(gauss_seconds=gauss_sec, eager_ms_per_step=eager_ms,
@@ -4400,7 +4382,7 @@ TRACE_LETTERS = {"persample": "P", "persample_split": "S", "quant8": "Q",
                  "syrk": "Y", "jacobi": "J", "jacobi_blocks": "B"}
 M_K = 8  # steps per batch on M1, M2's adaptive Heun and M4's fluidpaper
 M2_RK23_K = 4  # RK23 at tol 2e-5 (no retry there: Heun shows it)
-M3_K = 4  # at the production point, where a step takes ~2.6 s
+M3_K = 2  # at the production point, where a step takes ~2.6 s
 M4_DW_K = 4  # doubleWell, whose eager step takes 0.5-0.8 s
 
 
@@ -4699,10 +4681,23 @@ def _graph_path(label, cfg, K, per_run, adaptive=False, bar=None,
     torch.cuda.synchronize()
     out.update(host_waits_per_batch=len(sites), wait_sites=sites,
                replay_host_us=host_us)
-    if adaptive:
-        # from the batch's start: the first step, with its retry
-        tdvp._start_batch(prog.buffers, th0, 0.0, cfg.dt0, cfg.dt0, None)
-    counts, busy, wall = _trace(lambda: prog.replay(keys[0]))
+    def traced_replay():
+        if adaptive:
+            # from the batch's start: the first step, with its retry
+            tdvp._start_batch(prog.buffers, th0, 0.0, cfg.dt0, cfg.dt0,
+                              None)
+        return _trace(lambda: prog.replay(keys[0]))
+
+    counts, busy, wall = traced_replay()
+    if not adaptive and any(counts[n] != v for n, v in per_run.items()):
+        # the profiler can drop a record of a long replay (one Jacobi
+        # launch of M3's 51 once), never add one: a second trace, and each
+        # kernel's count the larger of the two
+        again = traced_replay()[0]
+        print(f"{label}: one replay's trace read {counts}, a second "
+              f"{again}; the larger count of each kernel stands")
+        out.update(replay_launches_traces=[counts, again])
+        counts = {n: max(v, again[n]) for n, v in counts.items()}
     out.update(replay_launches=counts, replay_device_busy=busy,
                replay_wall_s=wall)
     if not gate_batched_trace and not adaptive and any(
@@ -4892,6 +4887,262 @@ def phase_oracles():
                       out["L2"]["launches"]},
         "metropolis": {"L3 python -m vmc_pde_torch.oracle fluidpaper "
                        "(the cloud)": out["L3"]["launches"]}}
+
+
+# -- phase S: the accuracy studies (vmc_pde_torch/studies/) on the card at
+# the JAX scripts' default widths and sizes, through the modules' functions
+
+# the JAX package's record of accuracy_d8 --qmc --steps-per-dispatch 8,
+# seed 1, f32 (results/accuracy_d8_qmc.jsonl): the fixed-Heun ramp is
+# deterministic, so the port takes the same steps to the same t
+D8_STEPS, D8_T_FINAL = 541, 5.0044
+# the largest f32 Gauss entropy error scripts/accuracy_d8.py's docstring
+# reports
+D8_GAUSS_MAX_ERR = 0.118
+# the bars of streaming against direct minSR, relative to the direct
+# trajectory's change of theta: in f64 tests/test_torch_solvers.py's
+# 2e-4; in f32 MINSR_ORDER_FACTOR times the order control's reading, two
+# direct runs on the same draws in two sample orders (rounding alone):
+# a right streaming assembly only sums in another order too
+MINSR_STREAM_RTOL_F64 = 2e-4
+MINSR_ORDER_FACTOR = 4.0
+# the JAX package's runs in results/ under the same checks (scripts/
+# check_aniso.py on aniso_d12_tpu.hdf5; scripts/check_fp6.py on
+# fp6_tpu.hdf5 at 60000 particles, on a CPU), for the record beside the
+# port's
+JAX_ANISO_WORST = 0.0559
+JAX_FP6 = {"max_mean_diff": 0.0378, "max_rel_covdiag_diff": 0.0280}
+
+
+def _study(label, fn):
+    """fn() with the launch counters at 0; returns (its result, its
+    seconds, the wrappers' launches, with ``jacobi_blocks_device`` the
+    block variant's solves counted by the kernel on the device, graph
+    replays included)."""
+    _zero_counts()
+    before = jacobi.block_solves_on_device()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = dict(_counts(), jacobi_blocks_device=(
+        jacobi.block_solves_on_device() - before))
+    print(f"{label}: {sec:.1f} s, kernel launches {counts}")
+    return out, sec, counts
+
+
+def _no_nan(label, record):
+    """Fail where a study's recorded arrays or numbers hold a NaN."""
+    bad = []
+    for k, v in record.items():
+        if isinstance(v, dict):
+            _no_nan(f"{label} {k}", v)
+            continue
+        a = np.asarray(v)
+        if k == "nan":
+            if a.any():
+                bad.append(k)
+        elif a.dtype.kind == "f" and not np.isfinite(a).all():
+            bad.append(k)
+    if bad:
+        fail(f"{label}: NaN or inf in {bad}")
+
+
+def phase_studies():
+    """Phase S: S1 northstar_l2 at its defaults (mwe, f64, N=10^4, t_end
+    1, the 501^2 grid), L2 <= 1e-5; S2 make_paper_figures.regenerate_runs:
+    accuracy_d8 Gauss and Student-t at N=10^4, t_end 5, K=8, --qmc (541
+    steps to t = 5.0044 each, the Gauss entropy error at most 0.118), then
+    the fp6 heat chain (harmonicOsc_diff at T = (10, 5, 2.5), coupled, the
+    sphere integrals, K=8, t_end 5); S3 check_fp6 at 60000 particles on
+    the heat chain (its drift) and on harmonicOsc_diff at the preset's
+    T = 10 to t_end 0.5, the JAX package's fp6_tpu.hdf5 run; S4
+    diffusion_anisotropic (d=12) to t_end 0.5 at K=8, then check_aniso;
+    S5 evolve_minsr_largep at its defaults (P = 18,604, N = 4096, minSR,
+    the per-sample kernel in plain mode) with --chunk 1024 on its first 3
+    steps, within MINSR_ORDER_FACTOR times the order control's gap (two
+    direct runs on one set of draws in two orders), and the first 2 of
+    them again in f64 within MINSR_STREAM_RTOL_F64 of the direct ones; S6
+    make_paper_figures' collection, without drawing (its grid oracle to
+    t_end 0.5, phase L6's cut), and the entropy lag of S2's Student-t
+    curve against that grid over its span. No study may record a NaN. Returns its record and the
+    kernels' launches by path."""
+    from vmc_pde_torch.studies import (check_aniso, check_fp6,
+                                       evolve_minsr_largep,
+                                       make_paper_figures, northstar_l2)
+
+    dev = torch.device("cuda")
+    _h5_stand_in()  # the fp6 run writes infos.hdf5 (S6 takes its infos)
+    root = tempfile.mkdtemp(prefix="chip_smoke_s_")
+    run_dir = os.path.join(root, "runs")
+    t0 = time.perf_counter()
+    out, paths = {}, {"persample": {}, "jacobi": {}, "jacobi_blocks": {}}
+    try:
+        args = northstar_l2.parse_args([])
+
+        def northstar():
+            state, rec = driver.run(northstar_l2.make_config(args))
+            return northstar_l2.evaluate(state, args), rec.as_arrays()
+
+        (rec, infos), sec, counts = _study("S1 northstar_l2", northstar)
+        print(json.dumps(rec))
+        _no_nan("S1", dict(rec, **infos))
+        if not rec["L2"] <= northstar_l2.TARGET:
+            fail(f"S1: L2 {rec['L2']:.3e} > {northstar_l2.TARGET}")
+        out["S1"] = dict(rec, seconds=sec, steps=len(infos["times"]))
+        paths["jacobi"]["S1 northstar_l2 (mwe, f64, one-block eigh)"] = \
+            counts["jacobi"]
+
+        runs, sec, counts = _study(
+            "S2 make_paper_figures.regenerate_runs",
+            lambda: make_paper_figures.regenerate_runs(run_dir,
+                                                       device=dev))
+        out["S2"] = {"seconds": sec}
+        for name in ("d8_gauss", "d8_student"):
+            rec, infos = runs[name]
+            # Student-t has no closed form: its entropy errors are NaN
+            _no_nan(f"S2 {name}", dict(infos, **{
+                k: v for k, v in rec.items()
+                if name == "d8_gauss" or not k.startswith("entropy_err")}))
+            if (rec["steps"], round(rec["t_final"], 4)) != (D8_STEPS,
+                                                             D8_T_FINAL):
+                fail(f"S2 {name}: {rec['steps']} steps to "
+                     f"{rec['t_final']}, the JAX record's {D8_STEPS} to "
+                     f"{D8_T_FINAL}")
+            out["S2"][name] = rec
+        err = out["S2"]["d8_gauss"]["entropy_err_max"]
+        if not err <= D8_GAUSS_MAX_ERR:
+            fail(f"S2: Gauss entropy error {err} > {D8_GAUSS_MAX_ERR}")
+        fp6 = runs["fp6"]
+        _no_nan("S2 fp6", fp6)
+        out["S2"]["fp6"] = dict(steps=len(fp6["times"]),
+                                t_final=float(fp6["times"][-1]),
+                                entropy_final=float(fp6["entropy"][-1]))
+        print(f"S2 fp6 heat chain: {json.dumps(out['S2']['fp6'])}")
+        paths["jacobi_blocks"][
+            "S2 regenerate_runs: accuracy_d8 Gauss and Student-t (P=684, "
+            "K=8 graphs), fp6 heat chain (P=411, K=8), the kernel's own "
+            "count"] = counts["jacobi_blocks_device"]
+
+        fp6_check, sec, _ = _study(
+            "S3 check_fp6 --heat-chain, 60000 particles",
+            lambda: check_fp6.check(fp6, 60000, heat_chain=True,
+                                    device=dev))
+        out["S3"] = {"heat_chain": dict(fp6_check, seconds=sec)}
+
+        def preset_fp6():
+            cfg = preset("harmonicOsc_diff", t_end=0.5, steps_per_dispatch=8,
+                         verbose=False, device="cuda")
+            infos = driver.run(cfg)[1].as_arrays()
+            return infos, check_fp6.check(infos, 60000, device=dev)
+
+        (infos, rec), sec, counts = _study(
+            "S3 harmonicOsc_diff t_end 0.5, check_fp6 60000 particles",
+            preset_fp6)
+        _no_nan("S3", dict(infos, **rec))
+        out["S3"]["preset"] = dict(rec, seconds=sec, steps=len(
+            infos["times"]), jax_fp6_tpu=JAX_FP6)
+        paths["jacobi_blocks"]["S3 harmonicOsc_diff t_end 0.5 (P=411, "
+                               "K=8), the kernel's own count"] = \
+            counts["jacobi_blocks_device"]
+
+        def aniso():
+            cfg = preset("diffusion_anisotropic", t_end=0.5,
+                         steps_per_dispatch=8, verbose=False, device="cuda")
+            infos = driver.run(cfg)[1].as_arrays()
+            return infos, check_aniso.report(infos, 12, 0, dev)
+
+        (infos, rec), sec, counts = _study(
+            "S4 diffusion_anisotropic t_end 0.5, check_aniso", aniso)
+        _no_nan("S4", dict(infos, **rec))
+        out["S4"] = dict(rec, seconds=sec, jax_aniso_d12_tpu=JAX_ANISO_WORST)
+        paths["jacobi_blocks"]["S4 diffusion_anisotropic t_end 0.5 (P=762, "
+                               "K=8), the kernel's own count"] = \
+            counts["jacobi_blocks_device"]
+
+        rec, sec, counts = _study(
+            "S5 evolve_minsr_largep --chunk 1024",
+            lambda: evolve_minsr_largep.main(["--chunk", "1024"]))
+        _no_nan("S5", rec)
+        if rec["per_sample"] != "cuda" or counts["persample"] == 0:
+            fail(f"S5: the RHS took {rec['per_sample']} with "
+                 f"{counts['persample']} kernel launches, not the kernel")
+        rel = {"tpu": [d / m for d, m in zip(
+            rec["chunked_vs_direct_max_dtheta"], rec["direct_max_dtheta"])]}
+        # the control in f32: the same steps of two direct runs on the
+        # same draws, in two sample orders
+        args = evolve_minsr_largep.parse_args(["--chunk", "1024"])
+        args.device = dev
+        (diffs, moves), sec_c, counts_c = _study(
+            "S5 the order control in f32",
+            lambda: evolve_minsr_largep.order_control(args))
+        control = [d / m for d, m in zip(diffs, moves)]
+        # the same replay in f64 (torch.func, no kernel): the streaming
+        # assembly's own error, without f32's rounding
+        args = evolve_minsr_largep.parse_args(["--chunk", "1024",
+                                               "--chunk-steps", "2",
+                                               "--precision", "f64"])
+        args.device = dev
+        (diffs, moves), sec64, _ = _study(
+            "S5 the chunked replay in f64",
+            lambda: evolve_minsr_largep.chunked_vs_direct(args))
+        rel["f64"] = [d / m for d, m in zip(diffs, moves)]
+        bars = {"tpu": MINSR_ORDER_FACTOR * max(control),
+                "f64": MINSR_STREAM_RTOL_F64}
+        print(f"S5 chunked vs direct, max |dtheta| over the direct step's "
+              f"change: {json.dumps(rel)}; the f32 order control "
+              f"{json.dumps(control)}; bars {json.dumps(bars)}")
+        for prec, r in rel.items():
+            if not max(r) <= bars[prec]:
+                fail(f"S5: chunked minSR off the direct one by {r} of the "
+                     f"step in {prec} (bar {bars[prec]})")
+        out["S5"] = dict(rec, seconds=sec, chunked_vs_direct_rel=rel,
+                         order_control_rel=control, bars=bars,
+                         order_control_seconds=sec_c,
+                         f64_replay_seconds=sec64,
+                         launches=counts["persample"])
+        paths["persample"][
+            f"S5 evolve_minsr_largep (P={rec['P']}, N={rec['N']}, minSR, "
+            f"{rec['steps']} steps, then 3 + 3 steps of the chunked "
+            "replay)"] = counts["persample"]
+        paths["persample"][
+            "S5 the order control (3 + 3 direct steps on the same draws)"
+        ] = counts_c["persample"]
+
+        def collect():
+            curves = make_paper_figures.collect_diffusion_curves(
+                None, run_dir, grid_t_end=0.5, device=dev)
+            inn, wiener = make_paper_figures.collect_phasespace_runs(
+                None, run_dir, device=dev, own=runs["fp6"])
+            return curves, inn, wiener, make_paper_figures.ness_state()
+
+        (curves, inn, wiener, ness), sec, _ = _study(
+            "S6 make_paper_figures collection", collect)
+        labels = [c[0] for c in curves]
+        if len(curves) != 3 or len(inn) != 1 or len(wiener) != 1:
+            fail(f"S6: collected {labels}, {len(inn)} flow run(s) and "
+                 f"{len(wiener)} oracle(s); expected 3 curves, 1 and 1")
+        for label, _, data in curves + inn + wiener:
+            _no_nan(f"S6 {label}", data)
+        # the Student-t curve's entropy lag over the grid's span
+        grid, student = curves[-1][2], curves[0][2]
+        lag = np.interp(grid["times"], student["times"],
+                        student["entropy"]) - grid["entropy"]
+        print(f"S6 d8 Student-t (S2) vs the grid oracle over t <= "
+              f"{grid['times'][-1]:.2f}: max |lag| {np.abs(lag).max():.4f},"
+              f" lag at the end {lag[-1]:+.4f}")
+        out["S6"] = dict(seconds=sec, curves=labels,
+                         grid_entropy=[float(grid["entropy"][0]),
+                                       float(grid["entropy"][-1])],
+                         ness_entropy=float(ness[1]),
+                         student_max_abs_lag=float(np.abs(lag).max()),
+                         student_lag_end=float(lag[-1]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase S: {out['seconds']:.1f} s")
+    return out, paths
 
 
 # Phase W: the per-sample kernel on flows past dim 64, halves of 32,
@@ -5417,6 +5668,11 @@ def main():
                     path["launches"][name]
     oracles, oracle_paths = phase_oracles()
     paths.update(oracle_paths["persample"])
+    studies, study_paths = phase_studies()
+    paths.update(study_paths["persample"])
+    results["jacobi"]["launches_by_path"].update(study_paths["jacobi"])
+    results["jacobi_blocks"]["launches_by_path"].update(
+        study_paths["jacobi_blocks"])
     results["metropolis"]["launches_by_path"] = {
         "VarState.sample of fluidpaper's flow (phase 10)":
             launches["metropolis"], **oracle_paths["metropolis"]}
@@ -5428,6 +5684,7 @@ def main():
     print(json.dumps({"qmc_hessian_integrals": qhi}))
     print(json.dumps({"run_state": run_state}))
     print(json.dumps({"oracles": oracles}, default=str))
+    print(json.dumps({"studies": studies}, default=str))
     print(json.dumps({"multistep": multistep}, default=str))
     print(json.dumps({"wide": wide}, default=str))
     print(json.dumps({"kernels": [

@@ -121,7 +121,7 @@ def test_direct_stats_split_gram_matches_jax(backend, cross):
                                          gram_cross=cross)
     x = _samples(tdvp, theta, 52)
     st = tdvp._direct_stats(theta.float(), 0.25, x)
-    jst = jtdvp._direct_stats(jflat, 0.25, jnp.asarray(x.numpy()))
+    jst = jax.jit(jtdvp._direct_stats)(jflat, 0.25, jnp.asarray(x.numpy()))
     for key in ("S0", "F0", "A"):
         assert rel_err(st[key], jst[key]) < 1e-4, key
 

@@ -211,7 +211,7 @@ def test_jax_chunked_f0_spread(problems, jax_stats):
     tdvp, theta_c, dt = _jax_tdvp(JParallelCtx.single_device(),
                                   problems["jflow"], problems["jparams"],
                                   EQ, cfg, precision)
-    one = _np(tdvp._chunked_stats(
+    one = _np(jax.jit(tdvp._chunked_stats)(
         theta_c, 0.25, jnp.asarray(problems["inputs"]["x"], dt))["F0"])
     four = jax_stats["chunked", "dp4tp1"]["F0"]
     diff = np.abs(four - one)

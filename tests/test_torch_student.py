@@ -234,10 +234,9 @@ def test_direct_stats_weighted_and_clipped_match_jax(is_gamma, clip):
     log_w = None
     if is_gamma != 1.0:
         log_w = normal((x.shape[0],), 5)
-    jst = jtdvp._direct_stats(jnp.asarray(theta.numpy()), 0.2,
-                              jnp.asarray(x.numpy()),
-                              log_w=None if log_w is None
-                              else jnp.asarray(log_w))
+    jst = jax.jit(jtdvp._direct_stats)(
+        jnp.asarray(theta.numpy()), 0.2, jnp.asarray(x.numpy()),
+        log_w=None if log_w is None else jnp.asarray(log_w))
     st = tdvp._direct_stats(theta, 0.2, x,
                             log_w=None if log_w is None else t64(log_w))
     for key in ("eloc", "eloc_mean", "eloc_abs_mean", "eloc_var",

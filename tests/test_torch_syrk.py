@@ -12,6 +12,7 @@ lo*lo term is ~2^-16 relative); 1e-4 for the statistics, as
 tests/test_torch_chunked.py.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -127,10 +128,12 @@ def test_syrk_statistics_match_jax(chunked):
     launches = (persample.per_sample_cuda.launches, syrk.syrk_cuda.launches)
     if chunked:
         st = tdvp._chunked_stats(theta.float(), 0.25, x)
-        jst = jtdvp._chunked_stats(jflat, 0.25, jnp.asarray(x.numpy()))
+        jst = jax.jit(jtdvp._chunked_stats)(jflat, 0.25,
+                                            jnp.asarray(x.numpy()))
     else:
         st = tdvp._direct_stats(theta.float(), 0.25, x)
-        jst = jtdvp._direct_stats(jflat, 0.25, jnp.asarray(x.numpy()))
+        jst = jax.jit(jtdvp._direct_stats)(jflat, 0.25,
+                                           jnp.asarray(x.numpy()))
     assert launches == (persample.per_sample_cuda.launches,
                         syrk.syrk_cuda.launches)
     for key in ("S0", "F0", "A"):

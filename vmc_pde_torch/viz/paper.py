@@ -53,9 +53,10 @@ def gauss_ball_mass(dim: int, radius_sigmas: float) -> float:
     sphere-integral targets (paper_plot_phaseSpaceTempDifference.py:129-133
     hard-codes the d=2 values 1.44e-2 / 2.96e-4 / 2.08e-8 for r=sigma/0.5/0.1
     around a variance-T state -- this is the closed form)."""
-    from scipy.stats import chi2
+    from scipy.special import gammainc
 
-    return float(chi2.cdf(radius_sigmas**2, dim))
+    # the chi-square CDF with dim degrees of freedom at r^2
+    return float(gammainc(dim / 2, radius_sigmas**2 / 2))
 
 
 def entropy_error_stats(infos: dict, dim: int, D: float = 1.0) -> dict:
